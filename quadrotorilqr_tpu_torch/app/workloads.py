@@ -1,0 +1,61 @@
+"""Canonical workloads: the hover-to-waypoint benchmark problem and the
+reference demo's parameters and weights (`quadrotorilqr_tpu/app/workloads.py`).
+
+Random draws come from an explicit `torch.Generator`; they do not reproduce
+`jax.random`'s numbers for the same seed.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..lie import se3
+from ..models.quadrotor import QuadrotorParams, State
+from ..solver.ilqr import Trajectory
+
+
+def demo_params(dtype=torch.float64, device=None) -> QuadrotorParams:
+    """The reference demo's vehicle: 1 kg, unit inertia, 1 m arms."""
+    return QuadrotorParams.create(
+        mass_kg=1.0,
+        inertia=torch.eye(3, dtype=dtype),
+        arm_length_m=1.0,
+        torque_to_thrust_ratio_m=0.0,
+        g_mpss=9.81,
+        device=device,
+    )
+
+
+def demo_weights(dtype=torch.float64, device=None):
+    """Q = diag(100 * 1_6, 1_6), R = I_4."""
+    q = torch.diag(
+        torch.cat([100.0 * torch.ones(6, dtype=dtype), torch.ones(6, dtype=dtype)])
+    ).to(device)
+    r = torch.eye(4, dtype=dtype, device=device)
+    return q, r
+
+
+def hover_to_waypoint(
+    generator: torch.Generator, batch, n=100, dt_s=0.02, dtype=torch.float32,
+    pose_scale=1.0, device=None,
+):
+    """Randomized initial SE(3) poses and velocities, and a common hover
+    target at the origin with hover thrust (BASELINE.json config 2).
+
+    Returns (initial states with (batch, ...) leaves, desired Trajectory)."""
+    draw = lambda shape: torch.randn(
+        shape, generator=generator, dtype=dtype, device=generator.device
+    ).to(device)
+    tau = pose_scale * draw((batch, 6))
+    tau[:, 3:6] *= 0.5
+    vel = 0.1 * draw((batch, 6))
+    init_states = State(pose=se3.exp(tau), vel=vel)
+    desired = Trajectory(
+        times=torch.arange(n, dtype=dtype, device=device) * dt_s,
+        states=State(
+            pose=se3.identity((n,), dtype, device),
+            vel=torch.zeros((n, 6), dtype=dtype, device=device),
+        ),
+        controls=torch.full((n, 4), 9.81 / 4.0, dtype=dtype, device=device),
+    )
+    return init_states, desired

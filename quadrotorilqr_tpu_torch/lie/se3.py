@@ -1,0 +1,151 @@
+"""SE(3) rigid transforms, batched PyTorch, manif conventions.
+
+Counterpart of `quadrotorilqr_tpu/lie/se3.py`. The group element is
+`SE3(quat (..., 4) wxyz, trans (..., 3))`; the tangent is (..., 6) ordered
+[linear, angular]. Exp/Log go through the SO(3) left Jacobian, right-plus is
+`X * Exp(tau)` and right-minus is `Log(rhs^-1 * lhs)`;
+Adj = [[R, hat(t) R], [0, R]] and Jl_SE3 = [[Jl, Q], [0, Jl]] with Q the
+Barfoot Q-matrix.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from . import so3
+
+_SMALL_ANGLE = 1e-3
+
+
+@dataclass
+class SE3:
+    """Rigid transform: rotation as unit quaternion (wxyz) and translation."""
+
+    quat: torch.Tensor  # (..., 4)
+    trans: torch.Tensor  # (..., 3)
+
+
+def identity(batch_shape=(), dtype=torch.float32, device=None) -> SE3:
+    return SE3(
+        quat=so3.quat_identity(batch_shape, dtype, device),
+        trans=torch.zeros(tuple(batch_shape) + (3,), dtype=dtype, device=device),
+    )
+
+
+def multiply(a: SE3, b: SE3) -> SE3:
+    return SE3(
+        quat=so3.quat_multiply(a.quat, b.quat),
+        trans=a.trans + so3.quat_rotate(a.quat, b.trans),
+    )
+
+
+def inverse(x: SE3) -> SE3:
+    qinv = so3.quat_conjugate(x.quat)
+    return SE3(quat=qinv, trans=-so3.quat_rotate(qinv, x.trans))
+
+
+def _matvec(m, v):
+    return (m @ v[..., None])[..., 0]
+
+
+def exp(tau) -> SE3:
+    """se(3) (..., 6) [lin, ang] -> SE(3)."""
+    rho, theta = tau[..., 0:3], tau[..., 3:6]
+    return SE3(quat=so3.exp(theta), trans=_matvec(so3.left_jacobian(theta), rho))
+
+
+def log(x: SE3):
+    """SE(3) -> se(3) (..., 6) [lin, ang]."""
+    theta = so3.log(x.quat)
+    rho = _matvec(so3.left_jacobian_inv(theta), x.trans)
+    return torch.cat([rho, theta], -1)
+
+
+def _block66(a, q, d):
+    """[[a, q], [0, d]] from (..., 3, 3) blocks."""
+    top = torch.cat([a, q], -1)
+    bot = torch.cat([torch.zeros_like(a), d], -1)
+    return torch.cat([top, bot], -2)
+
+
+def adjoint(x: SE3):
+    """Adj(X) (..., 6, 6) = [[R, hat(t) R], [0, R]]."""
+    r = so3.quat_to_matrix(x.quat)
+    return _block66(r, so3.hat(x.trans) @ r, r)
+
+
+def _q_matrix(tau):
+    """Barfoot Q(rho, theta), the upper-right block of Jl_SE3."""
+    rho, theta = tau[..., 0:3], tau[..., 3:6]
+    theta_sq = (theta * theta).sum(-1)
+    small = theta_sq < _SMALL_ANGLE**2
+    t2 = torch.where(small, torch.ones_like(theta_sq), theta_sq)
+    t = torch.sqrt(t2)
+    st, ct = torch.sin(t), torch.cos(t)
+    b_exact = (t - st) / (t2 * t)
+    c_exact = (1.0 - 0.5 * t2 - ct) / (t2 * t2)
+    e_exact = (t - st - t2 * t / 6.0) / (t2 * t2 * t)
+    b_taylor = 1.0 / 6.0 - theta_sq / 120.0 + theta_sq * theta_sq / 5040.0
+    c_taylor = -1.0 / 24.0 + theta_sq / 720.0 - theta_sq * theta_sq / 40320.0
+    e_taylor = -1.0 / 120.0 + theta_sq / 5040.0 - theta_sq * theta_sq / 362880.0
+    b = torch.where(small, b_taylor, b_exact)[..., None, None]
+    c = torch.where(small, c_taylor, c_exact)[..., None, None]
+    e = torch.where(small, e_taylor, e_exact)[..., None, None]
+    d = c - 3.0 * e
+
+    v = so3.hat(rho)
+    w = so3.hat(theta)
+    vw = v @ w
+    wv = w @ v
+    wvw = wv @ w
+    vww = vw @ w
+    wwv = w @ wv
+    return (
+        0.5 * v
+        + b * (wv + vw + wvw)
+        - c * (wwv + vww - 3.0 * wvw)
+        - 0.5 * d * (wvw @ w + w @ wvw)
+    )
+
+
+def left_jacobian(tau):
+    jl = so3.left_jacobian(tau[..., 3:6])
+    return _block66(jl, _q_matrix(tau), jl)
+
+
+def right_jacobian(tau):
+    return left_jacobian(-tau)
+
+
+def left_jacobian_inv(tau):
+    """Jl_SE3^-1 = [[Jl^-1, -Jl^-1 Q Jl^-1], [0, Jl^-1]]."""
+    jlinv = so3.left_jacobian_inv(tau[..., 3:6])
+    return _block66(jlinv, -(jlinv @ _q_matrix(tau) @ jlinv), jlinv)
+
+
+def right_jacobian_inv(tau):
+    return left_jacobian_inv(-tau)
+
+
+def plus(x: SE3, tau) -> SE3:
+    """Right-plus x * Exp(tau)."""
+    return multiply(x, exp(tau))
+
+
+def plus_jacobians(x: SE3, tau):
+    """(x (+) tau, J_x = Adj(Exp(tau))^-1, J_tau = Jr_SE3(tau))."""
+    e = exp(tau)
+    return multiply(x, e), adjoint(inverse(e)), right_jacobian(tau)
+
+
+def minus(lhs: SE3, rhs: SE3):
+    """Right-minus Log(rhs^-1 * lhs): (..., 6)."""
+    return log(multiply(inverse(rhs), lhs))
+
+
+def minus_jacobians(lhs: SE3, rhs: SE3):
+    """(lhs (-) rhs, Jr_SE3(tau)^-1, -Jl_SE3(tau)^-1)."""
+    tau = minus(lhs, rhs)
+    return tau, right_jacobian_inv(tau), -left_jacobian_inv(tau)

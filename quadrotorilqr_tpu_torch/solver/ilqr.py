@@ -1,0 +1,296 @@
+"""Exact iLQR, batched natively over a leading scenario dim B (PyTorch).
+
+Counterpart of `quadrotorilqr_tpu/solver/ilqr.py`. The backward pass
+quadratizes all N stages at once (dense dynamics Jacobians and Gauss-Newton
+cost diffs) and then runs the Riccati recursion stage by stage; the forward
+rollout is a loop over stages. `solve_loop` is the per-lane outer loop of the
+reference semantics (trip 0 takes a full step; later trips pre-check the
+expected cost, backtrack with a per-lane step, post-check the achieved cost;
+finished lanes freeze). `solve` runs it on the plain pieces in this module;
+`solver/batched.py` runs the same loop on the CUDA kernels.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..costs import quadratic as qc
+from ..models import quadrotor as qm
+from ..models.quadrotor import QuadrotorParams, State
+from ..ops.linalg import chol_solve_small
+from ..tree import tree_map
+from .options import ILQROptions
+
+# Per-scenario status codes (the reference throws instead).
+STATUS_MAX_ITERS = 0
+STATUS_CONVERGED = 1
+STATUS_LINE_SEARCH_FAILED = 2
+
+DDP_TODO = "ddp=True is not ported yet (ROADMAP Queue 1 item 10, solver/ddp.py)"
+ASSOCIATIVE_TODO = (
+    "associative=True is not ported yet "
+    "(ROADMAP Queue 1 item 15, solver/parallel_riccati.py)"
+)
+MODEL_TODO = "only the quadrotor model is ported (ROADMAP Queue 1 item 11, model families)"
+HISTORY_TODO = (
+    "populate_debug history is not ported yet (ROADMAP Queue 1 item 6, history)"
+)
+LIMITS_TODO = "control limits are not ported yet (ROADMAP Queue 1 item 10, box limits)"
+CONTINUATION_TODO = (
+    "continuation is not ported yet (ROADMAP Queue 1 item 13, MPC warm start)"
+)
+PROBES_TODO = "return_probes is not ported yet (ROADMAP Queue 1 item 16, profiling)"
+
+
+@dataclass
+class Trajectory:
+    """Stacked trajectory: times (..., N), states (leaves (..., N, d)),
+    controls (..., N, 4)."""
+
+    times: torch.Tensor
+    states: State
+    controls: torch.Tensor
+
+    @property
+    def horizon(self):
+        return self.controls.shape[-2]
+
+
+@dataclass
+class CostHistory:
+    costs: torch.Tensor  # (..., max_iters)
+    valid: torch.Tensor  # (..., max_iters) bool
+
+
+@dataclass
+class SolveResult:
+    trajectory: Trajectory
+    cost: torch.Tensor  # (...)
+    iterations: torch.Tensor  # (...) int32: executed updates
+    status: torch.Tensor  # (...) int32: STATUS_*
+    debug: CostHistory | None = None
+
+
+def check_supported(options: ILQROptions, model=None, ddp=False, associative=False):
+    """Refuse every option outside the ported slice, naming its ROADMAP item."""
+    if ddp:
+        raise NotImplementedError(DDP_TODO)
+    if associative:
+        raise NotImplementedError(ASSOCIATIVE_TODO)
+    if model is not None and model is not qm:
+        raise NotImplementedError(MODEL_TODO)
+    if options.populate_debug:
+        raise NotImplementedError(HISTORY_TODO)
+
+
+def quadratize(params: QuadrotorParams, cost, traj: Trajectory, dt_s):
+    """Stage-stacked (j_x, j_u, c_x, c_u, c_xx, c_uu) for all N stages."""
+    _, j_x, j_u = qm.discrete_dynamics_jacobians(
+        qm.params_over_stages(params), traj.states, traj.controls, dt_s
+    )
+    _, c_x, c_u, c_xx, c_uu = qc.stage_cost_with_diffs(
+        cost, traj.states, traj.controls, cost.desired_states, cost.desired_controls
+    )
+    c_uu = c_uu.expand(c_u.shape[:-1] + c_uu.shape[-2:])
+    return j_x, j_u, c_x, c_u, c_xx, c_uu
+
+
+def riccati_gains_update(q_x, q_u, q_xx, q_uu, q_xu):
+    """Gain solve, value update and the per-stage symmetrization of V_xx
+    (without it float32 drives Quu indefinite past N~500).
+
+    Returns (k, K, v_x', v_xx', Qu.k, k.Quu.k)."""
+    rhs = torch.cat([q_u[..., None], q_xu.transpose(-1, -2)], -1)
+    sol = -chol_solve_small(q_uu, rhs)
+    k = sol[..., 0]
+    big_k = sol[..., 1:]
+    quu_k = (q_uu @ k[..., None])[..., 0]
+    big_kt = big_k.transpose(-1, -2)
+    v_x_new = q_x - (big_kt @ quu_k[..., None])[..., 0]
+    s = q_xx - big_kt @ q_uu @ big_k
+    v_xx_new = 0.5 * (s + s.transpose(-1, -2))
+    return k, big_k, v_x_new, v_xx_new, (q_u * k).sum(-1), (k * quu_k).sum(-1)
+
+
+def backward_pass(params, cost, traj: Trajectory, dt_s, quu_reg=0.0):
+    """Riccati recursion over (..., N, ...) trajectories.
+
+    Returns (ks (..., N, 4), Ks (..., N, 4, 12), QuTk (...), kTQuuk (...))."""
+    qc.check_supported(cost)
+    j_x, j_u, c_x, c_u, c_xx, c_uu = quadratize(params, cost, traj, dt_s)
+    batch = traj.controls.shape[:-2]
+    kw = dict(dtype=traj.controls.dtype, device=traj.controls.device)
+    v_x = torch.zeros(batch + (12,), **kw)
+    v_xx = torch.zeros(batch + (12, 12), **kw)
+    qutk = torch.zeros(batch, **kw)
+    ktquuk = torch.zeros(batch, **kw)
+    eye_u = torch.eye(c_uu.shape[-1], **kw)
+    n_stages = traj.horizon
+    ks = [None] * n_stages
+    big_ks = [None] * n_stages
+    for n in reversed(range(n_stages)):
+        jx, ju = j_x[..., n, :, :], j_u[..., n, :, :]
+        jxt, jut = jx.transpose(-1, -2), ju.transpose(-1, -2)
+        vxx_jx = v_xx @ jx
+        vxx_ju = v_xx @ ju
+        q_x = c_x[..., n, :] + (jxt @ v_x[..., None])[..., 0]
+        q_u = c_u[..., n, :] + (jut @ v_x[..., None])[..., 0]
+        q_xx = c_xx[..., n, :, :] + jxt @ vxx_jx
+        q_uu = c_uu[..., n, :, :] + jut @ vxx_ju
+        if quu_reg != 0.0:
+            q_uu = q_uu + quu_reg * eye_u
+        q_xu = jxt @ vxx_ju
+        k, big_k, v_x, v_xx, qutk_inc, ktquuk_inc = riccati_gains_update(
+            q_x, q_u, q_xx, q_uu, q_xu
+        )
+        qutk = qutk + qutk_inc
+        ktquuk = ktquuk + ktquuk_inc
+        ks[n] = k
+        big_ks[n] = big_k
+    return torch.stack(ks, -2), torch.stack(big_ks, -3), qutk, ktquuk
+
+
+def expected_cost_reduction(qutk, ktquuk, step=1.0):
+    """dJ(step) = step Qu'k + step^2 k'Quu k / 2."""
+    return step * qutk + step * step * ktquuk / 2.0
+
+
+def _stage(leaf, n):
+    return leaf[..., n, :]
+
+
+def forward_sim(params, traj: Trajectory, ks, big_ks, alpha, dt_s):
+    """Closed-loop rollout u_n = u_old_n + alpha k_n + K_n (x_n (-) x_old_n),
+    x_{n+1} = f(x_n, u_n); `alpha` is per lane (...)."""
+    state = tree_map(lambda leaf: _stage(leaf, 0), traj.states)
+    states, controls = [], []
+    for n in range(traj.horizon):
+        x_old = tree_map(lambda leaf: _stage(leaf, n), traj.states)
+        dx = qm.minus(state, x_old)
+        u = (
+            traj.controls[..., n, :]
+            + alpha[..., None] * ks[..., n, :]
+            + (big_ks[..., n, :, :] @ dx[..., None])[..., 0]
+        )
+        states.append(state)
+        controls.append(u)
+        state = qm.discrete_dynamics(params, state, u, dt_s)
+    stacked = tree_map(lambda *leaves: torch.stack(leaves, -2), *states)
+    return Trajectory(times=traj.times, states=stacked, controls=torch.stack(controls, -2))
+
+
+def rollout_cost(params, cost, traj: Trajectory, ks, big_ks, alpha, dt_s):
+    """forward_sim plus the new trajectory's cost: (Trajectory, cost (...))."""
+    new_traj = forward_sim(params, traj, ks, big_ks, alpha, dt_s)
+    return new_traj, qc.trajectory_cost(cost, new_traj.states, new_traj.controls)
+
+
+def is_converged(cost, new_cost, options: ILQROptions):
+    """Relative OR absolute criterion, in the division-free form
+    `diff < rtol |cost|` (a zero-cost lane falls through to atol)."""
+    cc = options.convergence_criteria
+    diff = torch.abs(cost - new_cost)
+    return (diff < cc.rtol * torch.abs(cost)) | (diff < cc.atol)
+
+
+def _where_lanes(mask, a, b):
+    """Per-lane select over (B, ...) containers; mask is (B,)."""
+    return tree_map(
+        lambda x, y: torch.where(mask.reshape(mask.shape + (1,) * (x.ndim - 1)), x, y),
+        a,
+        b,
+    )
+
+
+def solve_loop(backward, rollout, traj_cost, initial_traj: Trajectory, options: ILQROptions):
+    """The reference outer loop over a (B, N, ...) batch, lane by lane.
+
+    `backward(traj, active)` -> (ks, Ks, QuTk, kTQuuk);
+    `rollout(traj, ks, Ks, alpha, active)` -> (Trajectory, cost);
+    `traj_cost(traj)` -> cost. `active` is the (B,) mask of lanes whose
+    outputs are read (None: all); kernel engines may skip the other lanes.
+    """
+    ls = options.line_search_params
+    max_iters = int(options.convergence_criteria.max_iters)
+    controls = initial_traj.controls
+    batch = controls.shape[0]
+    kw = dict(dtype=controls.dtype, device=controls.device)
+    traj = initial_traj
+    # trip 0 takes a full step whatever the initial cost: compute it only
+    # when the loop never runs
+    new_cost = traj_cost(traj) if max_iters == 0 else torch.zeros(batch, **kw)
+    done = torch.zeros(batch, dtype=torch.bool, device=controls.device)
+    status = torch.full((batch,), STATUS_MAX_ITERS, dtype=torch.int32, device=controls.device)
+    iterations = torch.zeros(batch, dtype=torch.int32, device=controls.device)
+
+    def line_search(traj, current, ks, big_ks, qutk, ktquuk, active):
+        alpha = torch.ones(batch, **kw)
+        accepted = torch.zeros_like(active)
+        best, best_cost = traj, current
+        for _ in range(ls.max_iters):
+            pending = active & ~accepted
+            if not bool(pending.any()):
+                break
+            cand, cand_cost = rollout(traj, ks, big_ks, alpha, pending)
+            desired = ls.desired_reduction_frac * expected_cost_reduction(qutk, ktquuk, alpha)
+            ok = (cand_cost - current) < desired
+            best = _where_lanes(pending, cand, best)
+            best_cost = torch.where(pending, cand_cost, best_cost)
+            accepted = accepted | (pending & ok)
+            alpha = torch.where(accepted | ~active, alpha, alpha * ls.step_update)
+        return best, best_cost, accepted
+
+    for i in range(max_iters):
+        if bool(done.all()):
+            break
+        ks, big_ks, qutk, ktquuk = backward(traj, ~done)
+        current = new_cost
+        expected = current + expected_cost_reduction(qutk, ktquuk, 1.0)
+        pre_conv = (i > 0) & is_converged(current, expected, options) & ~done
+        active = ~(done | pre_conv)
+        if i == 0:
+            cand, cand_cost = rollout(traj, ks, big_ks, torch.ones(batch, **kw), None)
+            ls_ok = torch.ones_like(active)
+        else:
+            cand, cand_cost, ls_ok = line_search(traj, current, ks, big_ks, qutk, ktquuk, active)
+        post_conv = (i > 0) & is_converged(current, cand_cost, options) & active & ls_ok
+        ls_failed = active & ~ls_ok
+        traj = _where_lanes(active, cand, traj)
+        new_cost = torch.where(active, cand_cost, current)
+        status = torch.where(
+            ls_failed,
+            STATUS_LINE_SEARCH_FAILED,
+            torch.where(post_conv | pre_conv, STATUS_CONVERGED, status),
+        ).to(torch.int32)
+        done = done | pre_conv | post_conv | ls_failed
+        iterations = iterations + active.to(torch.int32)
+    return SolveResult(trajectory=traj, cost=new_cost, iterations=iterations, status=status)
+
+
+def solve(
+    params,
+    cost,
+    initial_traj: Trajectory,
+    dt_s: float,
+    options: ILQROptions = ILQROptions(),
+    associative: bool = False,
+    model=None,
+    ddp: bool = False,
+) -> SolveResult:
+    """Exact iLQR on the plain pieces of this module. `initial_traj` leaves
+    are (B, N, ...) or one unbatched (N, ...) trajectory; params and cost
+    leaves are shared or carry the same leading B."""
+    check_supported(options, model, ddp, associative)
+    qc.check_supported(cost)
+    single = initial_traj.controls.ndim == 2
+    traj = tree_map(lambda a: a[None], initial_traj) if single else initial_traj
+    result = solve_loop(
+        lambda t, act: backward_pass(params, cost, t, dt_s, options.quu_reg),
+        lambda t, ks, big_ks, alpha, act: rollout_cost(params, cost, t, ks, big_ks, alpha, dt_s),
+        lambda t: qc.trajectory_cost(cost, t.states, t.controls),
+        traj,
+        options,
+    )
+    return tree_map(lambda a: a[0], result) if single else result

@@ -1,0 +1,146 @@
+"""The port's slice end to end against the JAX package, f64 on the CPU.
+
+The port's `solver.batched.solve_batch_latency` / `solve_batch_fused` (on CPU
+tensors the kernel wrappers run their plain versions) against the JAX
+engines in interpret mode, at B=8 (JAX pads to 128 lanes) and N=8, with
+shared and per-scenario params; the port's `QuadrotorILQR` against the JAX
+class; and the port's import hygiene. Tolerances as tests/test_solve_fused.py:
+status and iterations equal, cost rtol 1e-8, controls and translations 1e-7.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from quadrotorilqr_tpu.api import QuadrotorILQR as JQuadrotorILQR
+from quadrotorilqr_tpu.solver.batched import solve_batch_fused as j_solve_batch_fused
+from quadrotorilqr_tpu.solver.batched import solve_batch_latency as j_solve_batch_latency
+from quadrotorilqr_tpu_torch import convert
+from quadrotorilqr_tpu_torch.api import QuadrotorILQR
+from quadrotorilqr_tpu_torch.solver import batched as p_batched
+from quadrotorilqr_tpu_torch.solver import options as p_options
+
+from test_torch_kernels import (
+    DT,
+    assert_same_solution,
+    jax_objects,
+    np_problem,
+    options_pair,
+    port_objects,
+)
+
+B, N = 8, 8
+
+
+def as_tuple(result):
+    return (result.trajectory, result.cost, result.iterations, result.status)
+
+
+@pytest.mark.parametrize("per_scenario_params", [False, True], ids=["shared", "per_scenario"])
+def test_solve_batch_latency_matches_jax(per_scenario_params):
+    jobjs = jax_objects(np_problem(20, B, N, False, per_scenario_params))
+    j_opts, p_opts = options_pair()
+    ref = j_solve_batch_latency(*jobjs, DT, j_opts, interpret=True)
+    got = p_batched.solve_batch_latency(*port_objects(jobjs), DT, p_opts)
+    assert_same_solution(as_tuple(got), as_tuple(ref))
+
+
+def test_solve_batch_fused_matches_jax():
+    jobjs = jax_objects(np_problem(21, B, N, False))
+    j_opts, p_opts = options_pair()
+    ref = j_solve_batch_fused(*jobjs, DT, j_opts, interpret=True)
+    got = p_batched.solve_batch_fused(*port_objects(jobjs), DT, p_opts)
+    assert_same_solution(as_tuple(got), as_tuple(ref))
+
+
+def test_zero_probe_line_search_routes_to_the_batch_loop():
+    params, cost, traj = port_objects(jax_objects(np_problem(22, 3, 4, False)))
+    _, p_opts = options_pair(max_iters=3)
+    zero = p_options.ILQROptions(
+        p_options.LineSearchParams(0.5, 0.5, 0), p_opts.convergence_criteria
+    )
+    got = p_batched.solve_batch_latency(params, cost, traj, DT, zero)
+    ref = p_batched.solve_batch_fused(params, cost, traj, DT, zero)
+    for g, r in zip(as_tuple(got)[1:], as_tuple(ref)[1:]):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    # every later trip's line search fails at once; trip 0 still steps
+    assert (got.status == 2).all() and (got.iterations == 2).all()
+
+
+def _api_pair(seed):
+    d = np_problem(seed, B, N, False)
+    p = d["params"]
+    desired = dict(
+        times=np.arange(N) * DT, quat=d["des_quat"], trans=d["des_trans"], vel=d["des_vel"],
+        controls=d["des_controls"],
+    )
+    jobjs = jax_objects(d)
+    j_desired = jax.tree.map(lambda a: a[0], jobjs[2])  # shape template for the desired
+    j_desired = type(j_desired)(
+        times=desired["times"],
+        states=type(j_desired.states)(
+            pose=type(j_desired.states.pose)(quat=desired["quat"], trans=desired["trans"]),
+            vel=desired["vel"],
+        ),
+        controls=desired["controls"],
+    )
+    j_opts, p_opts = options_pair()
+    args = (p["mass_kg"], p["inertia"], p["arm_length_m"], p["torque_to_thrust_ratio_m"],
+            p["g_mpss"], d["Q"], d["R"])
+    j_api = JQuadrotorILQR(*args, jax.tree.map(jax.numpy.asarray, j_desired), DT, j_opts)
+    p_api = QuadrotorILQR(*args, convert.trajectory_from_numpy(j_desired), DT, p_opts)
+    return j_api, p_api, jobjs[2]
+
+
+@pytest.fixture(scope="module")
+def api_pair():
+    j_api, p_api, j_trajs = _api_pair(23)
+    return p_api, j_trajs, j_api.solve_batch(j_trajs), j_api
+
+
+@pytest.mark.parametrize(
+    "route", [dict(), dict(latency=True), dict(fused=False)], ids=["fused", "latency", "plain"]
+)
+def test_api_solve_batch_matches_jax(api_pair, route):
+    p_api, j_trajs, ref, _ = api_pair
+    got = p_api.solve_batch(
+        convert.trajectory_from_numpy(jax.tree.map(np.asarray, j_trajs)), **route
+    )
+    assert_same_solution(as_tuple(got), as_tuple(ref))
+
+
+def test_api_solve_pytree_matches_jax(api_pair):
+    p_api, j_trajs, _, j_api = api_pair
+    one = jax.tree.map(lambda a: a[0], j_trajs)
+    ref = j_api.solve_pytree(one)
+    got = p_api.solve_pytree(convert.trajectory_from_numpy(jax.tree.map(np.asarray, one)))
+    assert_same_solution(as_tuple(got), as_tuple(ref))
+
+
+@pytest.mark.parametrize(
+    "kwargs", [dict(solver="fddp"), dict(stage_weights=np.ones(N))], ids=["fddp", "weights"]
+)
+def test_api_refuses_options_outside_the_slice(api_pair, kwargs):
+    p_api = api_pair[0]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        QuadrotorILQR(
+            1.0, np.eye(3), 0.2, 0.016, 9.81, np.eye(12), np.eye(4), p_api.desired_traj,
+            DT, p_api.options, **kwargs,
+        )
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys, pkgutil, importlib, quadrotorilqr_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'quadrotorilqr_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", code], cwd=root, check=True, timeout=120)
