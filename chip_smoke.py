@@ -5,12 +5,20 @@
 
 Builds the port's CUDA kernels from `quadrotorilqr_tpu_torch/kernels/csrc`,
 holds each kernel against its plain PyTorch version on the card (float64
-lane for lane at B=300, N=40; float32 at the main path's B=4096, N=100 to
-quality bounds), drives the main path (the hover-to-waypoint bench workload,
-B=4096, N=100, tolerance 1e-6, 10 iterations, 20 line-search probes) through
-`QuadrotorILQR.solve_batch` with `latency=True` (the whole-solve kernel) and
-with `fused=True` (the per-pass kernels), checks convergence, and times the
-kernel routes against the plain PyTorch loop with CUDA events.
+lane for lane at B=300, N=40; float32 at the main paths' shapes to quality
+bounds), and drives two main paths through `QuadrotorILQR.solve_batch`:
+
+  * exact iLQR on the hover-to-waypoint bench workload (B=4096, N=100,
+    tolerance 1e-6, 10 iterations, 20 line-search probes), with
+    `latency=True` (the whole-solve kernel) and `fused=True` (the per-pass
+    kernels);
+  * robust FDDP (`solver="fddp"`, float32: the multi-phase `refine="auto"`
+    schedule on the FDDP kernel) on the aggressive-tumble class of the
+    robust headline (B=4096, N=50, dt 0.1, scale 1.8, 40 iterations).
+
+It checks convergence, times the kernels against their plain PyTorch
+versions with CUDA events, and computes each kernel's bound (the least time
+the card could take for the work this run's inputs needed).
 
 Output: progress lines, the card's `nvidia-smi` name and power limit, a
 JSON line `{"kernels": [...]}` with each kernel's launches, error and times,
@@ -31,6 +39,29 @@ from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DT = 0.02
+
+# The least time the card could take: the larger of the operations over the
+# H100's float32 rate outside the tensor cores and the bytes (each input read
+# once, each output written once) over its memory rate.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# Floating-point operations per scenario and stage, counted by hand from the
+# CUDA device functions (kernels/csrc/*.cuh; a multiply-add is 2, a square
+# root, sine, cosine, atan2 or division 1):
+#   Riccati stage, Gauss-Newton (riccati_stage): j_x blocks 1006 + cost
+#     diffs 3019 + Q-expansion 5675 + Cholesky gains 460 + value update 1914;
+#   the exact-DDP additions (kDdp): c_xx correction 3064 + sum v_x f_xx 3776;
+#   rollout stage (rollout_lane): state minus 227 + controls 100 + stage cost
+#     566 + dynamics step 309;
+#   FDDP probe stage (rollout_gap_stage): the rollout stage plus the gap
+#     shrink, Exp and compose 210;
+#   FDDP probe-0 model terms: j_x blocks, cost diffs (Gauss-Newton, or with
+#     the correction), p and w updates 4720 (7784 with kDdp);
+#   FDDP defect 560 and value transport v_x + V_xx d 288.
+FLOPS = dict(
+    riccati=12074, ddp_extra=6840, rollout=1202, gap_rollout=1412, model=4720,
+    model_ddp=7784, defect=560, transport=288, stage_cost=566,
+)
 
 
 def log(msg):
@@ -97,16 +128,26 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
 
+    import dataclasses
+
     from quadrotorilqr_tpu_torch import convert
+    from quadrotorilqr_tpu_torch.costs.quadratic import QuadraticTrackingCost
     from quadrotorilqr_tpu_torch.api import QuadrotorILQR
     from quadrotorilqr_tpu_torch.app import workloads
     from quadrotorilqr_tpu_torch.kernels import _build
     from quadrotorilqr_tpu_torch.kernels import backward as kb
+    from quadrotorilqr_tpu_torch.kernels import fddp as kf
     from quadrotorilqr_tpu_torch.kernels import rollout as kr
     from quadrotorilqr_tpu_torch.kernels import solve as ks
     from quadrotorilqr_tpu_torch.parallel.batch import initial_trajectory_from_state
-    from quadrotorilqr_tpu_torch.solver import ilqr
-    from quadrotorilqr_tpu_torch.solver.batched import solve_batch_fused, solve_batch_latency
+    from quadrotorilqr_tpu_torch.solver import fddp, ilqr
+    from quadrotorilqr_tpu_torch.solver.batched import (
+        resolve_refine_auto,
+        solve_batch_fddp,
+        solve_batch_fddp_refine,
+        solve_batch_fused,
+        solve_batch_latency,
+    )
     from quadrotorilqr_tpu_torch.solver.options import (
         ConvergenceCriteria,
         ILQROptions,
@@ -137,9 +178,27 @@ def main() -> int:
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
 
+    wrappers = {
+        "backward": kb.backward_pass_fused, "rollout": kr.rollout_cost_fused,
+        "solve": ks.solve_fused_whole, "fddp": kf.solve_fddp_fused,
+    }
+
     def reset_counts():
-        for fn in (kb.backward_pass_fused, kr.rollout_cost_fused, ks.solve_fused_whole):
+        for fn in wrappers.values():
             fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    def time_once(fn):
+        """(result, ms) of one run, CUDA events around it."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
 
     # ---- 3. kernels against their plain versions, float64, B=300, N=40 ----
     p_np, c_np, t_np = np_problem(0, 300, 40)
@@ -184,8 +243,60 @@ def main() -> int:
         f"statuses {torch.bincount(ref[3], minlength=3).tolist()}")
     check(same_status and same_iters and rel <= 1e-8 and err["solve"] <= 1e-7,
           "f64 whole-solve kernel disagrees with plain")
-    log(f"launch counters after the comparisons: backward {kb.backward_pass_fused.launches}, "
-        f"rollout {kr.rollout_cost_fused.launches}, solve {ks.solve_fused_whole.launches}")
+
+    # FDDP, float64: tests/test_fddp_fused.py's mixed problem (even lanes
+    # benign at scale 0.4, odd lanes an aggressive tumble at 1.8), dt 0.12
+    mix_dt = 0.12
+    gen = torch.Generator(device=dev).manual_seed(1)
+    scale = torch.where(torch.arange(300, device=dev) % 2 == 0, 0.4, 1.8)[:, None]
+    m_params, m_q, m_r, x0, desired = workloads.aggressive_tumble(
+        gen, 300, n=40, dt_s=mix_dt, scale=scale.double(), dtype=torch.float64, device=dev
+    )
+    m_cost = QuadraticTrackingCost(
+        Q=m_q, R=m_r, desired_states=desired.states, desired_controls=desired.controls
+    )
+    m_trajs = initial_trajectory_from_state(x0, desired)
+    m_opts = ILQROptions(LineSearchParams(0.5, 0.5, 20), ConvergenceCriteria(1e-9, 1e-9, 25))
+    fo = fddp.FDDPOptions()
+    m_args = (m_params, m_cost, m_trajs, mix_dt, m_opts)
+    for ddp in (False, True):
+        got = kf.solve_fddp_fused(*m_args, fo, ddp=ddp)
+        ref, plain_ms = time_once(lambda: kf.solve_fddp_whole_reference(*m_args, fo, ddp))
+        torch.cuda.synchronize()
+        same_status = (got[3] == ref[3]).float().mean().item()
+        same_iters = (got[2] == ref[2]).float().mean().item()
+        rel = ((got[1] - ref[1]).abs() / ref[1].abs())
+        du = (got[0].controls - ref[0].controls).abs().amax((1, 2))
+        conv = ref[3] == ilqr.STATUS_CONVERGED
+        if not ddp:
+            err["fddp"] = float(du.max())
+        log(f"f64 FDDP ddp={ddp} B=300 N=40: status equal {same_status:.4f}, iterations equal "
+            f"{same_iters:.4f}, max rel cost {float(rel.max()):.3e}, max |du| {float(du.max()):.3e}; "
+            f"statuses {torch.bincount(ref[3], minlength=3).tolist()}, converged {conv.float().mean().item():.3f}; "
+            f"plain loop {plain_ms:.1f} ms")
+        if not ddp:
+            check(same_status == 1.0 and same_iters == 1.0 and float(rel.max()) <= 1e-8
+                  and float(du.max()) <= 1e-7, "f64 FDDP kernel disagrees with plain")
+        else:
+            # exact curvature: the JAX package's own bar between its DDP
+            # engines (tests/test_fddp_fused.py:382-416), since ~1e-16
+            # differences in the closed forms can send a lane near an
+            # accept or budget edge down another retry path
+            strict = conv & (got[3] == ref[3]) & (got[2] == ref[2])
+            check(same_status >= 0.98 and same_iters >= 0.95
+                  and float(rel[strict].max()) <= 1e-8 and float(du[strict].max()) <= 1e-4
+                  and float(rel.max()) < 2e-4, "f64 FDDP ddp kernel outside the DDP engines' bar")
+    one = solve_batch_fddp(*m_args, fo)
+    two = solve_batch_fddp_refine(*m_args, fo, phase1_iters=(7,))
+    torch.cuda.synchronize()
+    exact = all(bool((a == b).all()) for a, b in (
+        (one.status, two.status), (one.iterations, two.iterations), (one.cost, two.cost),
+        (one.trajectory.controls, two.trajectory.controls)))
+    pending = int((kf.solve_fddp_fused(*m_args[:4], dataclasses.replace(
+        m_opts, convergence_criteria=ConvergenceCriteria(1e-9, 1e-9, 7)), fo)[3] == 0).sum())
+    log(f"f64 FDDP two phases (boundary 7, {pending} lanes pending there) vs one: bit-equal {exact}")
+    check(exact and pending > 0, "the two-phase FDDP kernel solve differs from the single phase")
+    log(f"launch counters after the comparisons: {counts()}")
 
     # ---- the bench workload, float32, B=4096, N=100 ----
     batch, horizon = 4096, 100
@@ -228,7 +339,10 @@ def main() -> int:
         f"max rel cost {dc:.3e} (bound 1e-3)")
     check(finite and du <= 1e-3 and dc <= 1e-3, "f32 rollout kernel outside its bound")
     got = ks.solve_fused_whole(b_params, b_cost, trajs, DT, bench_opts)
-    ref = ks.solve_whole_reference(b_params, b_cost, trajs, DT, bench_opts)
+    # the plain loop runs once: it is timed here
+    ref, plain_solve_ms = time_once(
+        lambda: ks.solve_whole_reference(b_params, b_cost, trajs, DT, bench_opts)
+    )
     torch.cuda.synchronize()
     finite = bool(torch.isfinite(got[1]).all() and torch.isfinite(got[0].controls).all())
     agree = float((got[3] == ref[3]).float().mean())
@@ -237,18 +351,15 @@ def main() -> int:
         f"median rel cost diff {med:.3e} (< 1e-3)")
     check(finite and agree >= 0.99 and med < 1e-3, "f32 whole-solve kernel outside its bounds")
 
-    # ---- 5. the main path through the public API, counted ----
+    # ---- 5. the exact main path through the public API, counted ----
     reset_counts()
     res_whole = api.solve_batch(trajs, latency=True)
     res_loop = api.solve_batch(trajs, fused=True)
     torch.cuda.synchronize()
-    launches = {
-        "backward": kb.backward_pass_fused.launches,
-        "rollout": kr.rollout_cost_fused.launches,
-        "solve": ks.solve_fused_whole.launches,
-    }
-    log(f"main path launches: {launches}")
-    check(all(v > 0 for v in launches.values()), f"a kernel of the path never ran: {launches}")
+    launches = counts()
+    log(f"exact main path launches: {launches}")
+    check(all(launches[k] > 0 for k in ("backward", "rollout", "solve")),
+          f"a kernel of the path never ran: {launches}")
     for name, res in (("whole-solve kernel", res_whole), ("per-pass kernels", res_loop)):
         check(res.cost.shape == (batch,) and res.trajectory.controls.shape == (batch, horizon, 4),
               f"{name}: wrong output shapes")
@@ -259,6 +370,59 @@ def main() -> int:
         log(f"bench workload via {name}: converged {conv:.4f} (>= 0.99), mean iterations "
             f"{iters:.3f} (in [3, 4.5]), mean cost {float(res.cost.mean()):.6g}")
         check(conv >= 0.99 and 3.0 <= iters <= 4.5, f"{name}: convergence outside its bounds")
+
+    # ---- 5b. the robust main path through the public API, counted ----
+    # The aggressive-tumble class of the robust headline (benchmarks/run_all.py
+    # config 6): B=4096, N=50, dt 0.1, scale 1.8, 40 iterations, tolerance
+    # 1e-6; the API's FDDP options resolve gap_tol to 1e-5 in float32, the
+    # value config 6 passes.
+    r_batch, r_n, r_dt = 4096, 50, 0.1
+    gen = torch.Generator(device=dev).manual_seed(0)
+    r_params, r_q, r_r, x0, r_desired = workloads.aggressive_tumble(
+        gen, r_batch, n=r_n, dt_s=r_dt, dtype=torch.float32, device=dev
+    )
+    r_opts = ILQROptions(LineSearchParams(0.5, 0.5, 20), ConvergenceCriteria(1e-6, 1e-6, 40))
+    r_fo = fddp.FDDPOptions(gap_tol=1e-5)
+    robust = QuadrotorILQR(
+        float(r_params.mass_kg), r_params.inertia, float(r_params.arm_length_m),
+        float(r_params.torque_to_thrust_ratio_m), float(r_params.g_mpss), r_q, r_r,
+        r_desired, r_dt, r_opts, dtype=torch.float32, device=dev, solver="fddp",
+    )
+    r_trajs = initial_trajectory_from_state(x0, r_desired)
+    phases = len(resolve_refine_auto(40, False)[0]) + 1
+    reset_counts()
+    res_robust = robust.solve_batch(r_trajs)
+    torch.cuda.synchronize()
+    robust_launches = counts()
+    log(f"robust main path launches: {robust_launches} ({phases} phases)")
+    check(robust_launches["fddp"] >= phases, f"the FDDP kernel ran fewer times than phases: {robust_launches}")
+    check(res_robust.cost.shape == (r_batch,) and res_robust.trajectory.controls.shape == (r_batch, r_n, 4),
+          "robust path: wrong output shapes")
+    leaves = (res_robust.cost, res_robust.trajectory.controls, res_robust.trajectory.states.pose.quat,
+              res_robust.trajectory.states.pose.trans, res_robust.trajectory.states.vel)
+    check(all(bool(torch.isfinite(a).all()) for a in leaves), "robust path: non-finite output")
+    r_conv = float((res_robust.status == ilqr.STATUS_CONVERGED).float().mean())
+    log(f"aggressive tumble via QuadrotorILQR(solver='fddp').solve_batch (refine auto, f32, "
+        f"B={r_batch}, N={r_n}): converged {r_conv:.4f} (>= 0.97), mean iterations "
+        f"{float(res_robust.iterations.float().mean()):.3f}, statuses "
+        f"{torch.bincount(res_robust.status, minlength=3).tolist()}")
+    check(r_conv >= 0.97, "robust path: converged fraction below 0.97")
+    # the single-phase kernel against the plain FDDP loop at the same size
+    r_args = (robust.params, robust.cost, r_trajs, r_dt, r_opts, r_fo)
+    single = kf.solve_fddp_fused(*r_args, return_probes=True)
+    plain, plain_fddp_ms = time_once(lambda: kf.solve_fddp_whole_reference(*r_args))
+    torch.cuda.synchronize()
+    conv_k = float((single[3] == ilqr.STATUS_CONVERGED).float().mean())
+    conv_p = float((plain[3] == ilqr.STATUS_CONVERGED).float().mean())
+    med = float(((single[1] - plain[1]).abs() / plain[1].abs()).median())
+    trips, sweeps = int(single[2].sum()), float(single[4].sum())
+    log(f"f32 single-phase FDDP kernel vs plain loop (B={r_batch}, N={r_n}): converged "
+        f"{conv_k:.4f} vs {conv_p:.4f} (within 0.01), status agreement "
+        f"{float((single[3] == plain[3]).float().mean()):.4f}, median rel cost diff {med:.3e} "
+        f"(< 1e-3), mean iterations {float(single[2].float().mean()):.3f} vs "
+        f"{float(plain[2].float().mean()):.3f}; the kernel ran {trips} trips and {sweeps:.1f} "
+        f"probe sweeps")
+    check(abs(conv_k - conv_p) <= 0.01 and med < 1e-3, "f32 FDDP kernel outside its bounds")
 
     # ---- 6. timing (CUDA events, 1 warm-up, median of 5) ----
     def time_ms(fn, repeats=5):
@@ -279,7 +443,7 @@ def main() -> int:
     ms = {}
     ms["solve"] = time_ms(lambda: solve_batch_latency(*solve_args))
     ms["loop"] = time_ms(lambda: solve_batch_fused(*solve_args))
-    ms["plain"] = time_ms(lambda: ilqr.solve(*solve_args))
+    ms["plain"] = plain_solve_ms
     for key, label in (("solve", "whole-solve kernel"), ("loop", "per-pass kernel loop"),
                        ("plain", "plain PyTorch loop")):
         log(f"{label}: {ms[key]:.3f} ms per batch solve, {batch / ms[key] * 1e3:.1f} solves/s "
@@ -297,23 +461,57 @@ def main() -> int:
             ),
         ),
         "solve": (ms["solve"], ms["plain"]),
+        "fddp": (time_ms(lambda: kf.solve_fddp_fused(*r_args)), plain_fddp_ms),
     }
     for name, (k_ms, p_ms) in per_kernel.items():
-        log(f"{name} kernel: {k_ms:.3f} ms, plain {p_ms:.3f} ms (B={batch}, N={horizon}, f32) {card}")
+        b_, n_ = (r_batch, r_n) if name == "fddp" else (batch, horizon)
+        log(f"{name} kernel: {k_ms:.3f} ms, plain {p_ms:.3f} ms (B={b_}, N={n_}, f32) {card}")
+    ms_robust = time_ms(lambda: robust.solve_batch(r_trajs))
+    log(f"robust path (refine auto, {phases} FDDP launches): {ms_robust:.3f} ms per batch solve, "
+        f"{r_batch / ms_robust * 1e3:.1f} solves/s; single-phase kernel "
+        f"{per_kernel['fddp'][0]:.3f} ms (B={r_batch}, N={r_n}, f32) {card}")
+
+    # ---- 7. bounds: the work this run's inputs needed ----
+    f = FLOPS
+    word = 4  # float32
+    stage = batch * horizon
+    whole_trips = int(res_whole.iterations.sum())  # backward passes and probes: at least one each
+    work = {
+        "backward": (stage * f["riccati"], (17 + 52) * stage * word + 2 * batch * word),
+        "rollout": (stage * f["rollout"], (17 + 52 + 17) * stage * word + 2 * batch * word),
+        "solve": (whole_trips * horizon * (f["riccati"] + f["rollout"]),
+                  2 * 17 * stage * word + 3 * batch * word),
+        "fddp": (
+            trips * r_n * (f["defect"] + f["transport"] + f["riccati"] + f["model"])
+            + sweeps * r_n * f["gap_rollout"] + r_batch * r_n * f["stage_cost"],
+            2 * 17 * r_batch * r_n * word + 5 * r_batch * word,
+        ),
+    }
+    bounds = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        bounds[name] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+        log(f"{name} bound: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB -> "
+            f"{bounds[name][0]:.4f} ms ({bounds[name][1]}); measured {per_kernel[name][0]:.3f} ms")
 
     pkg = "quadrotorilqr_tpu_torch/kernels/csrc"
     replaces = {
         "backward": "quadrotorilqr_tpu/kernels/backward.py:594",
         "rollout": "quadrotorilqr_tpu/kernels/rollout.py:54",
         "solve": "quadrotorilqr_tpu/kernels/solve.py:159",
+        "fddp": "quadrotorilqr_tpu/kernels/fddp.py:245",
     }
+    launches["fddp"] = robust_launches["fddp"]
+    # no single PyTorch call computes a Riccati sweep, a closed-loop rollout
+    # or a whole solve, so there is no library time to set beside them
     kernels = [
         {
             "name": name, "route": "cuda", "source": f"{pkg}/{name}.cu",
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": err[name], "ms": per_kernel[name][0], "plain_ms": per_kernel[name][1],
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
         }
-        for name in ("backward", "rollout", "solve")
+        for name in ("backward", "rollout", "solve", "fddp")
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

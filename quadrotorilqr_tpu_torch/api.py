@@ -5,12 +5,19 @@ taking the port's containers (not protos) for the desired trajectory and
 an `ILQROptions`. `solve_pytree` is the exact single solve; `solve_batch`
 routes a (B, N, ...) batch as the JAX class does: `fused=True` with
 `latency=True` to the whole-solve kernel, `fused=True` alone to the
-per-pass kernel loop, `fused=False` to the plain batched solver.
+per-pass kernel loop, `fused=False` to the plain batched solver. With
+`solver="fddp"` (or `"fddp-ddp"`, exact curvature throughout) a float32
+batch goes to the FDDP kernel through `solve_batch_fddp(refine="auto")`,
+a float64 batch to the single-phase FDDP kernel, `fused=False` and
+`solve_pytree` to the plain FDDP loop.
 
 One routing difference: the JAX class sends float64 batches to its XLA
-solver because the TPU kernels have no float64. The CUDA kernels take both
+solvers because the TPU kernels have no float64. The CUDA kernels take both
 float32 and float64, so here both dtypes go to the kernel engines (lane for
-lane the same results as the plain solver).
+lane the same results as the plain solvers).
+
+The solver runs on the CUDA card unless it is given `device="cpu"`; with no
+card it refuses to start rather than carry on on the CPU.
 """
 
 from __future__ import annotations
@@ -19,8 +26,8 @@ import torch
 
 from .costs.quadratic import QuadraticTrackingCost
 from .models.quadrotor import QuadrotorParams
-from .solver import ilqr
-from .solver.batched import solve_batch_fused, solve_batch_latency
+from .solver import fddp, ilqr
+from .solver.batched import solve_batch_fddp, solve_batch_fused, solve_batch_latency
 from .solver.ilqr import SolveResult, Trajectory
 from .solver.options import ILQROptions
 from .tree import tree_map
@@ -29,8 +36,10 @@ PROTO_TODO = (
     "proto I/O is not ported yet (ROADMAP Queue 1 item 7, io/proto.py): "
     "use solve_pytree with the port's Trajectory"
 )
-SOLVER_TODO = (
-    "only solver='ilqr' is ported (ROADMAP Queue 1 items 9-10, FDDP and DDP)"
+SOLVER_TODO = "solver='ddp' is not ported yet (ROADMAP Queue 1 item 10, solver/ddp.py)"
+NO_CUDA = (
+    "QuadrotorILQR runs on a CUDA card by default and torch.cuda.is_available() "
+    "is false; pass device='cpu' to solve on the CPU"
 )
 
 
@@ -56,7 +65,7 @@ class QuadrotorILQR:
     ):
         if solver not in ("ilqr", "ddp", "fddp", "fddp-ddp"):
             raise ValueError(f"unknown solver {solver!r}")
-        if solver != "ilqr":
+        if solver == "ddp":
             raise NotImplementedError(SOLVER_TODO)
         if stage_weights is not None:
             from .costs.quadratic import STAGE_WEIGHTS_TODO
@@ -67,7 +76,11 @@ class QuadrotorILQR:
         ilqr.check_supported(options)
         self.solver = solver
         self.dtype = dtype
-        self.device = torch.device("cpu") if device is None else torch.device(device)
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(NO_CUDA)
+            device = "cuda"
+        self.device = torch.device(device)
         as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=self.device)
         self.params = QuadrotorParams.create(
             mass_kg=mass_kg,
@@ -94,16 +107,17 @@ class QuadrotorILQR:
         raise NotImplementedError(PROTO_TODO)
 
     def solve_pytree(self, initial_traj: Trajectory) -> SolveResult:
-        """Exact solve of one (N, ...) trajectory (or a (B, N, ...) batch) on
-        the plain solver."""
+        """Solve of one (N, ...) trajectory (or a (B, N, ...) batch) on the
+        plain solver: the exact loop, or plain FDDP for the fddp solvers."""
         if initial_traj.horizon != self.desired_traj.horizon:
             raise IndexError(
                 f"initial trajectory length {initial_traj.horizon} != desired "
                 f"{self.desired_traj.horizon}"
             )
-        return ilqr.solve(
-            self.params, self.cost, self._cast(initial_traj), self.dt_s, self.options
-        )
+        args = (self.params, self.cost, self._cast(initial_traj), self.dt_s, self.options)
+        if self.solver in ("fddp", "fddp-ddp"):
+            return fddp.solve_fddp(*args, ddp=self.solver == "fddp-ddp")
+        return ilqr.solve(*args)
 
     def solve_batch(
         self, initial_trajs: Trajectory, fused: bool = True, latency: bool = False
@@ -111,6 +125,15 @@ class QuadrotorILQR:
         """Batched solve over a leading scenario dim (leaves (B, N, ...))."""
         trajs = self._cast(initial_trajs)
         args = (self.params, self.cost, trajs, self.dt_s, self.options)
+        if self.solver in ("fddp", "fddp-ddp"):
+            ddp = self.solver == "fddp-ddp"
+            if not fused:
+                return fddp.solve_fddp(*args, ddp=ddp)
+            # float32 takes the measured-best robust schedule (multi-phase
+            # compaction, hybrid curvature); float64 the single-phase kernel,
+            # lane for lane the JAX float64 route vmap(solve_fddp)
+            refine = "auto" if self.dtype == torch.float32 else None
+            return solve_batch_fddp(*args, ddp=ddp, refine=refine)
         if not fused:
             return ilqr.solve(*args)
         if latency:

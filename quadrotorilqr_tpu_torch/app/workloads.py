@@ -59,3 +59,40 @@ def hover_to_waypoint(
         controls=torch.full((n, 4), 9.81 / 4.0, dtype=dtype, device=device),
     )
     return init_states, desired
+
+
+def aggressive_tumble(
+    generator: torch.Generator, batch, n=50, dt_s=0.1, scale=1.8, dtype=torch.float32,
+    device=None,
+):
+    """The aggressive-tumble class of the robust solver's headline
+    (benchmarks/run_all.py config 6): initial pose Exp(scale N(0, I_6)) and
+    body twist scale N(0, I_6), coarse dt, a hover target at the origin. Its
+    vehicle: 1 kg, inertia diag(0.01, 0.012, 0.02), 0.17 m arms, torque
+    ratio 0.016; its weights Q = diag(100 1_6, 1_6), R = 1e-3 I_4.
+
+    Returns (params, Q, R, initial states with (batch, ...) leaves, desired
+    Trajectory)."""
+    draw = lambda shape: torch.randn(
+        shape, generator=generator, dtype=dtype, device=generator.device
+    ).to(device)
+    init_states = State(pose=se3.exp(scale * draw((batch, 6))), vel=scale * draw((batch, 6)))
+    params = QuadrotorParams.create(
+        mass_kg=1.0,
+        inertia=torch.diag(torch.tensor([0.01, 0.012, 0.02], dtype=dtype)),
+        arm_length_m=0.17,
+        torque_to_thrust_ratio_m=0.016,
+        g_mpss=9.81,
+        device=device,
+    )
+    q = torch.diag(torch.tensor([100.0] * 6 + [1.0] * 6, dtype=dtype)).to(device)
+    r = 1e-3 * torch.eye(4, dtype=dtype, device=device)
+    desired = Trajectory(
+        times=torch.arange(n, dtype=dtype, device=device) * dt_s,
+        states=State(
+            pose=se3.identity((n,), dtype, device),
+            vel=torch.zeros((n, 6), dtype=dtype, device=device),
+        ),
+        controls=torch.full((n, 4), 9.81 / 4.0, dtype=dtype, device=device),
+    )
+    return params, q, r, init_states, desired

@@ -95,6 +95,14 @@ def per_stage_terms(cost: QuadraticTrackingCost, states: State, controls):
     return (dx * _matvec(q, dx)).sum(-1), (du * _matvec(r, du)).sum(-1)
 
 
+def per_stage_costs(cost: QuadraticTrackingCost, states: State, controls):
+    """Per-stage cost (..., N), dx'Q dx + du'R du: the summands the FDDP line
+    search folds stage by stage (solver/fddp.py), never with a pairwise sum."""
+    check_supported(cost)
+    xq, ur = per_stage_terms(cost, states, controls)
+    return xq + ur
+
+
 def trajectory_cost(cost: QuadraticTrackingCost, states: State, controls):
     """Total cost of a stacked trajectory, accumulated stage by stage in the
     kernels' order `cost + dx'Q dx + du'R du`. A pairwise `sum` over N would

@@ -1,7 +1,8 @@
 """Build the CUDA kernels and load them with ctypes.
 
 On first use, `load()` compiles every `kernels/csrc/*.cu` with nvcc for
-Hopper (`sm_90a`) into one shared library with a plain C interface, under
+Hopper (`sm_90a`), one nvcc process per source, all started together, and
+links the objects into one shared library with a plain C interface, under
 `build/torch_kernels/` at the repository root. The library's name carries a
 hash of the sources and flags, so an edited source never reuses a stale
 build. Each C entry takes packed arrays of device pointers, integers and
@@ -28,11 +29,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     # print each kernel's registers and local-memory spills
     "-Xptxas", "-v",
 )
-ENTRIES = ("qilqr_backward", "qilqr_rollout", "qilqr_solve")
+ENTRIES = ("qilqr_backward", "qilqr_rollout", "qilqr_solve", "qilqr_fddp")
 
 
 class _Library:
@@ -99,16 +100,31 @@ def load() -> _Library:
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [
-            _nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-            *(str(p) for p in _sources() if p.suffix == ".cu"),
-        ]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        objs, procs = [], []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = BUILD_DIR / f"{src.stem}_{os.getpid()}.o"
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+        logs = [proc.communicate()[0] for proc in procs]
+        build_log = "".join(logs)
+        failed = [proc.returncode for proc in procs if proc.returncode != 0]
+        if not failed:
+            link = subprocess.run(
+                [nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objs)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, check=False,
+            )
+            build_log += link.stdout
+            failed = [link.returncode] if link.returncode != 0 else []
+        for obj in objs:
+            obj.unlink(missing_ok=True)
         build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{build_log}")
+        if failed:
+            raise RuntimeError(f"nvcc failed with code {failed[0]}:\n{build_log}")
         os.replace(tmp, path)
     cdll = ctypes.CDLL(str(path))
     _declare(cdll)

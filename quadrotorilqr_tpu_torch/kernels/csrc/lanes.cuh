@@ -372,4 +372,209 @@ __device__ __forceinline__ void se3_right_jacobian_inv(const T* tau, T* j) {
   block66(jli, b, jli, j);
 }
 
+// ---------------------------------------------------------------------------
+// D[J^T w] curvature primitives (lanes.py so3_left_jacobian_t_jac,
+// _se3_q_t_jacs, se3_{left,right}_jacobian_t_jac): the exp chart's second
+// differential contracted with a fixed cotangent w, behind the exact-DDP
+// curvature. The coefficient derivatives take a wider Taylor window
+// (u = |theta|^2 < 0.25) because their exact forms cancel ~1/u^2 terms.
+// ---------------------------------------------------------------------------
+
+// (dB/du, dC/du) of the Jl coefficients
+template <typename T>
+__device__ __forceinline__ void ljac_coeffs_du(T u, T* db, T* dc) {
+  if (u < T(0.25)) {
+    *db = T(-1.0 / 24.0) + u / T(360) - u * u / T(13440) + u * u * u / T(907200);
+    *dc = T(-1.0 / 120.0) + u / T(2520) - u * u / T(120960) + u * u * u / T(9979200);
+  } else {
+    T t = f_sqrt(u);
+    T st = f_sin(t), ct = f_cos(t);
+    *db = (T(0.5) * t * st - (T(1) - ct)) / (u * u);
+    *dc = (T(0.5) * (T(1) - ct) - T(1.5) * (t - st) / t) / (u * u);
+  }
+}
+
+// out (3x3) = D_theta[Jl(theta)^T w]
+//   = B hat(w) - 2B' (theta x w) theta^T + 2C' (theta x (theta x w)) theta^T
+//     - C (hat(theta x w) + hat(theta) hat(w))
+template <typename T>
+__device__ __forceinline__ void so3_left_jacobian_t_jac(const T* th, const T* w, T* out) {
+  T ts = th[0] * th[0] + th[1] * th[1] + th[2] * th[2];
+  T b, c, db, dc;
+  ljac_coeffs(ts, &b, &c);
+  ljac_coeffs_du(ts, &db, &dc);
+  T tw[3], ttw[3], hw[9], htw[9], hth[9], hh[9];
+  cross(th, w, tw);
+  cross(th, tw, ttw);
+  hat(w, hw);
+  hat(tw, htw);
+  hat(th, hth);
+  matmul<3, 3, 3>(hth, hw, hh);
+  const T db2 = T(2) * db, dc2 = T(2) * dc;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int e = i * 3 + j;
+      out[e] = b * hw[e] - db2 * (tw[i] * th[j]) + dc2 * (ttw[i] * th[j]) - c * (htw[e] + hh[e]);
+    }
+  }
+}
+
+// (db/du, dc/du, de/du) of the Q-matrix coefficients
+template <typename T>
+__device__ __forceinline__ void q_coeffs_du(T u, T* db, T* dc, T* de) {
+  if (u < T(0.25)) {
+    *db = T(-1.0 / 120.0) + u / T(2520) - u * u / T(120960) + u * u * u / T(9979200);
+    *dc = T(1.0 / 720.0) - u / T(20160) + u * u / T(1209600) - u * u * u / T(119750400);
+    *de = T(1.0 / 5040.0) - u / T(181440) + u * u / T(13305600) - u * u * u / T(1556755200);
+  } else {
+    T t = f_sqrt(u);
+    T st = f_sin(t), ct = f_cos(t);
+    T u2 = u * u;
+    *db = (T(0.5) * (T(1) - ct) - T(1.5) * (t - st) / t) / u2;
+    T c_num = T(1) - T(0.5) * u - ct;
+    *dc = (T(0.5) * st / t - T(0.5)) / u2 - T(2) * c_num / (u2 * u);
+    T e_num = t - st - u * t / T(6);
+    *de = ((T(1) - ct) / (T(2) * t) - T(0.25) * t) / (u2 * t) - T(2.5) * e_num / (u2 * u * t);
+  }
+}
+
+// (D_rho[Q^T w], D_theta[Q^T w]), each 3x3, for a fixed 3-cotangent w
+template <typename T>
+__device__ __noinline__ void se3_q_t_jacs(const T* tau, const T* w, T* d_rho, T* d_theta) {
+  const T* rho = tau;
+  const T* th = tau + 3;
+  T ts = th[0] * th[0] + th[1] * th[1] + th[2] * th[2];
+  T b, c, e;
+  if (ts < T(kSmallAngle * kSmallAngle)) {
+    b = T(1) / T(6) - ts / T(120) + ts * ts / T(5040);
+    c = -T(1) / T(24) + ts / T(720) - ts * ts / T(40320);
+    e = -T(1) / T(120) + ts / T(5040) - ts * ts / T(362880);
+  } else {
+    T t = f_sqrt(ts);
+    T st = f_sin(t), ct = f_cos(t);
+    b = (t - st) / (ts * t);
+    c = (T(1) - T(0.5) * ts - ct) / (ts * ts);
+    e = (t - st - ts * t / T(6)) / (ts * ts * t);
+  }
+  const T d = c - T(3) * e;
+  T db_u, dc_u, de_u;
+  q_coeffs_du(ts, &db_u, &dc_u, &de_u);
+  const T dd_u = dc_u - T(3) * de_u;
+
+  T v[9], wm[9], ww[9], wv[9], vw[9], wvw[9], vww[9], wwv[9];
+  hat(rho, v);
+  hat(th, wm);
+  matmul<3, 3, 3>(wm, wm, ww);
+  matmul<3, 3, 3>(wm, v, wv);
+  matmul<3, 3, 3>(v, wm, vw);
+  matmul<3, 3, 3>(wv, wm, wvw);
+  matmul<3, 3, 3>(v, ww, vww);
+  matmul<3, 3, 3>(ww, v, wwv);
+  T h0[9];
+  hat(w, h0);
+  T ww_v[3], w2w[3], vw_v[3], vww_v[3], wvw_v[3], wvww_v[3], vw2w_v[3], wwv_v[3];
+  matvec<3, 3>(wm, w, ww_v);
+  matvec<3, 3>(ww, w, w2w);
+  matvec<3, 3>(v, w, vw_v);
+  matvec<3, 3>(vw, w, vww_v);
+  matvec<3, 3>(wv, w, wvw_v);
+  matvec<3, 3>(wvw, w, wvww_v);
+  matvec<3, 3>(vww, w, vw2w_v);
+  matvec<3, 3>(wwv, w, wwv_v);
+  T h1[9], h2[9], p1[9], h_vw[9], h_wv[9], h_wvw[9], h_vww[9];
+  hat(ww_v, h1);
+  hat(w2w, h2);
+  hat(vw_v, p1);
+  hat(vww_v, h_vw);
+  hat(wvw_v, h_wv);
+  hat(wvww_v, h_wvw);
+  hat(vw2w_v, h_vww);
+
+  // D_rho: per term B^T hat(A^T w)
+  {
+    T wm_h0[9], wm_h1[9], ww_h0[9], ww_h1[9], wm_h2[9];
+    matmul<3, 3, 3>(wm, h0, wm_h0);
+    matmul<3, 3, 3>(wm, h1, wm_h1);
+    matmul<3, 3, 3>(ww, h0, ww_h0);
+    matmul<3, 3, 3>(ww, h1, ww_h1);
+    matmul<3, 3, 3>(wm, h2, wm_h2);
+#pragma unroll
+    for (int i = 0; i < 9; ++i)
+      d_rho[i] = T(0.5) * h0[i] + b * (-h1[i] - wm_h0[i] + wm_h1[i]) -
+                 c * (h2[i] + ww_h0[i] - T(3) * wm_h1[i]) +
+                 T(0.5) * d * (ww_h1[i] + wm_h2[i]);
+  }
+  // D_theta: W-slot replacements plus the coefficient chain through u
+  T v_h0[9], wv_h0[9], vw_h0[9], v_h1[9], wm_p1[9], ww_vh0[9], wm_hvw[9], wvw_h0[9], wv_h1[9];
+  matmul<3, 3, 3>(v, h0, v_h0);
+  matmul<3, 3, 3>(wv, h0, wv_h0);
+  matmul<3, 3, 3>(vw, h0, vw_h0);
+  matmul<3, 3, 3>(v, h1, v_h1);
+  matmul<3, 3, 3>(wm, p1, wm_p1);
+  matmul<3, 3, 3>(ww, v_h0, ww_vh0);
+  matmul<3, 3, 3>(wm, h_vw, wm_hvw);
+  matmul<3, 3, 3>(wvw, h0, wvw_h0);
+  matmul<3, 3, 3>(wv, h1, wv_h1);
+  T ww_vw[9], wm_vww[9], vd1[3], vd2[3];
+  matmul<3, 3, 3>(ww, vw, ww_vw);
+  matmul<3, 3, 3>(wm, vww, wm_vww);
+  matvec<3, 3>(ww_vw, w, vd1);
+  matvec<3, 3>(wm_vww, w, vd2);
+  T vb[3], vc[3], vd[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    vb[i] = vww_v[i] + wvw_v[i] - wvww_v[i];
+    vc[i] = -vw2w_v[i] - wwv_v[i] + T(3) * wvww_v[i];
+    vd[i] = vd1[i] + vd2[i];
+  }
+  const T db2 = T(2) * db_u, dc2 = T(2) * dc_u, d5 = T(0.5) * d;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int k = i * 3 + j;
+      const T mat_b = -v_h0[k] - p1[k] + wv_h0[k] + h_vw[k];
+      const T mat_c = vw_h0[k] + v_h1[k] + wm_p1[k] + h_wv[k] - T(3) * (wv_h0[k] + h_vw[k]);
+      const T mat_d = ww_vh0[k] + wm_hvw[k] + h_wvw[k] + wvw_h0[k] + wv_h1[k] + h_vww[k];
+      d_theta[k] = b * mat_b - c * mat_c + d5 * mat_d + db2 * (vb[i] * th[j]) -
+                   dc2 * (vc[i] * th[j]) - dd_u * (vd[i] * th[j]);
+    }
+  }
+}
+
+// out (6x6) = D_tau[Jl_SE3(tau)^T w] = [[0, D[Jl^T w_r]], [D_rho[Q^T w_r],
+// D_theta[Q^T w_r] + D[Jl^T w_t]]]
+template <typename T>
+__device__ __forceinline__ void se3_left_jacobian_t_jac(const T* tau, const T* w, T* out) {
+  T top[9], dq_r[9], dq_t[9], bt[9];
+  so3_left_jacobian_t_jac(tau + 3, w, top);
+  se3_q_t_jacs(tau, w, dq_r, dq_t);
+  so3_left_jacobian_t_jac(tau + 3, w + 3, bt);
+#pragma unroll
+  for (int i = 0; i < 9; ++i) bt[i] = dq_t[i] + bt[i];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      out[r * 6 + c] = T(0);
+      out[r * 6 + 3 + c] = top[r * 3 + c];
+      out[(r + 3) * 6 + c] = dq_r[r * 3 + c];
+      out[(r + 3) * 6 + 3 + c] = bt[r * 3 + c];
+    }
+  }
+}
+
+// D_tau[Jr_SE3(tau)^T w] = -D[Jl^T w](-tau)
+template <typename T>
+__device__ __forceinline__ void se3_right_jacobian_t_jac(const T* tau, const T* w, T* out) {
+  T nt[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) nt[i] = -tau[i];
+  se3_left_jacobian_t_jac(nt, w, out);
+#pragma unroll
+  for (int i = 0; i < 36; ++i) out[i] = -out[i];
+}
+
 }  // namespace qilqr

@@ -3,8 +3,9 @@
 // Counterpart of quadrotorilqr_tpu/kernels/models.py (the quadrotor
 // LaneModel), kernels/rollout.py (_dynamics_step, _state_minus) and
 // kernels/backward.py (_stage_jx_blocks, _stage_cost_diffs, _riccati_stage
-// without the box/weights/ddp/drag/substep/penalty options). Shared by the
-// three kernels backward.cu, rollout.cu and solve.cu.
+// with its ddp option, _vfxx_lanes, _cxx_corr_lanes; without the
+// box/weights/drag/substep/penalty options). Shared by the kernels
+// backward.cu, rollout.cu, solve.cu and fddp.cu.
 //
 // Layout. Per-stage buffers are scenario-minor, (N, d, B): element (n, i) of
 // scenario b sits at [(n * d + i) * B + b], so the 32 threads of a warp read
@@ -92,6 +93,13 @@ inline Traj<T> traj_from(const void* const* p) {
   return x;
 }
 
+// the reference convergence test, division-free (solver/ilqr.is_converged)
+template <typename T>
+__device__ __forceinline__ bool converged(T cur, T next, T rtol, T atol) {
+  T diff = f_abs(cur - next);
+  return diff < rtol * f_abs(cur) || diff < atol;
+}
+
 // One thread per scenario. 32 threads a block spreads B = 4096 scenarios
 // over 128 blocks, so that nearly every one of the 132 SMs gets a warp.
 constexpr int kThreadsPerBlock = 32;
@@ -114,6 +122,16 @@ __device__ __forceinline__ void store_stage(const Traj<T>& x, int B, int n, int 
   for (int i = 0; i < 3; ++i) x.t[(n * 3 + i) * B + b] = t[i];
   for (int i = 0; i < 6; ++i) x.v[(n * 6 + i) * B + b] = v[i];
   for (int i = 0; i < 4; ++i) x.u[(n * 4 + i) * B + b] = u[i];
+}
+
+template <typename T>
+__device__ __forceinline__ void copy_traj(const Traj<T>& src, const Traj<T>& dst, int B, int N,
+                                          int b) {
+  for (int n = 0; n < N; ++n) {
+    T q[4], t[3], v[6], u[4];
+    load_stage(src, B, n, b, q, t, v, u);
+    store_stage(dst, B, n, b, q, t, v, u);
+  }
 }
 
 template <typename T>
@@ -302,6 +320,20 @@ __device__ __forceinline__ void mat_jx(const JxBlocks<T>& J, const T* X, T* out)
   }
 }
 
+// j_x @ p for a 12-vector (backward.py _jx_vec): the FDDP quadratic model's
+// forward recursion p' = j_x p + j_u w + d.
+template <typename T>
+__device__ __forceinline__ void jx_vec(const JxBlocks<T>& J, const T* p, T* out) {
+  T a[6], c[6], g[3], m[3];
+  matvec<6, 6>(J.P, p, a);
+  matvec<6, 6>(J.Tm, p + 6, c);
+  matvec<3, 3>(J.G, p + 3, g);
+  matvec<3, 3>(J.M, p + 9, m);
+  for (int i = 0; i < 6; ++i) out[i] = a[i] + c[i];
+  for (int i = 0; i < 3; ++i) out[6 + i] = g[i] + p[6 + i];
+  for (int i = 0; i < 3; ++i) out[9 + i] = m[i];
+}
+
 // Scratch that one reverse Riccati stage needs beside the value function.
 template <typename T>
 struct StageScratch {
@@ -310,20 +342,139 @@ struct StageScratch {
   T qxx[144];  // c_xx, then Q_xx, then S
 };
 
-// One reverse Riccati stage (backward.py _riccati_stage, the exact path):
-// block-sparse j_x, Gauss-Newton cost diffs, Q-expansion with j_u
-// contracted over its nonzero rows 8:12 only, unregularized 4x4 Cholesky
-// gains (plus quu_reg * I), symmetrized value update. Stage n of scenario b
-// with state (q, t, v, u). Updates v_x, v_xx in place; writes k (4), K (4x12)
-// and the stage's Qu.k and k.Quu.k.
+// C(w) (6x6) with w^T ad_u y = u^T C(w) y on se(3) (backward.py
+// _ad_cot_lanes): [[0, -hat(w_rho)], [-hat(w_rho), -hat(w_theta)]]
 template <typename T>
-__device__ void riccati_stage(const Problem<T>& P, T quu_reg, int n, int b, const T* q,
-                              const T* t, const T* v, const T* u, T* v_x, T* v_xx,
-                              StageScratch<T>& S, T* k, T* K, T* qutk_inc, T* ktquuk_inc) {
-  JxBlocks<T>& J = S.J;
-  stage_jx_blocks(P, b, q, v, J);
+__device__ __forceinline__ void ad_cot(const T* w, T* c) {
+  T hr[9], ht[9];
+  hat(w, hr);
+  hat(w + 3, ht);
+  for (int r = 0; r < 3; ++r) {
+    for (int k = 0; k < 3; ++k) {
+      c[r * 6 + k] = T(0);
+      c[r * 6 + 3 + k] = -hr[r * 3 + k];
+      c[(r + 3) * 6 + k] = -hr[r * 3 + k];
+      c[(r + 3) * 6 + 3 + k] = -ht[r * 3 + k];
+    }
+  }
+}
 
-  // --- Gauss-Newton cost diffs (backward.py _stage_cost_diffs) ---
+// Adds the exact-minus-Gauss-Newton c_xx pose block (backward.py
+// _cxx_corr_lanes) into qxx[0:6, 0:6]: -(sym(C(w~)) + 2 sym(W^T Th W)),
+// w~ = W^T z, Th = D[Jr(tau_p)^T w~]^T, W = Jr(tau_p)^-1, z = (Q dx)[0:6].
+template <typename T>
+__device__ __forceinline__ void add_cxx_correction(const T* tau_p, const T* W, const T* z6,
+                                                   T* qxx) {
+  T wt[6];
+  for (int i = 0; i < 6; ++i) {
+    T acc = W[i] * z6[0];
+    for (int k = 1; k < 6; ++k) acc += W[k * 6 + i] * z6[k];
+    wt[i] = acc;
+  }
+  T tj[36], th_w[36], inner[36], cw[36];
+  se3_right_jacobian_t_jac(tau_p, wt, tj);
+  // (Th W)[r][c] with Th = tj^T
+  for (int r = 0; r < 6; ++r) {
+    for (int c = 0; c < 6; ++c) {
+      T acc = tj[r] * W[c];
+      for (int k = 1; k < 6; ++k) acc += tj[k * 6 + r] * W[k * 6 + c];
+      th_w[r * 6 + c] = acc;
+    }
+  }
+  // W^T (Th W)
+  for (int r = 0; r < 6; ++r) {
+    for (int c = 0; c < 6; ++c) {
+      T acc = W[r] * th_w[c];
+      for (int k = 1; k < 6; ++k) acc += W[k * 6 + r] * th_w[k * 6 + c];
+      inner[r * 6 + c] = acc;
+    }
+  }
+  ad_cot(wt, cw);
+  for (int r = 0; r < 6; ++r) {
+    for (int c = 0; c < 6; ++c) {
+      const T sym_c = T(0.5) * (cw[r * 6 + c] + cw[c * 6 + r]);
+      const T sym_i = T(0.5) * (inner[r * 6 + c] + inner[c * 6 + r]);
+      qxx[r * 12 + c] = qxx[r * 12 + c] + -(sym_c + T(2) * sym_i);
+    }
+  }
+}
+
+// Adds sum_i (v_x)_i f_xx[i] (backward.py _vfxx_lanes) into qxx, reusing the
+// stage's j_x blocks P = Adj(Exp(dt v))^-1 and Tm = dt Jr(dt v):
+//   [0:6, 6:12] and its transpose: P^T C(w_p) Tm / 2
+//   [6:12, 6:12]: sym(Tm^T C(w_p) Tm / 2 + dt^2 D[Jr(dt v)^T w_p]^T)
+//   [3:6, 3:6]: gravity (-dt g / 2)(w r^T + r w^T - 2 (w.r) I), w = v_x[6:9],
+//               r = R^T e_z
+//   [9:12, 9:12]: gyroscopic dt (hat(y) I - I hat(y)), y = I^-1 v_x[9:12]
+template <typename T>
+__device__ __forceinline__ void add_vfxx(const Problem<T>& P, int b, const T* q, const T* vel,
+                                         const T* v_x, const JxBlocks<T>& J, T* qxx) {
+  const T dt = P.dt;
+  T cw[36], ct[36];
+  ad_cot(v_x, cw);
+  matmul<6, 6, 6>(cw, J.Tm, ct);
+  for (int r = 0; r < 6; ++r) {
+    for (int c = 0; c < 6; ++c) {
+      T acc = J.P[r] * ct[c];
+      for (int k = 1; k < 6; ++k) acc += J.P[k * 6 + r] * ct[k * 6 + c];
+      const T g_ps = T(0.5) * acc;
+      qxx[r * 12 + 6 + c] = qxx[r * 12 + 6 + c] + g_ps;
+      qxx[(6 + c) * 12 + r] = qxx[(6 + c) * 12 + r] + g_ps;
+    }
+  }
+  T tau[6], tj[36], m[36];
+  for (int i = 0; i < 6; ++i) tau[i] = dt * vel[i];
+  se3_right_jacobian_t_jac(tau, v_x, tj);
+  const T dt2 = dt * dt;
+  for (int r = 0; r < 6; ++r) {
+    for (int c = 0; c < 6; ++c) {
+      T acc = J.Tm[r] * ct[c];
+      for (int k = 1; k < 6; ++k) acc += J.Tm[k * 6 + r] * ct[k * 6 + c];
+      m[r * 6 + c] = T(0.5) * acc + dt2 * tj[c * 6 + r];
+    }
+  }
+  // gyroscopic block, added onto the symmetrized g_ss
+  T I[9], Iinv[9], y[3], vx_w[3], hy[9], hy_i[9], i_hy[9];
+  for (int i = 0; i < 9; ++i) {
+    I[i] = P.par(P.inertia, i, b);
+    Iinv[i] = P.par(P.inertia_inv, i, b);
+  }
+  for (int i = 0; i < 3; ++i) vx_w[i] = v_x[9 + i];
+  matvec<3, 3>(Iinv, vx_w, y);
+  hat(y, hy);
+  matmul<3, 3, 3>(hy, I, hy_i);
+  matmul<3, 3, 3>(I, hy, i_hy);
+  for (int r = 0; r < 6; ++r) {
+    for (int c = 0; c < 6; ++c) {
+      T g_ss = T(0.5) * (m[r * 6 + c] + m[c * 6 + r]);
+      if (r >= 3 && c >= 3) g_ss = g_ss + dt * (hy_i[(r - 3) * 3 + c - 3] - i_hy[(r - 3) * 3 + c - 3]);
+      qxx[(6 + r) * 12 + 6 + c] = qxx[(6 + r) * 12 + 6 + c] + g_ss;
+    }
+  }
+  // gravity block
+  const T ez[3] = {T(0), T(0), T(1)};
+  T qc[4], r_t_ez[3];
+  quat_conjugate(q, qc);
+  quat_rotate(qc, ez, r_t_ez);
+  const T* w_lin = v_x + 6;
+  const T wr = w_lin[0] * r_t_ez[0] + w_lin[1] * r_t_ez[1] + w_lin[2] * r_t_ez[2];
+  const T gscale = ((T(-0.5) * dt) * P.par(P.g, 0, b));
+  for (int r = 0; r < 3; ++r) {
+    for (int c = 0; c < 3; ++c) {
+      const T g_grav = gscale * (w_lin[r] * r_t_ez[c] + r_t_ez[r] * w_lin[c] -
+                                 T(2) * wr * ((r == c) ? T(1) : T(0)));
+      qxx[(3 + r) * 12 + 3 + c] = qxx[(3 + r) * 12 + 3 + c] + g_grav;
+    }
+  }
+}
+
+// Tracking-cost differentials of stage n (backward.py _stage_cost_diffs):
+// c_x (12), c_u (4) and c_xx into qxx (X is scratch for Q J_d). Gauss-Newton,
+// plus with kExact the curvature of the Lie (-) residual in the pose block.
+template <typename T, bool kExact>
+__device__ __forceinline__ void stage_cost_diffs(const Problem<T>& P, int n, int b, const T* q,
+                                                 const T* t, const T* v, const T* u, T* X,
+                                                 T* qxx, T* c_x, T* c_u) {
   T dq[4], dtr[3], dv[6], dud[4], dx[12], W[36];
   load_desired(P, n, b, dq, dtr, dv, dud);
   state_minus(q, t, v, dq, dtr, dv, dx);
@@ -334,7 +485,6 @@ __device__ void riccati_stage(const Problem<T>& P, T quu_reg, int n, int b, cons
     for (int kk = 1; kk < 12; ++kk) acc += P.q(r * 12 + kk, b) * dx[kk];
     qdx[r] = acc;
   }
-  T c_x[12];
   for (int r = 0; r < 6; ++r) {
     T acc = W[r] * qdx[0];
     for (int kk = 1; kk < 6; ++kk) acc += W[kk * 6 + r] * qdx[kk];
@@ -346,26 +496,46 @@ __device__ void riccati_stage(const Problem<T>& P, T quu_reg, int n, int b, cons
     for (int c = 0; c < 6; ++c) {
       T acc = P.q(r * 12, b) * W[c];
       for (int kk = 1; kk < 6; ++kk) acc += P.q(r * 12 + kk, b) * W[kk * 6 + c];
-      S.X[r * 12 + c] = acc;
+      X[r * 12 + c] = acc;
     }
-    for (int c = 6; c < 12; ++c) S.X[r * 12 + c] = P.q(r * 12 + c, b);
+    for (int c = 6; c < 12; ++c) X[r * 12 + c] = P.q(r * 12 + c, b);
   }
   // c_xx = [2 W^T qjd[0:6]; 2 qjd[6:12]] into qxx
   for (int r = 0; r < 6; ++r) {
     for (int c = 0; c < 12; ++c) {
-      T acc = W[r] * S.X[c];
-      for (int kk = 1; kk < 6; ++kk) acc += W[kk * 6 + r] * S.X[kk * 12 + c];
-      S.qxx[r * 12 + c] = T(2) * acc;
+      T acc = W[r] * X[c];
+      for (int kk = 1; kk < 6; ++kk) acc += W[kk * 6 + r] * X[kk * 12 + c];
+      qxx[r * 12 + c] = T(2) * acc;
     }
   }
-  for (int i = 72; i < 144; ++i) S.qxx[i] = T(2) * S.X[i];
-  T e[4], c_u[4];
+  for (int i = 72; i < 144; ++i) qxx[i] = T(2) * X[i];
+  if constexpr (kExact) add_cxx_correction(dx, W, qdx, qxx);
+  T e[4];
   for (int i = 0; i < 4; ++i) e[i] = u[i] - dud[i];
   for (int r = 0; r < 4; ++r) {
     T acc = (T(2) * P.r(r * 4, b)) * e[0];
     for (int kk = 1; kk < 4; ++kk) acc += (T(2) * P.r(r * 4 + kk, b)) * e[kk];
     c_u[r] = acc;
   }
+}
+
+// One reverse Riccati stage (backward.py _riccati_stage, the exact path):
+// block-sparse j_x, Gauss-Newton cost diffs, Q-expansion with j_u
+// contracted over its nonzero rows 8:12 only, unregularized 4x4 Cholesky
+// gains (plus quu_reg * I), symmetrized value update. Stage n of scenario b
+// with state (q, t, v, u). Updates v_x, v_xx in place; writes k (4), K (4x12)
+// and the stage's Qu.k and k.Quu.k. kDdp adds the exact curvature: the exact
+// c_xx, and sum_i (v_x)_i f_xx[i] into Q_xx weighted by the incoming v_x
+// (FDDP passes the gap-transported one); f_uu = f_ux = 0 for this model, so
+// Q_u, Q_uu, Q_xu and the gains are untouched.
+template <typename T, bool kDdp = false>
+__device__ void riccati_stage(const Problem<T>& P, T quu_reg, int n, int b, const T* q,
+                              const T* t, const T* v, const T* u, T* v_x, T* v_xx,
+                              StageScratch<T>& S, T* k, T* K, T* qutk_inc, T* ktquuk_inc) {
+  JxBlocks<T>& J = S.J;
+  stage_jx_blocks(P, b, q, v, J);
+  T c_x[12], c_u[4];
+  stage_cost_diffs<T, kDdp>(P, n, b, q, t, v, u, S.X, S.qxx, c_x, c_u);
 
   // --- Q-expansion ---
   // j_u rows 8:12 (the others are structural zeros): ju[r][a], r = 0..3
@@ -382,6 +552,7 @@ __device__ void riccati_stage(const Problem<T>& P, T quu_reg, int n, int b, cons
   }
   mat_jx(J, v_xx, S.X);          // X = V_xx j_x
   jxt_mat<12>(J, S.X, S.qxx, true);  // Q_xx = c_xx + j_x^T V_xx j_x
+  if constexpr (kDdp) add_vfxx(P, b, q, v, v_x, J, S.qxx);
   T vxx_ju[48];                   // V_xx[:, 8:12] ju_lo   (12 x 4)
   for (int r = 0; r < 12; ++r) {
     for (int c = 0; c < 4; ++c) {

@@ -42,22 +42,6 @@ struct SolveIO {
 };
 
 template <typename T>
-__device__ __forceinline__ bool converged(T cur, T next, T rtol, T atol) {
-  T diff = f_abs(cur - next);
-  return diff < rtol * f_abs(cur) || diff < atol;
-}
-
-template <typename T>
-__device__ __forceinline__ void copy_traj(const Traj<T>& src, const Traj<T>& dst, int B, int N,
-                                          int b) {
-  for (int n = 0; n < N; ++n) {
-    T q[4], t[3], v[6], u[4];
-    load_stage(src, B, n, b, q, t, v, u);
-    store_stage(dst, B, n, b, q, t, v, u);
-  }
-}
-
-template <typename T>
 __global__ void solve_kernel(Problem<T> P, SolveIO<T> io) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= P.B) return;

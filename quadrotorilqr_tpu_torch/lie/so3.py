@@ -148,6 +148,43 @@ def _ljacinv_coeff(theta_sq):
     return torch.where(small, d_taylor, d_exact)
 
 
+def _ljac_coeffs_du(theta_sq):
+    """(dB/du, dC/du) with u = |theta|^2. The exact branches cancel ~1/u^2
+    terms, so the Taylor window is wider than the value helpers' (u < 0.25)."""
+    small = theta_sq < 0.25
+    t2 = _safe(theta_sq, small)
+    t = torch.sqrt(t2)
+    st, ct = torch.sin(t), torch.cos(t)
+    u = theta_sq
+    db_exact = (0.5 * t * st - (1.0 - ct)) / (t2 * t2)
+    dc_exact = (0.5 * (1.0 - ct) - 1.5 * (t - st) / t) / (t2 * t2)
+    db_taylor = -1.0 / 24.0 + u / 360.0 - u * u / 13440.0 + u * u * u / 907200.0
+    dc_taylor = -1.0 / 120.0 + u / 2520.0 - u * u / 120960.0 + u * u * u / 9979200.0
+    return torch.where(small, db_taylor, db_exact), torch.where(small, dc_taylor, dc_exact)
+
+
+def left_jacobian_t_jac(theta, w):
+    """D_theta[Jl(theta)^T w] for a fixed cotangent w: (..., 3) x (..., 3)
+    -> (..., 3, 3), the second differential of the exp chart behind the
+    analytic DDP curvature:
+
+        B hat(w) - 2B' (theta x w) theta^T + 2C' (theta x (theta x w)) theta^T
+        - C (hat(theta x w) + hat(theta) hat(w))
+    """
+    theta_sq = (theta * theta).sum(-1)
+    b, c = _ljac_coeffs(theta_sq)
+    db, dc = _ljac_coeffs_du(theta_sq)
+    tw = cross(theta, w)
+    ttw = cross(theta, tw)
+    hw = hat(w)
+    return (
+        b[..., None, None] * hw
+        - (2.0 * db)[..., None, None] * tw[..., :, None] * theta[..., None, :]
+        + (2.0 * dc)[..., None, None] * ttw[..., :, None] * theta[..., None, :]
+        - c[..., None, None] * (hat(tw) + hat(theta) @ hw)
+    )
+
+
 def _eye3(like):
     eye = torch.eye(3, dtype=like.dtype, device=like.device)
     return eye.expand(like.shape[:-1] + (3, 3))

@@ -10,20 +10,33 @@ Counterpart of `quadrotorilqr_tpu/solver/batched.py`:
   * `solve_batch_latency` runs the whole loop in one kernel launch
     (`kernels/solve.py`), except for a zero-probe line search, which the
     whole-solve kernel cannot express and which goes to the batch loop.
+  * `solve_batch_fddp` runs the robust FDDP loop in one kernel launch
+    (`kernels/fddp.py`); with `refine` it goes to
+    `solve_batch_fddp_refine`, the multi-phase solve that compacts the
+    still-pending lanes to the front between phases and may switch the
+    curvature per phase (`resolve_refine_auto`).
 
-Both take any B and any N (no lane padding, no horizon routing). On CPU
+All take any B and any N (no lane padding, no horizon routing). On CPU
 tensors the kernel wrappers run their plain PyTorch versions.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import torch
+
 from ..costs import quadratic as qc
 from ..kernels.backward import backward_pass_fused
+from ..kernels.fddp import solve_fddp_fused
 from ..kernels.rollout import rollout_cost_fused
 from ..kernels.solve import solve_fused_whole
+from ..tree import tree_map
+from . import fddp
 from .ilqr import (
     CONTINUATION_TODO,
     LIMITS_TODO,
+    STATUS_MAX_ITERS,
     SolveResult,
     Trajectory,
     check_supported,
@@ -86,3 +99,166 @@ def solve_batch_latency(
         params, cost, initial_trajs, dt_s, options
     )
     return SolveResult(trajectory=traj, cost=cost_v, iterations=iterations, status=status)
+
+
+def resolve_refine_auto(max_iters, ddp):
+    """The default multi-phase schedule: phase boundaries at 20, 30, 40, 50,
+    62.5 and 75% of the iteration budget and, with ddp=False, exact-DDP
+    curvature for the phases that start at 40% of the budget or later
+    (the hybrid schedule). Returns (bounds, ddp); bounds is None when the
+    budget is too small to split."""
+    fr = (0.2, 0.3, 0.4, 0.5, 0.625, 0.75)
+    bounds = tuple(
+        sorted({b for f in fr if 0 < (b := int(round(f * max_iters))) < max_iters})
+    )
+    if not bounds:
+        return None, ddp
+    if ddp is False:
+        switch = int(round(0.4 * max_iters))
+        ddp = tuple(s >= switch for s in (0,) + bounds)
+    return bounds, ddp
+
+
+def _with_max_iters(options, max_iters):
+    return dataclasses.replace(
+        options,
+        convergence_criteria=dataclasses.replace(
+            options.convergence_criteria, max_iters=max_iters
+        ),
+    )
+
+
+def solve_batch_fddp(
+    params,
+    cost,
+    initial_trajs: Trajectory,
+    dt_s: float,
+    options: ILQROptions = ILQROptions(),
+    fddp_options=None,
+    model=None,
+    ddp=False,
+    limits=None,
+    refine=None,
+) -> SolveResult:
+    """Batched robust FDDP solve (solver/fddp.py semantics), the whole loop in
+    one kernel launch; lane for lane the plain `solver.fddp.solve_fddp`.
+
+    `refine="auto"` runs the multi-phase schedule of `resolve_refine_auto`
+    (and, with ddp=False, the hybrid curvature); an int or tuple passes
+    through as explicit phase boundaries (`solve_batch_fddp_refine`).
+    A zero-probe line search, which the kernel cannot express, runs the
+    plain loop."""
+    fo = fddp.FDDPOptions() if fddp_options is None else fddp_options
+    fddp.check_supported(cost, model, limits)
+    kernel_ok = options.line_search_params.max_iters >= 1
+    if refine is not None and kernel_ok:
+        bounds, ddp_r = refine, ddp
+        if refine == "auto":
+            bounds, ddp_r = resolve_refine_auto(
+                int(options.convergence_criteria.max_iters), ddp
+            )
+        if bounds is not None:
+            return solve_batch_fddp_refine(
+                params, cost, initial_trajs, dt_s, options, fddp_options=fo,
+                phase1_iters=bounds, ddp=ddp_r,
+            )
+    if isinstance(ddp, tuple):
+        raise ValueError(
+            "per-phase ddp tuples need refine=... (solve_batch_fddp_refine semantics)"
+        )
+    if not kernel_ok:
+        return fddp.solve_fddp(params, cost, initial_trajs, dt_s, options, fo, ddp=ddp)
+    traj, cost_v, iterations, status = solve_fddp_fused(
+        params, cost, initial_trajs, dt_s, options, fo, ddp=ddp
+    )
+    return SolveResult(trajectory=traj, cost=cost_v, iterations=iterations, status=status)
+
+
+def _gather_lanes(params, cost, cur2orig):
+    """Per-scenario params and cost leaves re-gathered in the current lane
+    order; shared leaves pass through."""
+    flags = qc.cost_batched_flags(cost)
+    cost_g = tree_map(lambda a, batched: a[cur2orig] if batched else a, cost, flags)
+    params_g = tree_map(lambda a: a[cur2orig], params) if params.batched else params
+    return params_g, cost_g
+
+
+def solve_batch_fddp_refine(
+    params,
+    cost,
+    initial_trajs: Trajectory,
+    dt_s: float,
+    options: ILQROptions = ILQROptions(),
+    fddp_options=None,
+    phase1_iters=20,
+    model=None,
+    ddp=False,
+    limits=None,
+) -> SolveResult:
+    """Multi-phase compacted robust solve. `phase1_iters` is one phase
+    boundary (int) or several (cumulative trip counts):
+
+      1. each phase runs the kernel for its share of the budget;
+      2. the lanes still pending move to the front (stable argsort), so the
+         stragglers occupy the leading blocks of the next launch, and the
+         per-scenario operands are re-gathered through `cur2orig`;
+      3. the next phase resumes exactly from the per-lane mu, status and
+         iterations (frozen lanes only copy their trajectory);
+      4. the results scatter back once at the end.
+
+    Lane for lane the single-phase `solve_batch_fddp`. `ddp` may be a tuple
+    with one flag per phase (the hybrid curvature schedule)."""
+    fo = fddp.FDDPOptions() if fddp_options is None else fddp_options
+    fddp.check_supported(cost, model, limits)
+    if isinstance(ddp, tuple) and len(set(bool(f) for f in ddp)) == 1:
+        ddp = bool(ddp[0])
+    hybrid = isinstance(ddp, tuple)
+    total = int(options.convergence_criteria.max_iters)
+    bounds = (phase1_iters,) if isinstance(phase1_iters, int) else tuple(phase1_iters)
+    if hybrid and options.line_search_params.max_iters < 1:
+        raise ValueError("the hybrid curvature schedule needs line-search probes >= 1")
+    if options.line_search_params.max_iters < 1 or all(min(int(b), total) == total for b in bounds):
+        if hybrid:
+            raise ValueError(
+                f"per-phase ddp {ddp!r} needs at least two phases; "
+                f"phase1_iters={phase1_iters!r} leaves one"
+            )
+        return solve_batch_fddp(params, cost, initial_trajs, dt_s, options, fo, ddp=ddp)
+    budgets = []
+    used = 0
+    for b in bounds:
+        b = min(int(b), total)
+        if b > used:
+            budgets.append(b - used)
+            used = b
+    budgets.append(total - used)
+    ddp_seq = ddp if hybrid else (ddp,) * len(budgets)
+    if len(ddp_seq) != len(budgets):
+        raise ValueError(
+            f"per-phase ddp needs one flag per phase: {len(budgets)} phases from "
+            f"phase1_iters={phase1_iters!r}, got {len(ddp_seq)} flags"
+        )
+    cur2orig = torch.arange(initial_trajs.controls.shape[0], device=initial_trajs.controls.device)
+    traj = initial_trajs
+    mu = status = iters = None
+    for k, budget in enumerate(budgets):
+        params_g, cost_g = _gather_lanes(params, cost, cur2orig)
+        traj, cost_v, iters, status, mu = solve_fddp_fused(
+            params_g, cost_g, traj, dt_s, _with_max_iters(options, budget), fo,
+            ddp=ddp_seq[k], initial_mu=mu, initial_status=status, initial_iters=iters,
+            return_mu=True,
+        )
+        if k == len(budgets) - 1:
+            break
+        # stable: pending lanes first, relative order kept both ways
+        perm = torch.argsort((status != STATUS_MAX_ITERS).to(torch.int8), stable=True)
+        cur2orig = cur2orig[perm]
+        traj = tree_map(lambda a: a[perm], traj)
+        mu, status, iters = mu[perm], status[perm], iters[perm]
+    inv = torch.argsort(cur2orig, stable=True)
+    return SolveResult(
+        trajectory=tree_map(lambda a: a[inv], traj),
+        cost=cost_v[inv],
+        iterations=iters[inv],
+        status=status[inv],
+    )

@@ -93,7 +93,9 @@ def _api_pair(seed):
     args = (p["mass_kg"], p["inertia"], p["arm_length_m"], p["torque_to_thrust_ratio_m"],
             p["g_mpss"], d["Q"], d["R"])
     j_api = JQuadrotorILQR(*args, jax.tree.map(jax.numpy.asarray, j_desired), DT, j_opts)
-    p_api = QuadrotorILQR(*args, convert.trajectory_from_numpy(j_desired), DT, p_opts)
+    p_api = QuadrotorILQR(
+        *args, convert.trajectory_from_numpy(j_desired), DT, p_opts, device="cpu"
+    )
     return j_api, p_api, jobjs[2]
 
 
@@ -123,14 +125,26 @@ def test_api_solve_pytree_matches_jax(api_pair):
 
 
 @pytest.mark.parametrize(
-    "kwargs", [dict(solver="fddp"), dict(stage_weights=np.ones(N))], ids=["fddp", "weights"]
+    "kwargs", [dict(solver="ddp"), dict(stage_weights=np.ones(N))], ids=["ddp", "weights"]
 )
 def test_api_refuses_options_outside_the_slice(api_pair, kwargs):
     p_api = api_pair[0]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         QuadrotorILQR(
             1.0, np.eye(3), 0.2, 0.016, 9.81, np.eye(12), np.eye(4), p_api.desired_traj,
-            DT, p_api.options, **kwargs,
+            DT, p_api.options, device="cpu", **kwargs,
+        )
+
+
+def test_api_defaults_to_cuda_and_refuses_without_it(api_pair, monkeypatch):
+    """No device means the CUDA card; without one the solver refuses to
+    start instead of carrying on on the CPU."""
+    p_api = api_pair[0]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        QuadrotorILQR(
+            1.0, np.eye(3), 0.2, 0.016, 9.81, np.eye(12), np.eye(4), p_api.desired_traj,
+            DT, p_api.options,
         )
 
 
