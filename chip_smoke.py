@@ -12,9 +12,11 @@ bounds), and drives two main paths through `QuadrotorILQR.solve_batch`:
     tolerance 1e-6, 10 iterations, 20 line-search probes), with
     `latency=True` (the whole-solve kernel) and `fused=True` (the per-pass
     kernels);
-  * robust FDDP (`solver="fddp"`, float32: the multi-phase `refine="auto"`
-    schedule on the FDDP kernel) on the aggressive-tumble class of the
-    robust headline (B=4096, N=50, dt 0.1, scale 1.8, 40 iterations).
+  * robust FDDP (`solver="fddp"`, float32: the `refine="auto"` schedule,
+    one FDDP kernel launch of Gauss-Newton trips and one of exact-DDP trips
+    resumed from it) on the aggressive-tumble class of the robust headline
+    (B=4096, N=50, dt 0.1, scale 1.8, 40 iterations); each launch is held
+    against the plain FDDP loop on the same inputs and resume rows.
 
 It checks convergence, times the kernels against their plain PyTorch
 versions with CUDA events, and computes each kernel's bound (the least time
@@ -55,12 +57,15 @@ PEAK_BYTES = 3.35e12
 #     566 + dynamics step 309;
 #   FDDP probe stage (rollout_gap_stage): the rollout stage plus the gap
 #     shrink, Exp and compose 210;
-#   FDDP probe-0 model terms: j_x blocks, cost diffs (Gauss-Newton, or with
-#     the correction), p and w updates 4720 (7784 with kDdp);
-#   FDDP defect 560 and value transport v_x + V_xx d 288.
+#   FDDP probe-0 model terms beyond what the Riccati stage already computed
+#     at the same stage (the kernel recomputes its j_x blocks and cost
+#     diffs; that is not counted): w 96, L1 32, c_xx p 276, 2R w 44, L2 33,
+#     J_x p 171, J_u w 32, + d 12;
+#   FDDP defect 560, counted on the trips that computed defects (the kernel
+#     reports them), and value transport v_x + V_xx d 288 on every trip.
 FLOPS = dict(
-    riccati=12074, ddp_extra=6840, rollout=1202, gap_rollout=1412, model=4720,
-    model_ddp=7784, defect=560, transport=288, stage_cost=566,
+    riccati=12074, ddp_extra=6840, rollout=1202, gap_rollout=1412, model=696,
+    defect=560, transport=288, stage_cost=566,
 )
 
 
@@ -114,6 +119,15 @@ def max_abs(a, b):
     return float((a - b).abs().max())
 
 
+def bit_equal(got, ref):
+    """Status, iterations, cost and every trajectory leaf identical; each
+    argument a SolveResult or the kernel wrapper's tuple."""
+    def leaves(r):
+        t, c, i, s = (r.trajectory, r.cost, r.iterations, r.status) if hasattr(r, "cost") else r[:4]
+        return (s, i, c, t.controls, t.states.pose.quat, t.states.pose.trans, t.states.vel)
+    return all(bool((a == b).all()) for a, b in zip(leaves(got), leaves(ref)))
+
+
 def main() -> int:
     try:
         import torch
@@ -128,8 +142,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
 
-    import dataclasses
-
     from quadrotorilqr_tpu_torch import convert
     from quadrotorilqr_tpu_torch.costs.quadratic import QuadraticTrackingCost
     from quadrotorilqr_tpu_torch.api import QuadrotorILQR
@@ -142,9 +154,9 @@ def main() -> int:
     from quadrotorilqr_tpu_torch.parallel.batch import initial_trajectory_from_state
     from quadrotorilqr_tpu_torch.solver import fddp, ilqr
     from quadrotorilqr_tpu_torch.solver.batched import (
+        _with_max_iters,
         resolve_refine_auto,
         solve_batch_fddp,
-        solve_batch_fddp_refine,
         solve_batch_fused,
         solve_batch_latency,
     )
@@ -286,16 +298,30 @@ def main() -> int:
             check(same_status >= 0.98 and same_iters >= 0.95
                   and float(rel[strict].max()) <= 1e-8 and float(du[strict].max()) <= 1e-4
                   and float(rel.max()) < 2e-4, "f64 FDDP ddp kernel outside the DDP engines' bar")
+    # resume rows: 7 trips, then the other 18 from the kernel's own mu,
+    # status and iterations, against one launch of 25
     one = solve_batch_fddp(*m_args, fo)
-    two = solve_batch_fddp_refine(*m_args, fo, phase1_iters=(7,))
+    first = kf.solve_fddp_fused(*m_args[:4], _with_max_iters(m_opts, 7), fo, return_mu=True)
+    two = kf.solve_fddp_fused(
+        m_params, m_cost, first[0], mix_dt, _with_max_iters(m_opts, 18), fo,
+        initial_mu=first[4], initial_status=first[3], initial_iters=first[2],
+    )
     torch.cuda.synchronize()
-    exact = all(bool((a == b).all()) for a, b in (
-        (one.status, two.status), (one.iterations, two.iterations), (one.cost, two.cost),
-        (one.trajectory.controls, two.trajectory.controls)))
-    pending = int((kf.solve_fddp_fused(*m_args[:4], dataclasses.replace(
-        m_opts, convergence_criteria=ConvergenceCriteria(1e-9, 1e-9, 7)), fo)[3] == 0).sum())
+    exact = bit_equal(two, one)
+    pending = int((first[3] == 0).sum())
     log(f"f64 FDDP two phases (boundary 7, {pending} lanes pending there) vs one: bit-equal {exact}")
     check(exact and pending > 0, "the two-phase FDDP kernel solve differs from the single phase")
+    # no line-search probes: every trip rejects and only the mu schedule runs
+    z_opts = ILQROptions(LineSearchParams(0.5, 0.5, 0), ConvergenceCriteria(1e-9, 1e-9, 5))
+    got = kf.solve_fddp_fused(*m_args[:4], z_opts, fo, return_mu=True, return_probes=True)
+    ref = kf.solve_fddp_whole_reference(*m_args[:4], z_opts, fo)
+    torch.cuda.synchronize()
+    exact = all(bool((g == r).all()) for g, r in zip(got[2:], ref[2:]))
+    rel = float(((got[1] - ref[1]).abs() / ref[1].abs()).max())
+    log(f"f64 FDDP with no line-search probes (5 trips): iterations, status, mu, probes and "
+        f"defect trips equal {exact}, max rel cost {rel:.3e} (rtol 1e-12), final mu "
+        f"{float(got[4].max()):.3e}")
+    check(exact and rel <= 1e-12, "the zero-probe FDDP kernel disagrees with plain")
     log(f"launch counters after the comparisons: {counts()}")
 
     # ---- the bench workload, float32, B=4096, N=100 ----
@@ -389,13 +415,18 @@ def main() -> int:
         r_desired, r_dt, r_opts, dtype=torch.float32, device=dev, solver="fddp",
     )
     r_trajs = initial_trajectory_from_state(x0, r_desired)
-    phases = len(resolve_refine_auto(40, False)[0]) + 1
+    # refine="auto": phases of one curvature run as one launch, so Gauss-Newton
+    # trips up to the switch, then exact-DDP trips resumed from them
+    bounds, flags = resolve_refine_auto(40, False)
+    edges = (0,) + bounds + (40,)
+    switch = edges[flags.index(True)]
     reset_counts()
     res_robust = robust.solve_batch(r_trajs)
     torch.cuda.synchronize()
     robust_launches = counts()
-    log(f"robust main path launches: {robust_launches} ({phases} phases)")
-    check(robust_launches["fddp"] >= phases, f"the FDDP kernel ran fewer times than phases: {robust_launches}")
+    log(f"robust main path launches: {robust_launches} (Gauss-Newton trips 0-{switch}, "
+        f"exact DDP {switch}-40)")
+    check(robust_launches["fddp"] == 2, f"the FDDP kernel did not run twice: {robust_launches}")
     check(res_robust.cost.shape == (r_batch,) and res_robust.trajectory.controls.shape == (r_batch, r_n, 4),
           "robust path: wrong output shapes")
     leaves = (res_robust.cost, res_robust.trajectory.controls, res_robust.trajectory.states.pose.quat,
@@ -407,22 +438,69 @@ def main() -> int:
         f"{float(res_robust.iterations.float().mean()):.3f}, statuses "
         f"{torch.bincount(res_robust.status, minlength=3).tolist()}")
     check(r_conv >= 0.97, "robust path: converged fraction below 0.97")
-    # the single-phase kernel against the plain FDDP loop at the same size
+
+    # the main path's two launches, each on its own, and the schedule's
+    # seven phases launched one by one: the same bits as the API
     r_args = (robust.params, robust.cost, r_trajs, r_dt, r_opts, r_fo)
-    single = kf.solve_fddp_fused(*r_args, return_probes=True)
-    plain, plain_fddp_ms = time_once(lambda: kf.solve_fddp_whole_reference(*r_args))
+    rp_args = (robust.params, robust.cost)
+    gn_opts, ddp_opts = _with_max_iters(r_opts, switch), _with_max_iters(r_opts, 40 - switch)
+    gn_k = kf.solve_fddp_fused(*rp_args, r_trajs, r_dt, gn_opts, r_fo, return_mu=True,
+                               return_probes=True)
+    rows = dict(initial_mu=gn_k[4], initial_status=gn_k[3], initial_iters=gn_k[2])
+    ddp_k = kf.solve_fddp_fused(*rp_args, gn_k[0], r_dt, ddp_opts, r_fo, ddp=True, return_mu=True,
+                                return_probes=True, **rows)
+    out = (r_trajs, None, None, None, None)
+    for lo, hi, flag in zip(edges, edges[1:], flags):
+        out = kf.solve_fddp_fused(
+            *rp_args, out[0], r_dt, _with_max_iters(r_opts, hi - lo), r_fo, ddp=flag,
+            initial_mu=out[4], initial_status=out[3], initial_iters=out[2], return_mu=True,
+        )
     torch.cuda.synchronize()
-    conv_k = float((single[3] == ilqr.STATUS_CONVERGED).float().mean())
-    conv_p = float((plain[3] == ilqr.STATUS_CONVERGED).float().mean())
-    med = float(((single[1] - plain[1]).abs() / plain[1].abs()).median())
-    trips, sweeps = int(single[2].sum()), float(single[4].sum())
-    log(f"f32 single-phase FDDP kernel vs plain loop (B={r_batch}, N={r_n}): converged "
-        f"{conv_k:.4f} vs {conv_p:.4f} (within 0.01), status agreement "
-        f"{float((single[3] == plain[3]).float().mean()):.4f}, median rel cost diff {med:.3e} "
-        f"(< 1e-3), mean iterations {float(single[2].float().mean()):.3f} vs "
-        f"{float(plain[2].float().mean()):.3f}; the kernel ran {trips} trips and {sweeps:.1f} "
-        f"probe sweeps")
-    check(abs(conv_k - conv_p) <= 0.01 and med < 1e-3, "f32 FDDP kernel outside its bounds")
+    same_two, same_seven = bit_equal(ddp_k, res_robust), bit_equal(out, res_robust)
+    log(f"robust path = its two launches on their own: bit-equal {same_two}; = the "
+        f"{len(flags)} phases launched one by one: bit-equal {same_seven}")
+    check(same_two and same_seven, "the robust path's launches differ from its phase schedule")
+
+    # each launch against the plain FDDP loop on the same inputs and resume
+    # rows (float32: quality bounds, line-search flips are inherent)
+    def conv_of(r):
+        return float((r[3] == ilqr.STATUS_CONVERGED).float().mean())
+
+    gn_p, plain_gn_ms = time_once(lambda: kf.solve_fddp_whole_reference(
+        *rp_args, r_trajs, r_dt, gn_opts, r_fo))
+    torch.cuda.synchronize()
+    med = float(((gn_k[1] - gn_p[1]).abs() / gn_p[1].abs()).median())
+    log(f"f32 FDDP Gauss-Newton launch (trips 0-{switch}) vs plain loop: converged "
+        f"{conv_of(gn_k):.4f} vs {conv_of(gn_p):.4f} (within 0.01), status agreement "
+        f"{float((gn_k[3] == gn_p[3]).float().mean()):.4f}, median rel cost diff {med:.3e} (< 1e-3)")
+    check(abs(conv_of(gn_k) - conv_of(gn_p)) <= 0.01 and med < 1e-3,
+          "f32 FDDP Gauss-Newton launch outside its bounds")
+    ddp_p, plain_ddp_ms = time_once(lambda: kf.solve_fddp_whole_reference(
+        *rp_args, gn_k[0], r_dt, ddp_opts, r_fo, True, gn_k[4], gn_k[3], gn_k[2]))
+    torch.cuda.synchronize()
+    live = gn_k[3] == 0
+    rel = (ddp_k[1] - ddp_p[1]).abs() / ddp_p[1].abs()
+    med = float(rel[live].median())
+    conv_live = [float((r[3][live] == ilqr.STATUS_CONVERGED).float().mean()) for r in (ddp_k, ddp_p)]
+    log(f"f32 FDDP exact-DDP launch (trips {switch}-40, resumed; {int(live.sum())} lanes pending "
+        f"at the switch) vs plain loop on the same rows: converged {conv_of(ddp_k):.4f} vs "
+        f"{conv_of(ddp_p):.4f} (within 0.01; of the pending lanes {conv_live[0]:.4f} vs "
+        f"{conv_live[1]:.4f}), status agreement of the pending lanes "
+        f"{float((ddp_k[3][live] == ddp_p[3][live]).float().mean()):.4f}, their median rel cost "
+        f"diff {med:.3e} (< 1e-3), mean iterations {float(ddp_k[2].float().mean()):.3f} vs "
+        f"{float(ddp_p[2].float().mean()):.3f}")
+    check(int(live.sum()) > 0 and abs(conv_of(ddp_k) - conv_of(ddp_p)) <= 0.01 and med < 1e-3,
+          "f32 FDDP exact-DDP launch outside its bounds")
+    # what the two launches ran, for the bound: trips, probe sweeps, defect trips
+    work_gn = (int(gn_k[2].sum()), float(gn_k[5].sum()), int(gn_k[6].sum()))
+    work_ddp = (int((ddp_k[2] - gn_k[2]).sum()), float(ddp_k[5].sum()), int(ddp_k[6].sum()))
+    log(f"the FDDP launches ran (trips, probe sweeps, defect trips): Gauss-Newton {work_gn}, "
+        f"exact DDP {work_ddp}")
+    # the single-phase kernel, for its convergence beside the schedule's
+    single = kf.solve_fddp_fused(*r_args)
+    torch.cuda.synchronize()
+    log(f"f32 single-phase FDDP kernel (Gauss-Newton, 40 trips): converged {conv_of(single):.4f}, "
+        f"mean iterations {float(single[2].float().mean()):.3f}")
 
     # ---- 6. timing (CUDA events, 1 warm-up, median of 5) ----
     def time_ms(fn, repeats=5):
@@ -461,15 +539,23 @@ def main() -> int:
             ),
         ),
         "solve": (ms["solve"], ms["plain"]),
-        "fddp": (time_ms(lambda: kf.solve_fddp_fused(*r_args)), plain_fddp_ms),
     }
+    # the FDDP kernel's time on the main path: its two launches, each timed
+    ms["fddp_gn"] = time_ms(lambda: kf.solve_fddp_fused(*rp_args, r_trajs, r_dt, gn_opts, r_fo))
+    ms["fddp_ddp"] = time_ms(lambda: kf.solve_fddp_fused(
+        *rp_args, gn_k[0], r_dt, ddp_opts, r_fo, ddp=True, **rows))
+    per_kernel["fddp"] = (ms["fddp_gn"] + ms["fddp_ddp"], plain_gn_ms + plain_ddp_ms)
     for name, (k_ms, p_ms) in per_kernel.items():
         b_, n_ = (r_batch, r_n) if name == "fddp" else (batch, horizon)
         log(f"{name} kernel: {k_ms:.3f} ms, plain {p_ms:.3f} ms (B={b_}, N={n_}, f32) {card}")
+    log(f"fddp launches: Gauss-Newton trips 0-{switch} {ms['fddp_gn']:.3f} ms (plain "
+        f"{plain_gn_ms:.3f} ms), exact DDP trips {switch}-40 {ms['fddp_ddp']:.3f} ms (plain "
+        f"{plain_ddp_ms:.3f} ms) {card}")
     ms_robust = time_ms(lambda: robust.solve_batch(r_trajs))
-    log(f"robust path (refine auto, {phases} FDDP launches): {ms_robust:.3f} ms per batch solve, "
-        f"{r_batch / ms_robust * 1e3:.1f} solves/s; single-phase kernel "
-        f"{per_kernel['fddp'][0]:.3f} ms (B={r_batch}, N={r_n}, f32) {card}")
+    ms_single = time_ms(lambda: kf.solve_fddp_fused(*r_args))
+    log(f"robust path (refine auto, 2 FDDP launches): {ms_robust:.3f} ms per batch solve, "
+        f"{r_batch / ms_robust * 1e3:.1f} solves/s; single-phase kernel {ms_single:.3f} ms "
+        f"(B={r_batch}, N={r_n}, f32) {card}")
 
     # ---- 7. bounds: the work this run's inputs needed ----
     f = FLOPS
@@ -481,10 +567,17 @@ def main() -> int:
         "rollout": (stage * f["rollout"], (17 + 52 + 17) * stage * word + 2 * batch * word),
         "solve": (whole_trips * horizon * (f["riccati"] + f["rollout"]),
                   2 * 17 * stage * word + 3 * batch * word),
+        # the two launches: every trip transports the gradient and runs the
+        # Riccati stage and the model terms (the exact-DDP launch with its
+        # additions); defects only on the trips that computed them; the seed
+        # cost once
         "fddp": (
-            trips * r_n * (f["defect"] + f["transport"] + f["riccati"] + f["model"])
-            + sweeps * r_n * f["gap_rollout"] + r_batch * r_n * f["stage_cost"],
-            2 * 17 * r_batch * r_n * word + 5 * r_batch * word,
+            sum(
+                r_n * (trips * (f["transport"] + f["riccati"] + extra + f["model"])
+                       + defect_trips * f["defect"] + sweeps * f["gap_rollout"])
+                for (trips, sweeps, defect_trips), extra in ((work_gn, 0), (work_ddp, f["ddp_extra"]))
+            ) + r_batch * r_n * f["stage_cost"],
+            2 * 17 * r_batch * r_n * word + 6 * r_batch * word,
         ),
     }
     bounds = {}

@@ -129,8 +129,8 @@ class QuadrotorILQR:
             ddp = self.solver == "fddp-ddp"
             if not fused:
                 return fddp.solve_fddp(*args, ddp=ddp)
-            # float32 takes the measured-best robust schedule (multi-phase
-            # compaction, hybrid curvature); float64 the single-phase kernel,
+            # float32 takes the measured-best robust schedule (Gauss-Newton,
+            # then exact-DDP curvature); float64 the single-phase kernel,
             # lane for lane the JAX float64 route vmap(solve_fddp)
             refine = "auto" if self.dtype == torch.float32 else None
             return solve_batch_fddp(*args, ddp=ddp, refine=refine)

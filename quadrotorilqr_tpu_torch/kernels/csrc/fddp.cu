@@ -22,9 +22,11 @@
 //   4. the close: the cost commit, the mu schedule keyed on the accepted
 //      alpha, LINE_SEARCH_FAILED on a rejection at reg_max, CONVERGED on an
 //      accepted step from an iterate whose gap was already below gap_tol.
-// Every trip counts against max_iters. The last accepted candidate merges
-// after the loop. Resume rows (mu, status, iterations) continue a solve: a
-// lane with a nonzero status is frozen and only copies its trajectory.
+// Every trip counts against max_iters. With no probes (ls_max_iters 0) every
+// trip rejects, so only the mu schedule runs. The last accepted candidate
+// merges after the loop. Resume rows (mu, status, iterations) continue a
+// solve: a lane with a nonzero status is frozen and only copies its
+// trajectory.
 //
 // Stage costs sum as c + (dx'Q dx + du'R du) through one non-inlined
 // function, so the seed cost of a resumed phase is bit-equal to the cost
@@ -54,6 +56,7 @@ struct FddpIO {
   int* status;        // out (B,)
   T* mu;              // out (B,)
   T* probes;          // out (B,): stages the probes ran / N
+  int* defect_trips;  // out (B,): trips whose reverse sweep computed the defects
   T* ks;              // scratch (N, 4, B)
   T* bigks;           // scratch (N, 4, 12, B)
   Traj<T> best;       // scratch (N, d, B): the line search's candidate
@@ -139,14 +142,17 @@ __global__ void fddp_kernel(Problem<T> P, FddpIO<T> io) {
   bool take = false;  // the last trip accepted a candidate not yet merged
   bool stale = true;  // the defects need computing (trip 0, or after an accept)
   T gap = T(0);
-  int stages_run = 0;
+  int stages_run = 0, defect_trips = 0;
   StageScratch<T> S;
   for (int i = 0; i < io.max_iters && !done; ++i) {
     const T current = cost;
     const T quu_reg = io.quu_reg + mu;
 
     // ---- fused merge + defects + gap-transported backward pass ----
-    if (stale) gap = T(0);
+    if (stale) {
+      gap = T(0);
+      ++defect_trips;
+    }
     T v_x[12], v_xx[144];
     for (int j = 0; j < 12; ++j) v_x[j] = T(0);
     for (int j = 0; j < 144; ++j) v_xx[j] = T(0);
@@ -194,7 +200,7 @@ __global__ void fddp_kernel(Problem<T> P, FddpIO<T> io) {
     bool accepted = false;
     T best_cost = current;
     T l1 = T(0), l2 = T(0);
-    {
+    if (io.ls_max_iters >= 1) {
       T q[4], t[3], v[6], u[4], p[12];
       load_stage(io.live, B, 0, b, q, t, v, u);
       for (int j = 0; j < 12; ++j) p[j] = T(0);
@@ -287,11 +293,12 @@ __global__ void fddp_kernel(Problem<T> P, FddpIO<T> io) {
   io.status[b] = status;
   io.mu[b] = mu;
   io.probes[b] = static_cast<T>(stages_run) / static_cast<T>(N);
+  io.defect_trips[b] = defect_trips;
 }
 
 // packed operands after the Problem block:
 //   ptrs:  q t v u  imu istat iiter  oq ot ov ou  cost iters status mu probes
-//          ks bigks  bq bt bv bu  d
+//          ks bigks  bq bt bv bu  d  defect_trips
 //   ints:  max_iters ls_max_iters ddp
 //   reals: quu_reg rtol atol ls_step ls_jump goldstein_frac goldstein_ub gap_tol
 //          reg_init reg_scale_up reg_scale_down reg_min reg_max alpha_dec alpha_inc
@@ -318,6 +325,7 @@ int launch_fddp(const void* const* ptrs, const long long* ints, const double* re
   io.bigks = static_cast<T*>(out(17));
   io.best = traj_from<T>(p + 18);
   io.d = static_cast<T*>(out(22));
+  io.defect_trips = static_cast<int*>(out(23));
   io.max_iters = static_cast<int>(ip[0]);
   io.ls_max_iters = static_cast<int>(ip[1]);
   io.ddp = static_cast<int>(ip[2]);

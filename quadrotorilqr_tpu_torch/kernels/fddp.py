@@ -6,8 +6,8 @@ FDDP solve in one thread: per trip a reverse sweep that merges the previous
 trip's accepted candidate, computes the defects and runs the gap-transported
 Riccati stage (Gauss-Newton, or exact DDP curvature with `ddp=True`), then
 the Goldstein line search with gap-contracting rollouts (probe 0 also
-carries the exact quadratic model), then the per-lane mu schedule and
-status. Trajectories, gains and defects stay in device memory, so any
+carries the exact quadratic model; with no probes every trip rejects), then
+the per-lane mu schedule and status. Trajectories, gains and defects stay in device memory, so any
 horizon fits. `solve_fddp_fused` launches it for CUDA tensors and takes
 `solve_fddp_whole_reference` (the plain loop `solver.fddp.fddp_loop`) only
 for CPU tensors.
@@ -29,8 +29,8 @@ def solve_fddp_whole_reference(
     initial_mu=None, initial_status=None, initial_iters=None,
 ):
     """Plain PyTorch version: the batched `solver.fddp.fddp_loop`. Returns
-    (Trajectory, cost, iterations int32, status int32, mu, probe sweeps),
-    each (B,) after the trajectory."""
+    (Trajectory, cost, iterations int32, status int32, mu, probe sweeps,
+    defect trips int32), each (B,) after the trajectory."""
     return fddp.fddp_loop(
         params, cost, traj, dt_s, options, fddp_options, ddp,
         initial_mu, initial_status, initial_iters,
@@ -58,16 +58,12 @@ def solve_fddp_fused(
     copy their trajectory and report its cost); pending lanes continue their
     mu and iteration count for this call's max_iters trips.
     Returns (Trajectory, cost (B,), iterations (B,) int32, status (B,)
-    int32), then mu (B,) with `return_mu` and the executed probe sweeps (B,)
-    (stages the probes ran / N) with `return_probes`."""
+    int32), then mu (B,) with `return_mu`, and with `return_probes` the
+    executed probe sweeps (B,) (stages the probes ran / N) and the trips
+    whose reverse sweep computed the defects (B,) int32 (the first trip and
+    each one after an accepted trip), both counted over this call."""
     fo = fddp.FDDPOptions() if fddp_options is None else fddp_options
     fddp.check_supported(cost, model, limits)
-    ls = options.line_search_params
-    if int(ls.max_iters) < 1:
-        raise ValueError(
-            "line_search_params.max_iters must be >= 1 on the FDDP kernel; "
-            "solver.batched.solve_batch_fddp routes zero-probe runs to the plain loop"
-        )
     controls = traj.controls
     device = controls.device
     if device.type == "cpu":
@@ -78,7 +74,7 @@ def solve_fddp_fused(
         _check_cuda(device)
         out = _launch(params, cost, traj, dt_s, options, fo, ddp, initial_mu, initial_status,
                       initial_iters)
-    return out[:4] + ((out[4],) if return_mu else ()) + ((out[5],) if return_probes else ())
+    return out[:4] + ((out[4],) if return_mu else ()) + (out[5:] if return_probes else ())
 
 
 def _launch(params, cost, traj, dt_s, options, fo, ddp, initial_mu, initial_status, initial_iters):
@@ -92,8 +88,9 @@ def _launch(params, cost, traj, dt_s, options, fo, ddp, initial_mu, initial_stat
     live = [torch.empty((n, d, batch), **kw) for d in (4, 3, 6, CONTROL_DIM)]
     best = [torch.empty((n, d, batch), **kw) for d in (4, 3, 6, CONTROL_DIM)]
     cost_out, mu_out, probes = (torch.empty((batch,), **kw) for _ in range(3))
-    iters = torch.empty((batch,), dtype=torch.int32, device=device)
-    status = torch.empty((batch,), dtype=torch.int32, device=device)
+    iters, status, defect_trips = (
+        torch.empty((batch,), dtype=torch.int32, device=device) for _ in range(3)
+    )
     ks = torch.empty((n, CONTROL_DIM, batch), **kw)
     big_ks = torch.empty((n, CONTROL_DIM, 12, batch), **kw)
     d = torch.empty((n, 12, batch), **kw)
@@ -104,7 +101,7 @@ def _launch(params, cost, traj, dt_s, options, fo, ddp, initial_mu, initial_stat
     ]
     ops = ops.extend(
         [*_traj_lanes(traj, dtype, device), *rows, *live, cost_out, iters, status, mu_out,
-         probes, ks, big_ks, *best, d],
+         probes, ks, big_ks, *best, d, defect_trips],
         ints=[int(cc.max_iters), int(ls.max_iters), int(bool(ddp))],
         reals=[
             options.quu_reg, cc.rtol, cc.atol, ls.step_update, fddp.alpha_jump(ls.step_update),
@@ -115,7 +112,9 @@ def _launch(params, cost, traj, dt_s, options, fo, ddp, initial_mu, initial_stat
     )
     _build.launch("qilqr_fddp", dtype, ops.ptrs, ops.ints, ops.reals, device)
     solve_fddp_fused.launches += 1
-    return (_traj_from_lanes(traj.times, *live), cost_out, iters, status, mu_out, probes)
+    return (
+        _traj_from_lanes(traj.times, *live), cost_out, iters, status, mu_out, probes, defect_trips
+    )
 
 
 solve_fddp_fused.launches = 0

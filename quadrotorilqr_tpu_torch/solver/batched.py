@@ -12,9 +12,9 @@ Counterpart of `quadrotorilqr_tpu/solver/batched.py`:
     whole-solve kernel cannot express and which goes to the batch loop.
   * `solve_batch_fddp` runs the robust FDDP loop in one kernel launch
     (`kernels/fddp.py`); with `refine` it goes to
-    `solve_batch_fddp_refine`, the multi-phase solve that compacts the
-    still-pending lanes to the front between phases and may switch the
-    curvature per phase (`resolve_refine_auto`).
+    `solve_batch_fddp_refine`, the multi-phase solve that may switch the
+    curvature per phase (`resolve_refine_auto`) and resumes each phase
+    from the last one's per-lane state.
 
 All take any B and any N (no lane padding, no horizon routing). On CPU
 tensors the kernel wrappers run their plain PyTorch versions.
@@ -24,19 +24,15 @@ from __future__ import annotations
 
 import dataclasses
 
-import torch
-
 from ..costs import quadratic as qc
 from ..kernels.backward import backward_pass_fused
 from ..kernels.fddp import solve_fddp_fused
 from ..kernels.rollout import rollout_cost_fused
 from ..kernels.solve import solve_fused_whole
-from ..tree import tree_map
 from . import fddp
 from .ilqr import (
     CONTINUATION_TODO,
     LIMITS_TODO,
-    STATUS_MAX_ITERS,
     SolveResult,
     Trajectory,
     check_supported,
@@ -145,13 +141,10 @@ def solve_batch_fddp(
 
     `refine="auto"` runs the multi-phase schedule of `resolve_refine_auto`
     (and, with ddp=False, the hybrid curvature); an int or tuple passes
-    through as explicit phase boundaries (`solve_batch_fddp_refine`).
-    A zero-probe line search, which the kernel cannot express, runs the
-    plain loop."""
+    through as explicit phase boundaries (`solve_batch_fddp_refine`)."""
     fo = fddp.FDDPOptions() if fddp_options is None else fddp_options
     fddp.check_supported(cost, model, limits)
-    kernel_ok = options.line_search_params.max_iters >= 1
-    if refine is not None and kernel_ok:
+    if refine is not None:
         bounds, ddp_r = refine, ddp
         if refine == "auto":
             bounds, ddp_r = resolve_refine_auto(
@@ -166,21 +159,10 @@ def solve_batch_fddp(
         raise ValueError(
             "per-phase ddp tuples need refine=... (solve_batch_fddp_refine semantics)"
         )
-    if not kernel_ok:
-        return fddp.solve_fddp(params, cost, initial_trajs, dt_s, options, fo, ddp=ddp)
     traj, cost_v, iterations, status = solve_fddp_fused(
         params, cost, initial_trajs, dt_s, options, fo, ddp=ddp
     )
     return SolveResult(trajectory=traj, cost=cost_v, iterations=iterations, status=status)
-
-
-def _gather_lanes(params, cost, cur2orig):
-    """Per-scenario params and cost leaves re-gathered in the current lane
-    order; shared leaves pass through."""
-    flags = qc.cost_batched_flags(cost)
-    cost_g = tree_map(lambda a, batched: a[cur2orig] if batched else a, cost, flags)
-    params_g = tree_map(lambda a: a[cur2orig], params) if params.batched else params
-    return params_g, cost_g
 
 
 def solve_batch_fddp_refine(
@@ -195,19 +177,19 @@ def solve_batch_fddp_refine(
     ddp=False,
     limits=None,
 ) -> SolveResult:
-    """Multi-phase compacted robust solve. `phase1_iters` is one phase
-    boundary (int) or several (cumulative trip counts):
+    """Multi-phase robust solve. `phase1_iters` is one phase boundary (int)
+    or several (cumulative trip counts), and `ddp` one curvature flag or one
+    per phase (the hybrid schedule of `resolve_refine_auto`).
 
-      1. each phase runs the kernel for its share of the budget;
-      2. the lanes still pending move to the front (stable argsort), so the
-         stragglers occupy the leading blocks of the next launch, and the
-         per-scenario operands are re-gathered through `cur2orig`;
-      3. the next phase resumes exactly from the per-lane mu, status and
-         iterations (frozen lanes only copy their trajectory);
-      4. the results scatter back once at the end.
-
-    Lane for lane the single-phase `solve_batch_fddp`. `ddp` may be a tuple
-    with one flag per phase (the hybrid curvature schedule)."""
+    Each run of consecutive phases with the same curvature is one kernel
+    launch over all lanes, left in place; the next launch resumes exactly
+    from the per-lane mu, status and iterations (frozen lanes only copy
+    their trajectory). Resume is exact, so the result is lane for lane the
+    phase-by-phase solve, and with one curvature the single-phase
+    `solve_batch_fddp`. The JAX version also moves the pending lanes to the
+    front between phases, so that tiles whose lanes are all frozen skip
+    their work; a CUDA thread whose lane is frozen returns at once, so
+    there is nothing to compact."""
     fo = fddp.FDDPOptions() if fddp_options is None else fddp_options
     fddp.check_supported(cost, model, limits)
     if isinstance(ddp, tuple) and len(set(bool(f) for f in ddp)) == 1:
@@ -215,9 +197,7 @@ def solve_batch_fddp_refine(
     hybrid = isinstance(ddp, tuple)
     total = int(options.convergence_criteria.max_iters)
     bounds = (phase1_iters,) if isinstance(phase1_iters, int) else tuple(phase1_iters)
-    if hybrid and options.line_search_params.max_iters < 1:
-        raise ValueError("the hybrid curvature schedule needs line-search probes >= 1")
-    if options.line_search_params.max_iters < 1 or all(min(int(b), total) == total for b in bounds):
+    if all(min(int(b), total) == total for b in bounds):
         if hybrid:
             raise ValueError(
                 f"per-phase ddp {ddp!r} needs at least two phases; "
@@ -238,27 +218,18 @@ def solve_batch_fddp_refine(
             f"per-phase ddp needs one flag per phase: {len(budgets)} phases from "
             f"phase1_iters={phase1_iters!r}, got {len(ddp_seq)} flags"
         )
-    cur2orig = torch.arange(initial_trajs.controls.shape[0], device=initial_trajs.controls.device)
+    launches = []  # [budget, ddp] with consecutive phases of one curvature merged
+    for budget, flag in zip(budgets, ddp_seq):
+        if launches and launches[-1][1] == bool(flag):
+            launches[-1][0] += budget
+        else:
+            launches.append([budget, bool(flag)])
     traj = initial_trajs
     mu = status = iters = None
-    for k, budget in enumerate(budgets):
-        params_g, cost_g = _gather_lanes(params, cost, cur2orig)
+    for budget, flag in launches:
         traj, cost_v, iters, status, mu = solve_fddp_fused(
-            params_g, cost_g, traj, dt_s, _with_max_iters(options, budget), fo,
-            ddp=ddp_seq[k], initial_mu=mu, initial_status=status, initial_iters=iters,
+            params, cost, traj, dt_s, _with_max_iters(options, budget), fo,
+            ddp=flag, initial_mu=mu, initial_status=status, initial_iters=iters,
             return_mu=True,
         )
-        if k == len(budgets) - 1:
-            break
-        # stable: pending lanes first, relative order kept both ways
-        perm = torch.argsort((status != STATUS_MAX_ITERS).to(torch.int8), stable=True)
-        cur2orig = cur2orig[perm]
-        traj = tree_map(lambda a: a[perm], traj)
-        mu, status, iters = mu[perm], status[perm], iters[perm]
-    inv = torch.argsort(cur2orig, stable=True)
-    return SolveResult(
-        trajectory=tree_map(lambda a: a[inv], traj),
-        cost=cost_v[inv],
-        iterations=iters[inv],
-        status=status[inv],
-    )
+    return SolveResult(trajectory=traj, cost=cost_v, iterations=iters, status=status)

@@ -318,7 +318,9 @@ def fddp_loop(
     trajectory and report its cost. Pending lanes continue their mu and
     iteration count for `options`' max_iters more trips.
     Returns (Trajectory, cost (B,), iterations (B,) int32, status (B,) int32,
-    mu (B,), probe sweeps (B,): stages the probes ran / N).
+    mu (B,), probe sweeps (B,): stages the probes ran / N, defect trips (B,)
+    int32: the trips that need the defects computed, the first and each one
+    after an accepted trip).
 
     The loop dispatches thousands of small ops per trip, so it runs in
     inference mode (about a third less dispatch time) and hands back
@@ -353,6 +355,8 @@ def _fddp_loop(
     gap_tol = resolve_gap_tol(fo, dtype)
     current = sequential_cost(qc.per_stage_costs(cost, traj.states, traj.controls))
     stages = torch.zeros(batch, dtype=torch.int64, device=device)
+    defect_trips = torch.zeros(batch, dtype=torch.int32, device=device)
+    stale = torch.ones(batch, dtype=torch.bool, device=device)
     for _ in range(max_iters):
         if bool(done.all()):
             break
@@ -365,7 +369,9 @@ def _fddp_loop(
             params, cost, traj, d, current, ks, big_ks, l1, l2, active, options, fo, dt_s
         )
         stages = stages + ran
+        defect_trips = defect_trips + (active & stale).to(torch.int32)
         take = active & accepted
+        stale = torch.where(active, take, stale)
         terminal = active & ~accepted & ~(mu < fo.reg_max)
         mu = torch.where(active, _mu_schedule(mu, accepted, alpha, fo), mu)
         post_conv = take & (gap < gap_tol) & is_converged(current, cand_cost, options)
@@ -378,7 +384,7 @@ def _fddp_loop(
         current = torch.where(take, cand_cost, current)
         done = done | post_conv | terminal
         iters = iters + active.to(torch.int32)
-    return traj, current, iters, status, mu, stages.to(dtype) / n_stages
+    return traj, current, iters, status, mu, stages.to(dtype) / n_stages, defect_trips
 
 
 def solve_fddp(
@@ -403,7 +409,7 @@ def solve_fddp(
     check_supported(cost, model, limits, penalty_fns)
     single = initial_traj.controls.ndim == 2
     traj = tree_map(lambda a: a[None], initial_traj) if single else initial_traj
-    traj, cost_v, iters, status, _, _ = fddp_loop(
+    traj, cost_v, iters, status, *_ = fddp_loop(
         params, cost, traj, dt_s, options, fddp_options, ddp=ddp
     )
     result = SolveResult(trajectory=traj, cost=cost_v, iterations=iters, status=status)

@@ -4,7 +4,8 @@ Float64, B=300 (the last block of 32 threads is ragged) and N=12, with
 per-scenario params so the B-strided operand groups are exercised.
 Tolerances as chip_smoke.py: backward k, K atol 1e-9 and QuTk, kTQuuk rtol
 1e-9; rollout trajectory atol 1e-10 and cost rtol 1e-10; whole solve and
-FDDP solve status and iterations equal, cost rtol 1e-8, controls atol 1e-7.
+FDDP solve status and iterations equal, cost rtol 1e-8, controls atol 1e-7;
+phases resumed from the kernel's own rows bit-equal to one launch.
 
 This file imports no JAX, so the card machine runs it without the JAX
 package's conftest:
@@ -23,7 +24,12 @@ from quadrotorilqr_tpu_torch.kernels import backward as kb
 from quadrotorilqr_tpu_torch.kernels import fddp as kf
 from quadrotorilqr_tpu_torch.kernels import rollout as kr
 from quadrotorilqr_tpu_torch.kernels import solve as ks
-from quadrotorilqr_tpu_torch.solver.batched import solve_batch_fddp, solve_batch_fddp_refine
+from quadrotorilqr_tpu_torch.solver.batched import (
+    _with_max_iters,
+    solve_batch_fddp,
+    solve_batch_fddp_refine,
+)
+from quadrotorilqr_tpu_torch.solver.ilqr import SolveResult
 from quadrotorilqr_tpu_torch.solver.options import (
     ConvergenceCriteria,
     ILQROptions,
@@ -155,7 +161,7 @@ def test_cuda_fddp_matches_plain(card_problem):
         params, cost, traj, DT, FDDP_OPTIONS, return_mu=True, return_probes=True
     )
     ref = kf.solve_fddp_whole_reference(params, cost, traj, DT, FDDP_OPTIONS, kf.fddp.FDDPOptions())
-    for g, r in zip(got[2:4], ref[2:4]):
+    for g, r in zip(got[2:4] + got[6:], ref[2:4] + ref[6:]):
         torch.testing.assert_close(g, r, rtol=0, atol=0)
     for g, r in zip((got[1], got[4], got[5]), (ref[1], ref[4], ref[5])):
         torch.testing.assert_close(g, r, rtol=1e-8, atol=0)
@@ -185,10 +191,59 @@ def test_cuda_fddp_ddp_matches_plain(card_problem):
     assert du[strict].max() <= 1e-4
 
 
+def assert_bit_equal(got, ref):
+    for g, r in zip(
+        (got.status, got.iterations, got.cost, got.trajectory.controls),
+        (ref.status, ref.iterations, ref.cost, ref.trajectory.controls),
+    ):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card")
 def test_cuda_fddp_two_phases_equal_one(card_problem):
+    """Resume rows: a launch of 3 trips, then one of the rest from its mu,
+    status and iterations, gives the bits of one 10-trip launch."""
     params, cost, traj = card_problem
     one = solve_batch_fddp(params, cost, traj, DT, FDDP_OPTIONS)
-    two = solve_batch_fddp_refine(params, cost, traj, DT, FDDP_OPTIONS, phase1_iters=3)
-    assert_same_lanes(two, one)
+    first = kf.solve_fddp_fused(params, cost, traj, DT, _with_max_iters(FDDP_OPTIONS, 3), return_mu=True)
+    assert bool((first[3] == 0).any())
+    rest = kf.solve_fddp_fused(
+        params, cost, first[0], DT, _with_max_iters(FDDP_OPTIONS, 7),
+        initial_mu=first[4], initial_status=first[3], initial_iters=first[2],
+    )
+    assert_bit_equal(SolveResult(*rest), one)
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card")
+def test_cuda_fddp_hybrid_refine_equals_phase_by_phase(card_problem):
+    """The hybrid schedule runs as two launches (Gauss-Newton up to the
+    switch, exact DDP after it); launching each of its five phases on its
+    own, resumed from the last, gives the same bits."""
+    params, cost, traj = card_problem
+    bounds, flags = (2, 4, 6, 8), (False, False, True, True, True)
+    got = solve_batch_fddp_refine(params, cost, traj, DT, FDDP_OPTIONS, phase1_iters=bounds, ddp=flags)
+    edges = (0,) + bounds + (10,)
+    out = (traj, None, None, None, None)
+    for lo, hi, flag in zip(edges, edges[1:], flags):
+        out = kf.solve_fddp_fused(
+            params, cost, out[0], DT, _with_max_iters(FDDP_OPTIONS, hi - lo), ddp=flag,
+            initial_mu=out[4], initial_status=out[3], initial_iters=out[2], return_mu=True,
+        )
+    assert_bit_equal(got, SolveResult(*out[:4]))
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card")
+def test_cuda_fddp_zero_probes_matches_plain(card_problem):
+    """No line-search probes: every trip rejects and the mu schedule runs,
+    on the kernel as in the plain loop."""
+    params, cost, traj = card_problem
+    opts = ILQROptions(LineSearchParams(0.5, 0.5, 0), ConvergenceCriteria(1e-8, 1e-8, 5))
+    got = kf.solve_fddp_fused(params, cost, traj, DT, opts, return_mu=True, return_probes=True)
+    ref = kf.solve_fddp_whole_reference(params, cost, traj, DT, opts, kf.fddp.FDDPOptions())
+    for g, r in zip(got[2:], ref[2:]):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-12, atol=0)
+    torch.testing.assert_close(got[0].controls, traj.controls, rtol=0, atol=0)

@@ -7,8 +7,9 @@ and `per_stage_costs` against the JAX functions at 1e-12; the port's batched
 and DDP, at the bar of tests/test_fddp_fused.py (status and iterations
 equal, cost rtol 1e-8, controls atol 1e-9); the multi-phase solve by
 composition (its first phase against JAX, its resume against the single
-phase, its curvature schedule against JAX's `resolve_refine_auto`); and the
-API's `solver="fddp"` routes. No JAX call here runs in interpret mode.
+phase, its curvature schedule against JAX's `resolve_refine_auto`); the
+zero-probe line search on the kernel wrapper; and the API's
+`solver="fddp"` routes. No JAX call here runs in interpret mode.
 """
 
 import dataclasses
@@ -44,6 +45,7 @@ from quadrotorilqr_tpu_torch.solver import batched as p_batched
 from quadrotorilqr_tpu_torch.solver import ddp as p_ddp
 from quadrotorilqr_tpu_torch.solver import fddp as p_fddp
 from quadrotorilqr_tpu_torch.solver import options as p_options
+from quadrotorilqr_tpu_torch.tree import tree_map
 
 from test_torch_kernels import assert_same_solution, port_objects
 from test_torch_lie import close, rotation_vectors, tangents
@@ -193,10 +195,12 @@ def test_solve_fddp_matches_vmapped_jax(problem, jax_refs, port_gn, ddp):
 
 def test_fused_wrapper_runs_the_plain_loop_on_cpu(problem, port_gn):
     """On CPU tensors `solve_fddp_fused` is the plain loop: the same lanes,
-    with mu and the probe sweeps (one full sweep per first probe, a part of
-    one per later probe, so at least one per trip)."""
+    with mu, the probe sweeps (one full sweep per first probe, a part of
+    one per later probe, so at least one per trip) and the trips that
+    computed defects (the first and each after an accept: a retry reuses
+    them; the zero-probe test below has only retries)."""
     _, (params, cost, trajs) = problem
-    traj, cost_v, iters, status, mu, probes = p_kfddp.solve_fddp_fused(
+    traj, cost_v, iters, status, mu, probes, defect_trips = p_kfddp.solve_fddp_fused(
         params, cost, trajs, DT, P_OPTS, return_mu=True, return_probes=True
     )
     for g, r in zip((cost_v, iters, status, traj.controls),
@@ -204,6 +208,41 @@ def test_fused_wrapper_runs_the_plain_loop_on_cpu(problem, port_gn):
         torch.testing.assert_close(g, r, rtol=0, atol=0)
     assert bool((probes >= iters.double()).all()) and bool((probes > iters.double()).any())
     assert bool((mu >= 0).all())
+    assert bool(((defect_trips >= 1) & (defect_trips <= iters)).all())
+
+
+def test_zero_probe_line_search_runs_on_the_fddp_wrapper(problem, monkeypatch):
+    """With no line-search probes `solve_batch_fddp` still goes through the
+    kernel wrapper (which on the CPU runs its plain version): every trip
+    rejects, so only the mu schedule runs, and a lane keeps its trajectory
+    and its cost."""
+    _, (params, cost, trajs) = problem
+    iters = 4
+    opts = p_options.ILQROptions(
+        p_options.LineSearchParams(0.5, 0.5, 0), p_options.ConvergenceCriteria(1e-9, 1e-9, iters)
+    )
+    wrapper = p_batched.solve_fddp_fused
+    seen = []
+
+    def spy(*args, **kwargs):
+        seen.append(True)
+        return wrapper(*args, **kwargs)
+
+    monkeypatch.setattr(p_batched, "solve_fddp_fused", spy)
+    got = p_batched.solve_batch_fddp(params, cost, trajs, DT, opts)
+    assert seen == [True]
+    assert got.status.eq(0).all() and got.iterations.eq(iters).all()
+    torch.testing.assert_close(got.trajectory.controls, trajs.controls, rtol=0, atol=0)
+    torch.testing.assert_close(
+        got.cost, p_fddp.sequential_cost(p_qc.per_stage_costs(cost, trajs.states, trajs.controls)),
+        rtol=0, atol=0,
+    )
+    _, _, _, _, mu, probes, defect_trips = wrapper(
+        params, cost, trajs, DT, opts, return_mu=True, return_probes=True
+    )
+    fo = p_fddp.FDDPOptions()
+    torch.testing.assert_close(mu, torch.full_like(mu, fo.reg_init * fo.reg_scale_up ** (iters - 1)))
+    assert probes.eq(0).all() and defect_trips.eq(1).all()
 
 
 # ---- the multi-phase solve, by composition ----
@@ -226,22 +265,28 @@ def test_refine_first_phase_matches_jax(problem):
 
 def test_refine_resume_equals_single_phase(problem, port_gn):
     """Two phases with one curvature equal one phase lane for lane: the
-    multi-phase solve carries mu, status and iterations across the boundary,
-    and lanes still pending at it move to the front."""
+    wrapper's resume rows carry mu, status and iterations across the
+    boundary, as the multi-phase solve hands them on."""
     _, (params, cost, trajs) = problem
-    two = p_batched.solve_batch_fddp_refine(
-        params, cost, trajs, DT, P_OPTS, phase1_iters=(7,), ddp=(False, False)
+    first = p_kfddp.solve_fddp_fused(
+        params, cost, trajs, DT, p_batched._with_max_iters(P_OPTS, 7), return_mu=True
     )
-    for g, r in zip(as_tuple(two)[1:], as_tuple(port_gn)[1:]):
+    assert bool(first[3].eq(0).any()) and bool(first[3].ne(0).any())
+    traj, cost_v, iters, status = p_kfddp.solve_fddp_fused(
+        params, cost, first[0], DT, p_batched._with_max_iters(P_OPTS, ITERS - 7),
+        initial_mu=first[4], initial_status=first[3], initial_iters=first[2],
+    )
+    for g, r in zip((cost_v, iters, status), as_tuple(port_gn)[1:]):
         torch.testing.assert_close(g, r, rtol=0, atol=0)
-    torch.testing.assert_close(two.trajectory.controls, port_gn.trajectory.controls, rtol=0, atol=0)
+    torch.testing.assert_close(traj.controls, port_gn.trajectory.controls, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("budget", [10, 25, 40])
 def test_hybrid_refine_follows_the_auto_schedule(problem, budget, monkeypatch):
-    """refine="auto" runs one kernel call per phase of resolve_refine_auto's
-    schedule (checked against JAX's), each with its phase's budget and
-    curvature flag, and hands the resume rows on in the compacted order."""
+    """refine="auto" follows resolve_refine_auto's schedule (checked against
+    JAX's): one kernel call for the Gauss-Newton phases up to the switch,
+    one for the exact-DDP phases after it, the resume rows handed on with
+    the lanes in place; with ddp=True the whole budget is one call."""
     _, (params, cost, trajs) = problem
     bounds, flags = j_resolve_refine_auto(budget, False)
     assert p_batched.resolve_refine_auto(budget, False) == (bounds, flags)
@@ -266,15 +311,18 @@ def test_hybrid_refine_follows_the_auto_schedule(problem, budget, monkeypatch):
     got = p_batched.solve_batch_fddp(params, cost, trajs, DT, dataclasses.replace(
         P_OPTS, convergence_criteria=p_options.ConvergenceCriteria(1e-9, 1e-9, budget)
     ), refine="auto")
-    edges = (0,) + bounds + (budget,)
-    assert calls == [
-        (hi - lo, flag, k == 0) for k, (lo, hi, flag) in enumerate(zip(edges, edges[1:], flags))
-    ]
-    assert flags[0] is False and flags[-1] is True
-    # results scatter back to the original lane order
+    switch = ((0,) + bounds)[flags.index(True)]
+    assert flags[0] is False and flags[-1] is True and all(flags[flags.index(True):])
+    assert switch == round(0.4 * budget)
+    assert calls == [(switch, False, True), (budget - switch, True, False)]
     torch.testing.assert_close(got.cost, trajs.controls[:, 0, 0], rtol=0, atol=0)
     assert got.status[::2].eq(1).all() and got.status[1::2].eq(0).all()
     assert got.iterations.eq(budget).all()
+    calls.clear()
+    p_batched.solve_batch_fddp(params, cost, trajs, DT, dataclasses.replace(
+        P_OPTS, convergence_criteria=p_options.ConvergenceCriteria(1e-9, 1e-9, budget)
+    ), ddp=True, refine="auto")
+    assert calls == [(budget, True, True)]
 
 
 # ---- the API routes ----
@@ -325,7 +373,7 @@ def test_api_solve_pytree_runs_plain_fddp(problem, jax_refs, solver):
     _, (_, _, trajs) = problem
     api = _api(torch.float64, solver)
     lane = 1 if solver == "fddp" else 0  # a tumble, a benign start
-    got = api.solve_pytree(p_batched.tree_map(lambda a: a[lane], trajs))
+    got = api.solve_pytree(tree_map(lambda a: a[lane], trajs))
     assert int(got.status) == int(ref.status[lane])
     assert int(got.iterations) == int(ref.iterations[lane])
     np.testing.assert_allclose(float(got.cost), float(ref.cost[lane]), rtol=1e-8)
