@@ -6,7 +6,8 @@
 Builds the port's CUDA kernels from `quadrotorilqr_tpu_torch/kernels/csrc`,
 holds each kernel against its plain PyTorch version on the card (float64
 lane for lane at B=300, N=40; float32 at the main paths' shapes to quality
-bounds), and drives two main paths through `QuadrotorILQR.solve_batch`:
+bounds) and each streamed kernel against its whole-solve twin, and drives
+four main paths through `QuadrotorILQR.solve_batch`:
 
   * exact iLQR on the hover-to-waypoint bench workload (B=4096, N=100,
     tolerance 1e-6, 10 iterations, 20 line-search probes), with
@@ -16,7 +17,15 @@ bounds), and drives two main paths through `QuadrotorILQR.solve_batch`:
     one FDDP kernel launch of Gauss-Newton trips and one of exact-DDP trips
     resumed from it) on the aggressive-tumble class of the robust headline
     (B=4096, N=50, dt 0.1, scale 1.8, 40 iterations); each launch is held
-    against the plain FDDP loop on the same inputs and resume rows.
+    against the plain FDDP loop on the same inputs and resume rows;
+  * the long-horizon paths on `long_horizon_problem` at B=4096: exact iLQR
+    at N=1024 with `latency=True` (past 256 stages: one `stream.cu` launch;
+    tolerance 1e-6, 10 iterations, 20 probes) and robust FDDP at N=512
+    (past 231 stages: `refine="auto"` as two `stream_fddp.cu` launches;
+    tolerance 1e-6, 12 iterations, gap_tol 1e-5), each beside its
+    whole-solve twin (`solve.cu`, `fddp.cu`) on the same inputs; on these
+    inputs each streamed kernel is held against its plain loop for the
+    path's first LONG_PLAIN_TRIPS trips.
 
 It checks convergence, times the kernels against their plain PyTorch
 versions with CUDA events, and computes each kernel's bound (the least time
@@ -41,6 +50,12 @@ from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DT = 0.02
+# The streamed kernels are held against their plain loops on the long
+# paths' inputs for the paths' first trips only (the first trip's full step
+# and a line-searched trip with its apply sweep): at N=1024 a plain trip
+# takes 15-20 s (a backward pass, a probe and an apply sweep), and a trip
+# in which some lane's line search runs out adds 20 probe sweeps
+LONG_PLAIN_TRIPS = 2
 
 # The least time the card could take: the larger of the operations over the
 # H100's float32 rate outside the tensor cores and the bytes (each input read
@@ -128,6 +143,9 @@ def bit_equal(got, ref):
     return all(bool((a == b).all()) for a, b in zip(leaves(got), leaves(ref)))
 
 
+T0 = time.perf_counter()
+
+
 def main() -> int:
     try:
         import torch
@@ -151,6 +169,8 @@ def main() -> int:
     from quadrotorilqr_tpu_torch.kernels import fddp as kf
     from quadrotorilqr_tpu_torch.kernels import rollout as kr
     from quadrotorilqr_tpu_torch.kernels import solve as ks
+    from quadrotorilqr_tpu_torch.kernels import stream as kst
+    from quadrotorilqr_tpu_torch.kernels import stream_fddp as ksf
     from quadrotorilqr_tpu_torch.parallel.batch import initial_trajectory_from_state
     from quadrotorilqr_tpu_torch.solver import fddp, ilqr
     from quadrotorilqr_tpu_torch.solver.batched import (
@@ -193,6 +213,7 @@ def main() -> int:
     wrappers = {
         "backward": kb.backward_pass_fused, "rollout": kr.rollout_cost_fused,
         "solve": ks.solve_fused_whole, "fddp": kf.solve_fddp_fused,
+        "stream": kst.solve_fused_streamed, "stream_fddp": ksf.solve_fddp_streamed,
     }
 
     def reset_counts():
@@ -256,6 +277,36 @@ def main() -> int:
     check(same_status and same_iters and rel <= 1e-8 and err["solve"] <= 1e-7,
           "f64 whole-solve kernel disagrees with plain")
 
+    def twins(got, ref, rtol=1e-12, atol=1e-10):
+        """Status and iterations equal, cost within rtol, controls within
+        atol: (agree, max rel cost, max |du|)."""
+        rel = float(((got[1] - ref[1]).abs() / ref[1].abs()).max())
+        du = max_abs(got[0].controls, ref[0].controls)
+        same = bool((got[3] == ref[3]).all() and (got[2] == ref[2]).all())
+        return same and rel <= rtol and du <= atol, rel, du
+
+    # the streamed exact kernel against plain (the whole loop's plain
+    # version: the streamed schedule gives its bits on the CPU,
+    # tests/test_torch_stream.py) and against solve.cu, then a starved line
+    # search (one probe, twice the predicted reduction) that fails lanes
+    got_s = kst.solve_fused_streamed(params, cost, traj, DT, opts)
+    ok_p, rel_p, err["stream"] = twins(got_s, ref)
+    ok_w, rel_w, du_w = twins(got_s, got)
+    starved = ILQROptions(LineSearchParams(0.5, 2.0, 1), ConvergenceCriteria(1e-12, 1e-12, 4))
+    st_s = kst.solve_fused_streamed(params, cost, traj, DT, starved)
+    st_w = ks.solve_fused_whole(params, cost, traj, DT, starved)
+    st_p = ks.solve_whole_reference(params, cost, traj, DT, starved)
+    torch.cuda.synchronize()
+    ok_sp, rel_sp, du_sp = twins(st_s, st_p)
+    ok_sw, rel_sw, du_sw = twins(st_s, st_w)
+    failed = int((st_s[3] == 2).sum())
+    log(f"f64 streamed solve vs plain: lane for lane {ok_p} (max rel cost {rel_p:.3e}, max |du| "
+        f"{err['stream']:.3e}); vs solve.cu {ok_w} ({rel_w:.3e}, {du_w:.3e}); starved line search "
+        f"({failed} lanes failed) vs plain {ok_sp} ({rel_sp:.3e}, {du_sp:.3e}), vs solve.cu {ok_sw} "
+        f"({rel_sw:.3e}, {du_sw:.3e}) (rtol 1e-12, atol 1e-10)")
+    check(ok_p and ok_w and ok_sp and ok_sw and failed > 0,
+          "f64 streamed kernel disagrees with plain or solve.cu")
+
     # FDDP, float64: tests/test_fddp_fused.py's mixed problem (even lanes
     # benign at scale 0.4, odd lanes an aggressive tumble at 1.8), dt 0.12
     mix_dt = 0.12
@@ -271,9 +322,26 @@ def main() -> int:
     m_opts = ILQROptions(LineSearchParams(0.5, 0.5, 20), ConvergenceCriteria(1e-9, 1e-9, 25))
     fo = fddp.FDDPOptions()
     m_args = (m_params, m_cost, m_trajs, mix_dt, m_opts)
+    m_refs = {}
+
+    def ddp_bar(got, ref):
+        """The JAX package's own bar between its DDP engines
+        (tests/test_fddp_fused.py:382-416): ~1e-16 differences in the closed
+        forms can send a lane near an accept or budget edge down another
+        retry path."""
+        conv = ref[3] == ilqr.STATUS_CONVERGED
+        strict = conv & (got[3] == ref[3]) & (got[2] == ref[2])
+        rel = (got[1] - ref[1]).abs() / ref[1].abs()
+        du = (got[0].controls - ref[0].controls).abs().amax((1, 2))
+        return (float((got[3] == ref[3]).float().mean()) >= 0.98
+                and float((got[2] == ref[2]).float().mean()) >= 0.95
+                and float(rel[strict].max()) <= 1e-8 and float(du[strict].max()) <= 1e-4
+                and float(rel.max()) < 2e-4)
+
     for ddp in (False, True):
         got = kf.solve_fddp_fused(*m_args, fo, ddp=ddp)
         ref, plain_ms = time_once(lambda: kf.solve_fddp_whole_reference(*m_args, fo, ddp))
+        m_refs[ddp] = (got, ref)
         torch.cuda.synchronize()
         same_status = (got[3] == ref[3]).float().mean().item()
         same_iters = (got[2] == ref[2]).float().mean().item()
@@ -290,14 +358,7 @@ def main() -> int:
             check(same_status == 1.0 and same_iters == 1.0 and float(rel.max()) <= 1e-8
                   and float(du.max()) <= 1e-7, "f64 FDDP kernel disagrees with plain")
         else:
-            # exact curvature: the JAX package's own bar between its DDP
-            # engines (tests/test_fddp_fused.py:382-416), since ~1e-16
-            # differences in the closed forms can send a lane near an
-            # accept or budget edge down another retry path
-            strict = conv & (got[3] == ref[3]) & (got[2] == ref[2])
-            check(same_status >= 0.98 and same_iters >= 0.95
-                  and float(rel[strict].max()) <= 1e-8 and float(du[strict].max()) <= 1e-4
-                  and float(rel.max()) < 2e-4, "f64 FDDP ddp kernel outside the DDP engines' bar")
+            check(ddp_bar(got, ref), "f64 FDDP ddp kernel outside the DDP engines' bar")
     # resume rows: 7 trips, then the other 18 from the kernel's own mu,
     # status and iterations, against one launch of 25
     one = solve_batch_fddp(*m_args, fo)
@@ -311,6 +372,35 @@ def main() -> int:
     pending = int((first[3] == 0).sum())
     log(f"f64 FDDP two phases (boundary 7, {pending} lanes pending there) vs one: bit-equal {exact}")
     check(exact and pending > 0, "the two-phase FDDP kernel solve differs from the single phase")
+    # the streamed FDDP kernel: Gauss-Newton lane for lane with plain and
+    # with fddp.cu, exact DDP at the DDP bar, two resumed launches = one
+    for ddp in (False, True):
+        got_w, ref = m_refs[ddp]
+        got_s = ksf.solve_fddp_streamed(*m_args, fo, ddp=ddp)
+        torch.cuda.synchronize()
+        ok_p, rel_p, du_p = twins(got_s, ref, 1e-8, 1e-7)
+        ok_w, rel_w, du_w = twins(got_s, got_w)
+        if not ddp:
+            err["stream_fddp"] = du_p
+            log(f"f64 streamed FDDP Gauss-Newton vs plain: lane for lane {ok_p} (max rel cost "
+                f"{rel_p:.3e}, max |du| {du_p:.3e}; rtol 1e-8, atol 1e-7); vs fddp.cu {ok_w} "
+                f"({rel_w:.3e}, {du_w:.3e}; rtol 1e-12, atol 1e-10)")
+            check(ok_p and ok_w, "f64 streamed FDDP kernel disagrees with plain or fddp.cu")
+        else:
+            bar = ddp_bar(got_s, ref)
+            log(f"f64 streamed FDDP exact DDP vs plain: within the DDP engines' bar {bar} (max rel "
+                f"cost {rel_p:.3e}); vs fddp.cu lane for lane {ok_w} ({rel_w:.3e}, {du_w:.3e})")
+            check(bar, "f64 streamed FDDP ddp kernel outside the DDP engines' bar")
+    one = ksf.solve_fddp_streamed(*m_args, fo)
+    first = ksf.solve_fddp_streamed(*m_args[:4], _with_max_iters(m_opts, 7), fo, return_mu=True)
+    two = ksf.solve_fddp_streamed(
+        m_params, m_cost, first[0], mix_dt, _with_max_iters(m_opts, 18), fo,
+        initial_mu=first[4], initial_status=first[3], initial_iters=first[2],
+    )
+    torch.cuda.synchronize()
+    exact = bit_equal(two, one)
+    log(f"f64 streamed FDDP two launches (boundary 7) vs one: bit-equal {exact}")
+    check(exact, "the two-launch streamed FDDP solve differs from one launch")
     # no line-search probes: every trip rejects and only the mu schedule runs
     z_opts = ILQROptions(LineSearchParams(0.5, 0.5, 0), ConvergenceCriteria(1e-9, 1e-9, 5))
     got = kf.solve_fddp_fused(*m_args[:4], z_opts, fo, return_mu=True, return_probes=True)
@@ -376,6 +466,16 @@ def main() -> int:
     log(f"f32 whole solve: finite {finite}, status agreement {agree:.4f} (>= 0.99), "
         f"median rel cost diff {med:.3e} (< 1e-3)")
     check(finite and agree >= 0.99 and med < 1e-3, "f32 whole-solve kernel outside its bounds")
+    got_s = kst.solve_fused_streamed(b_params, b_cost, trajs, DT, bench_opts)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(got_s[1]).all() and torch.isfinite(got_s[0].controls).all())
+    agree = float((got_s[3] == ref[3]).float().mean())
+    med = float(((got_s[1] - ref[1]).abs() / ref[1].abs()).median())
+    twin = float(((got_s[3] == got[3]) & (got_s[2] == got[2])).float().mean())
+    log(f"f32 streamed solve vs plain: finite {finite}, status agreement {agree:.4f} (>= 0.99), "
+        f"median rel cost diff {med:.3e} (< 1e-3); lanes equal to solve.cu in status and "
+        f"iterations {twin:.4f}")
+    check(finite and agree >= 0.99 and med < 1e-3, "f32 streamed kernel outside its bounds")
 
     # ---- 5. the exact main path through the public API, counted ----
     reset_counts()
@@ -496,11 +596,184 @@ def main() -> int:
     work_ddp = (int((ddp_k[2] - gn_k[2]).sum()), float(ddp_k[5].sum()), int(ddp_k[6].sum()))
     log(f"the FDDP launches ran (trips, probe sweeps, defect trips): Gauss-Newton {work_gn}, "
         f"exact DDP {work_ddp}")
+    # the streamed FDDP kernel on the same two launches, inputs and resume
+    # rows, against the same plain results
+    gn_s = ksf.solve_fddp_streamed(*rp_args, r_trajs, r_dt, gn_opts, r_fo, return_mu=True,
+                                   return_probes=True)
+    ddp_s = ksf.solve_fddp_streamed(*rp_args, gn_k[0], r_dt, ddp_opts, r_fo, ddp=True,
+                                    return_mu=True, return_probes=True, **rows)
+    torch.cuda.synchronize()
+    for name, k_out, p_out, w_out, lanes in (
+        ("Gauss-Newton", gn_s, gn_p, gn_k, torch.ones_like(live)), ("exact-DDP", ddp_s, ddp_p, ddp_k, live)
+    ):
+        finite = bool(torch.isfinite(k_out[1]).all() and torch.isfinite(k_out[0].controls).all())
+        med = float(((k_out[1] - p_out[1]).abs() / p_out[1].abs())[lanes].median())
+        twin = float(((k_out[3] == w_out[3]) & (k_out[2] == w_out[2])).float().mean())
+        log(f"f32 streamed FDDP {name} launch vs plain loop on the same rows: finite {finite}, "
+            f"converged {conv_of(k_out):.4f} vs {conv_of(p_out):.4f} (within 0.01), status "
+            f"agreement {float((k_out[3] == p_out[3]).float().mean()):.4f}, median rel cost diff "
+            f"{med:.3e} (< 1e-3); lanes equal to fddp.cu in status and iterations {twin:.4f}")
+        check(finite and abs(conv_of(k_out) - conv_of(p_out)) <= 0.01 and med < 1e-3,
+              f"f32 streamed FDDP {name} launch outside its bounds")
+    c6_stream_work = [
+        (int((k[2] - (0 if base is None else base[2])).sum()), float(k[5].sum()), int(k[6].sum()),
+         int(k[7].sum()))
+        for k, base in ((gn_s, None), (ddp_s, gn_k))
+    ]
+    log(f"the streamed FDDP launches ran (trips, probe sweeps, defect trips, apply sweeps): "
+        f"Gauss-Newton {c6_stream_work[0]}, exact DDP {c6_stream_work[1]}")
     # the single-phase kernel, for its convergence beside the schedule's
     single = kf.solve_fddp_fused(*r_args)
     torch.cuda.synchronize()
     log(f"f32 single-phase FDDP kernel (Gauss-Newton, 40 trips): converged {conv_of(single):.4f}, "
         f"mean iterations {float(single[2].float().mean()):.3f}")
+
+    # ---- 5c. the long-horizon paths at full width, counted ----
+    def api_for(params, cost, trajs, opts, **kw):
+        desired = ilqr.Trajectory(
+            times=trajs.times[0], states=cost.desired_states, controls=cost.desired_controls
+        )
+        return QuadrotorILQR(
+            float(params.mass_kg), params.inertia, float(params.arm_length_m),
+            float(params.torque_to_thrust_ratio_m), float(params.g_mpss), cost.Q, cost.R,
+            desired, DT, opts, dtype=torch.float32, device=dev, **kw,
+        )
+
+    def finite_result(res, batch, n):
+        t = res.trajectory
+        return (res.cost.shape == (batch,) and t.controls.shape == (batch, n, 4) and all(
+            bool(torch.isfinite(a).all())
+            for a in (res.cost, t.controls, t.states.pose.quat, t.states.pose.trans, t.states.vel)
+        ))
+
+    lh_batch, lh_n, rl_n = 4096, 1024, 512
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lh_params, lh_cost, lh_trajs = workloads.long_horizon_problem(
+        gen, lh_batch, lh_n, torch.float32, DT, dev
+    )
+    lh_opts = ILQROptions(LineSearchParams(0.5, 0.5, 20), ConvergenceCriteria(1e-6, 1e-6, 10))
+    long_api = api_for(lh_params, lh_cost, lh_trajs, lh_opts)
+    reset_counts()
+    res_long = long_api.solve_batch(lh_trajs, latency=True)
+    torch.cuda.synchronize()
+    long_launches = counts()
+    lh_args = (long_api.params, long_api.cost, lh_trajs, DT, lh_opts)
+    whole_long = ks.solve_fused_whole(*lh_args)
+    stream_long = kst.solve_fused_streamed(*lh_args, return_probes=True)
+    torch.cuda.synchronize()
+    conv_long = float((res_long.status == ilqr.STATUS_CONVERGED).float().mean())
+    conv_whole = conv_of(whole_long)
+    log(f"long-horizon exact path launches: {long_launches}")
+    log(f"long horizon via QuadrotorILQR.solve_batch(latency=True) (f32, B={lh_batch}, N={lh_n}): "
+        f"converged {conv_long:.4f} (>= 0.97), mean iterations "
+        f"{float(res_long.iterations.float().mean()):.3f}, statuses "
+        f"{torch.bincount(res_long.status, minlength=3).tolist()}; solve.cu on the same inputs "
+        f"converged {conv_whole:.4f} (within 0.01), lanes equal in status and iterations "
+        f"{float(((res_long.status == whole_long[3]) & (res_long.iterations == whole_long[2])).float().mean()):.4f}")
+    check(long_launches["stream"] == 1 and long_launches["solve"] == 0,
+          f"the long exact path did not run stream.cu once: {long_launches}")
+    check(finite_result(res_long, lh_batch, lh_n), "long exact path: wrong shapes or non-finite")
+    check(conv_long >= 0.97 and abs(conv_long - conv_whole) <= 0.01,
+          "long exact path: convergence outside its bounds")
+    check(bit_equal(stream_long, res_long), "the long exact path differs from its stream.cu launch")
+    long_work = [int(a.sum()) for a in stream_long[4:]]
+    log(f"stream.cu ran (backward passes, probe sweeps, apply sweeps): {long_work}")
+    # stream.cu against its plain version, the streamed plain loop, on the
+    # path's inputs and options for the path's first LONG_PLAIN_TRIPS trips
+    lp_opts = _with_max_iters(lh_opts, LONG_PLAIN_TRIPS)
+    lp_args = lh_args[:4] + (lp_opts,)
+    lp_k = kst.solve_fused_streamed(*lp_args, return_probes=True)
+    lp_p, plain_long_ms = time_once(lambda: kst.solve_streamed_reference(*lp_args))
+    torch.cuda.synchronize()
+    # Cut at a trip budget, a lane whose convergence test falls on the last
+    # trip may end CONVERGED in one engine and still pending in the other:
+    # at N=1024 the f32 cost sums differ by about the 1e-6 tolerance. Such a
+    # lane's cost moves by less than the tolerance, so the bar is on each
+    # lane's cost: 99% of lanes within 1e-3, the median far below
+    finite = bool(torch.isfinite(lp_k[1]).all() and torch.isfinite(lp_k[0].controls).all())
+    rel = (lp_k[1] - lp_p[1]).abs() / lp_p[1].abs()
+    med, q99 = float(rel.median()), float(rel.quantile(0.99))
+    du = max_abs(lp_k[0].controls, lp_p[0].controls) / float(lp_p[0].controls.abs().max())
+    long_plain_work = [int(a.sum()) for a in lp_k[4:]]
+    log(f"f32 stream.cu vs its plain loop on the long exact path's inputs (B={lh_batch}, "
+        f"N={lh_n}, its first {LONG_PLAIN_TRIPS} trips): finite {finite}, rel cost diff median "
+        f"{med:.3e} (< 1e-3), 99th percentile {q99:.3e} (< 1e-3), max |du| / max |u| {du:.3e}; "
+        f"status agreement {float((lp_k[3] == lp_p[3]).float().mean()):.4f}, converged "
+        f"{conv_of(lp_k):.4f} vs {conv_of(lp_p):.4f}, lanes equal in status and iterations "
+        f"{float(((lp_k[3] == lp_p[3]) & (lp_k[2] == lp_p[2])).float().mean()):.4f}; "
+        f"(backward passes, probe sweeps, apply sweeps) kernel {long_plain_work}, plain "
+        f"{[int(a.sum()) for a in lp_p[4:]]}; plain loop {plain_long_ms:.1f} ms")
+    check(finite and med < 1e-3 and q99 < 1e-3, "f32 stream.cu outside its bounds at N=1024")
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rl_params, rl_cost, rl_trajs = workloads.long_horizon_problem(
+        gen, lh_batch, rl_n, torch.float32, DT, dev
+    )
+    rl_opts = ILQROptions(LineSearchParams(0.5, 0.5, 20), ConvergenceCriteria(1e-6, 1e-6, 12))
+    robust_long = api_for(rl_params, rl_cost, rl_trajs, rl_opts, solver="fddp")
+    reset_counts()
+    res_rl = robust_long.solve_batch(rl_trajs)
+    torch.cuda.synchronize()
+    rl_launches = counts()
+    rl_bounds, rl_flags = resolve_refine_auto(12, False)
+    rl_switch = ((0,) + rl_bounds)[rl_flags.index(True)]
+    rl_p = (robust_long.params, robust_long.cost)
+    rl_gn, rl_ddp = _with_max_iters(rl_opts, rl_switch), _with_max_iters(rl_opts, 12 - rl_switch)
+
+    def two_launches(solve, **kw):
+        first = solve(*rl_p, rl_trajs, DT, rl_gn, r_fo, return_mu=True, **kw)
+        second = solve(*rl_p, first[0], DT, rl_ddp, r_fo, ddp=True, return_mu=True,
+                       initial_mu=first[4], initial_status=first[3], initial_iters=first[2], **kw)
+        return first, second
+
+    sl_gn, sl_ddp = two_launches(ksf.solve_fddp_streamed, return_probes=True)
+    wl_gn, wl_ddp = two_launches(kf.solve_fddp_fused)
+    torch.cuda.synchronize()
+    conv_rl = float((res_rl.status == ilqr.STATUS_CONVERGED).float().mean())
+    conv_wl = conv_of(wl_ddp)
+    log(f"long-horizon robust path launches: {rl_launches} (Gauss-Newton trips 0-{rl_switch}, "
+        f"exact DDP {rl_switch}-12)")
+    log(f"long horizon via QuadrotorILQR(solver='fddp').solve_batch (refine auto, f32, B={lh_batch}, "
+        f"N={rl_n}): converged {conv_rl:.4f} (expected > 0.90), mean iterations "
+        f"{float(res_rl.iterations.float().mean()):.3f}, statuses "
+        f"{torch.bincount(res_rl.status, minlength=3).tolist()}; the same two launches on fddp.cu "
+        f"converged {conv_wl:.4f} (within 0.01), lanes equal in status and iterations "
+        f"{float(((res_rl.status == wl_ddp[3]) & (res_rl.iterations == wl_ddp[2])).float().mean()):.4f}")
+    check(rl_launches["stream_fddp"] == 2 and rl_launches["fddp"] == 0,
+          f"the long robust path did not run stream_fddp.cu twice: {rl_launches}")
+    check(finite_result(res_rl, lh_batch, rl_n), "long robust path: wrong shapes or non-finite")
+    check(abs(conv_rl - conv_wl) <= 0.01, "long robust path: convergence outside its bounds")
+    check(bit_equal(sl_ddp, res_rl), "the long robust path differs from its two launches")
+    long_fddp_work = [
+        (int((k[2] - (0 if base is None else base[2])).sum()), float(k[5].sum()), int(k[6].sum()),
+         int(k[7].sum()))
+        for k, base in ((sl_gn, None), (sl_ddp, sl_gn))
+    ]
+    log(f"stream_fddp.cu ran (trips, probe sweeps, defect trips, apply sweeps): Gauss-Newton "
+        f"{long_fddp_work[0]}, exact DDP {long_fddp_work[1]}")
+    # stream_fddp.cu against the streamed plain FDDP loop on the path's
+    # inputs for the first LONG_PLAIN_TRIPS trips of its Gauss-Newton launch,
+    # with the same bar as stream.cu's
+    lr_opts = _with_max_iters(rl_opts, LONG_PLAIN_TRIPS)
+    lr_args = rl_p + (rl_trajs, DT, lr_opts, r_fo)
+    rl_gk = ksf.solve_fddp_streamed(*lr_args, return_mu=True, return_probes=True)
+    rl_gp, plain_rl_gn_ms = time_once(lambda: ksf.solve_fddp_streamed_reference(*lr_args))
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(rl_gk[1]).all() and torch.isfinite(rl_gk[0].controls).all())
+    rel = (rl_gk[1] - rl_gp[1]).abs() / rl_gp[1].abs()
+    med, q99 = float(rel.median()), float(rel.quantile(0.99))
+    rl_plain_work = [(int(rl_gk[2].sum()), float(rl_gk[5].sum()), int(rl_gk[6].sum()),
+                      int(rl_gk[7].sum()))]
+    log(f"f32 stream_fddp.cu vs its plain loop on the long robust path's inputs (B={lh_batch}, "
+        f"N={rl_n}, the first {LONG_PLAIN_TRIPS} Gauss-Newton trips): finite {finite}, rel cost "
+        f"diff median {med:.3e} (< 1e-3), 99th percentile {q99:.3e} (< 1e-3); status agreement "
+        f"{float((rl_gk[3] == rl_gp[3]).float().mean()):.4f}, lanes equal in status and iterations "
+        f"{float(((rl_gk[3] == rl_gp[3]) & (rl_gk[2] == rl_gp[2])).float().mean()):.4f}; "
+        f"(trips, probe sweeps, defect trips, apply sweeps) kernel {rl_plain_work[0]}, plain "
+        f"{(int(rl_gp[2].sum()), float(rl_gp[5].sum()), int(rl_gp[6].sum()), int(rl_gp[7].sum()))}; "
+        f"plain loop {plain_rl_gn_ms:.1f} ms")
+    check(finite and med < 1e-3 and q99 < 1e-3,
+          "f32 stream_fddp.cu outside its bounds at N=512")
 
     # ---- 6. timing (CUDA events, 1 warm-up, median of 5) ----
     def time_ms(fn, repeats=5):
@@ -545,47 +818,97 @@ def main() -> int:
     ms["fddp_ddp"] = time_ms(lambda: kf.solve_fddp_fused(
         *rp_args, gn_k[0], r_dt, ddp_opts, r_fo, ddp=True, **rows))
     per_kernel["fddp"] = (ms["fddp_gn"] + ms["fddp_ddp"], plain_gn_ms + plain_ddp_ms)
+    # the streamed kernels on the main path's inputs, in the calls held
+    # against their plain versions: the first LONG_PLAIN_TRIPS trips at
+    # N=1024 and N=512
+    per_kernel["stream"] = (time_ms(lambda: kst.solve_fused_streamed(*lp_args)), plain_long_ms)
+    per_kernel["stream_fddp"] = (time_ms(lambda: ksf.solve_fddp_streamed(*lr_args)), plain_rl_gn_ms)
+    shapes = {"fddp": (r_batch, r_n), "stream": (lh_batch, lh_n), "stream_fddp": (lh_batch, rl_n)}
     for name, (k_ms, p_ms) in per_kernel.items():
-        b_, n_ = (r_batch, r_n) if name == "fddp" else (batch, horizon)
+        b_, n_ = shapes.get(name, (batch, horizon))
         log(f"{name} kernel: {k_ms:.3f} ms, plain {p_ms:.3f} ms (B={b_}, N={n_}, f32) {card}")
     log(f"fddp launches: Gauss-Newton trips 0-{switch} {ms['fddp_gn']:.3f} ms (plain "
         f"{plain_gn_ms:.3f} ms), exact DDP trips {switch}-40 {ms['fddp_ddp']:.3f} ms (plain "
         f"{plain_ddp_ms:.3f} ms) {card}")
+    # the streamed kernels beside their twins at the twins' shapes
+    ms["stream_bench"] = time_ms(lambda: kst.solve_fused_streamed(*solve_args))
+    ms["stream_fddp_gn"] = time_ms(
+        lambda: ksf.solve_fddp_streamed(*rp_args, r_trajs, r_dt, gn_opts, r_fo))
+    ms["stream_fddp_ddp"] = time_ms(lambda: ksf.solve_fddp_streamed(
+        *rp_args, gn_k[0], r_dt, ddp_opts, r_fo, ddp=True, **rows))
+    log(f"stream.cu on the bench workload {ms['stream_bench']:.3f} ms (solve.cu {ms['solve']:.3f}); "
+        f"stream_fddp.cu on config 6's launches: Gauss-Newton {ms['stream_fddp_gn']:.3f} ms, exact "
+        f"DDP {ms['stream_fddp_ddp']:.3f} ms (fddp.cu {ms['fddp_gn']:.3f}, {ms['fddp_ddp']:.3f}) "
+        f"{card}")
     ms_robust = time_ms(lambda: robust.solve_batch(r_trajs))
     ms_single = time_ms(lambda: kf.solve_fddp_fused(*r_args))
     log(f"robust path (refine auto, 2 FDDP launches): {ms_robust:.3f} ms per batch solve, "
         f"{r_batch / ms_robust * 1e3:.1f} solves/s; single-phase kernel {ms_single:.3f} ms "
         f"(B={r_batch}, N={r_n}, f32) {card}")
+    # the long-horizon paths at full width, each beside its whole-solve twin
+    # on the same inputs
+    full = {
+        "stream": (time_ms(lambda: long_api.solve_batch(lh_trajs, latency=True)),
+                   time_ms(lambda: ks.solve_fused_whole(*lh_args)), lh_n),
+        "stream_fddp": (time_ms(lambda: robust_long.solve_batch(rl_trajs)),
+                        time_ms(lambda: two_launches(kf.solve_fddp_fused)), rl_n),
+    }
+    for name, twin in (("stream", "solve.cu"), ("stream_fddp", "fddp.cu, the same two launches")):
+        k_ms, w_ms, n_ = full[name]
+        log(f"long horizon {name}.cu path: {k_ms:.3f} ms per batch solve, "
+            f"{lh_batch / k_ms * 1e3:.1f} solves/s; {twin} {w_ms:.3f} ms (B={lh_batch}, N={n_}, "
+            f"f32) {card}")
 
     # ---- 7. bounds: the work this run's inputs needed ----
     f = FLOPS
     word = 4  # float32
     stage = batch * horizon
     whole_trips = int(res_whole.iterations.sum())  # backward passes and probes: at least one each
+
+    def stream_work(n, b_, passes, probes, applies):
+        """stream.cu: every backward pass, probe sweep and apply sweep."""
+        return ((passes * f["riccati"] + (probes + applies) * f["rollout"]) * n,
+                2 * 17 * b_ * n * word + 6 * b_ * word)
+
+    def fddp_work(n, b_, launches, outputs):
+        """An FDDP launch pair: every trip transports the gradient and runs
+        the Riccati stage and the model terms (the exact-DDP launch with its
+        additions); defects only on the trips that computed them; every
+        probe and apply sweep; the seed cost once."""
+        flops = sum(
+            n * (trips * (f["transport"] + f["riccati"] + extra + f["model"])
+                 + defect_trips * f["defect"] + (sweeps + applies) * f["gap_rollout"])
+            for (trips, sweeps, defect_trips, applies), extra in zip(launches, (0, f["ddp_extra"]))
+        ) + b_ * n * f["stage_cost"]
+        return flops, 2 * 17 * b_ * n * word + outputs * b_ * word
+
     work = {
         "backward": (stage * f["riccati"], (17 + 52) * stage * word + 2 * batch * word),
         "rollout": (stage * f["rollout"], (17 + 52 + 17) * stage * word + 2 * batch * word),
         "solve": (whole_trips * horizon * (f["riccati"] + f["rollout"]),
                   2 * 17 * stage * word + 3 * batch * word),
-        # the two launches: every trip transports the gradient and runs the
-        # Riccati stage and the model terms (the exact-DDP launch with its
-        # additions); defects only on the trips that computed them; the seed
-        # cost once
-        "fddp": (
-            sum(
-                r_n * (trips * (f["transport"] + f["riccati"] + extra + f["model"])
-                       + defect_trips * f["defect"] + sweeps * f["gap_rollout"])
-                for (trips, sweeps, defect_trips), extra in ((work_gn, 0), (work_ddp, f["ddp_extra"]))
-            ) + r_batch * r_n * f["stage_cost"],
-            2 * 17 * r_batch * r_n * word + 6 * r_batch * word,
-        ),
+        "fddp": fddp_work(r_n, r_batch, [work_gn + (0,), work_ddp + (0,)], 6),
+        "stream": stream_work(lh_n, lh_batch, *long_plain_work),
+        "stream_fddp": fddp_work(rl_n, lh_batch, rl_plain_work, 7),
     }
-    bounds = {}
-    for name, (flops, nbytes) in work.items():
+    full_work = {
+        "stream": stream_work(lh_n, lh_batch, *long_work),
+        "stream_fddp": fddp_work(rl_n, lh_batch, long_fddp_work, 7),
+    }
+
+    def bound(flops, nbytes):
         t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        bounds[name] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+        return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+    bounds = {name: bound(*w) for name, w in work.items()}
+    full_bounds = {name: bound(*w) for name, w in full_work.items()}
+    for name, (flops, nbytes) in work.items():
         log(f"{name} bound: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB -> "
             f"{bounds[name][0]:.4f} ms ({bounds[name][1]}); measured {per_kernel[name][0]:.3f} ms")
+    for name, (flops, nbytes) in full_work.items():
+        log(f"{name} bound at full width (N={full[name][2]}): {flops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB -> {full_bounds[name][0]:.4f} ms ({full_bounds[name][1]}); "
+            f"measured {full[name][0]:.3f} ms")
 
     pkg = "quadrotorilqr_tpu_torch/kernels/csrc"
     replaces = {
@@ -593,10 +916,17 @@ def main() -> int:
         "rollout": "quadrotorilqr_tpu/kernels/rollout.py:54",
         "solve": "quadrotorilqr_tpu/kernels/solve.py:159",
         "fddp": "quadrotorilqr_tpu/kernels/fddp.py:245",
+        "stream": "quadrotorilqr_tpu/kernels/stream.py:120",
+        "stream_fddp": "quadrotorilqr_tpu/kernels/stream_fddp.py:90",
     }
     launches["fddp"] = robust_launches["fddp"]
+    launches["stream"] = long_launches["stream"]
+    launches["stream_fddp"] = rl_launches["stream_fddp"]
     # no single PyTorch call computes a Riccati sweep, a closed-loop rollout
-    # or a whole solve, so there is no library time to set beside them
+    # or a whole solve, so there is no library time to set beside them. ms,
+    # plain_ms and bound_ms share their inputs and work: for the streamed
+    # kernels the main path's calls held against plain (above), with the
+    # whole path's time and bound beside them in `full_width`
     kernels = [
         {
             "name": name, "route": "cuda", "source": f"{pkg}/{name}.cu",
@@ -604,8 +934,13 @@ def main() -> int:
             "max_abs_err": err[name], "ms": per_kernel[name][0], "plain_ms": per_kernel[name][1],
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
         }
-        for name in ("backward", "rollout", "solve", "fddp")
+        for name in ("backward", "rollout", "solve", "fddp", "stream", "stream_fddp")
     ]
+    for k in kernels[4:]:
+        k_ms, w_ms, n_ = full[k["name"]]
+        k["full_width"] = {"B": lh_batch, "N": n_, "ms": k_ms, "whole_twin_ms": w_ms,
+                           "bound_ms": full_bounds[k["name"]][0]}
+    log(f"chip_smoke took {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

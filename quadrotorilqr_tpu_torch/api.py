@@ -9,7 +9,10 @@ per-pass kernel loop, `fused=False` to the plain batched solver. With
 `solver="fddp"` (or `"fddp-ddp"`, exact curvature throughout) a float32
 batch goes to the FDDP kernel through `solve_batch_fddp(refine="auto")`,
 a float64 batch to the single-phase FDDP kernel, `fused=False` and
-`solve_pytree` to the plain FDDP loop.
+`solve_pytree` to the plain FDDP loop. Past 256 stages (exact) and 231
+(FDDP) the batch solvers take the streamed kernels, as the JAX class's
+routes do: `latency=True` runs `stream.cu`, and each FDDP launch
+`stream_fddp.cu`.
 
 One routing difference: the JAX class sends float64 batches to its XLA
 solvers because the TPU kernels have no float64. The CUDA kernels take both

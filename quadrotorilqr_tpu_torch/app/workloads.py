@@ -1,5 +1,6 @@
-"""Canonical workloads: the hover-to-waypoint benchmark problem and the
-reference demo's parameters and weights (`quadrotorilqr_tpu/app/workloads.py`).
+"""Canonical workloads: the hover-to-waypoint benchmark problem, the
+long-horizon problem, the aggressive tumble and the reference demo's
+parameters and weights (`quadrotorilqr_tpu/app/workloads.py`).
 
 Random draws come from an explicit `torch.Generator`; they do not reproduce
 `jax.random`'s numbers for the same seed.
@@ -9,8 +10,10 @@ from __future__ import annotations
 
 import torch
 
+from ..costs.quadratic import QuadraticTrackingCost
 from ..lie import se3
 from ..models.quadrotor import QuadrotorParams, State
+from ..parallel.batch import initial_trajectory_from_state
 from ..solver.ilqr import Trajectory
 
 
@@ -59,6 +62,34 @@ def hover_to_waypoint(
         controls=torch.full((n, 4), 9.81 / 4.0, dtype=dtype, device=device),
     )
     return init_states, desired
+
+
+def long_horizon_problem(
+    generator: torch.Generator, batch, n, dtype=torch.float32, dt_s=0.02, device=None
+):
+    """The long-horizon problem of the JAX package's benchmarks and f32
+    stability tests (`quadrotorilqr_tpu/app/workloads.py:143-174`):
+    hover-to-waypoint starts at pose scale 0.4, the demo weights, and a
+    1.3 kg vehicle with inertia diag(0.4, 0.5, 0.6) + 0.05, 0.2 m arms and
+    torque ratio 0.016.
+
+    Returns (params, cost, initial trajectories with (batch, n, ...) leaves)."""
+    init_states, desired = hover_to_waypoint(
+        generator, batch, n=n, dt_s=dt_s, dtype=dtype, pose_scale=0.4, device=device
+    )
+    q, r = demo_weights(dtype, device)
+    cost = QuadraticTrackingCost(
+        Q=q, R=r, desired_states=desired.states, desired_controls=desired.controls
+    )
+    params = QuadrotorParams.create(
+        mass_kg=1.3,
+        inertia=torch.diag(torch.tensor([0.4, 0.5, 0.6], dtype=dtype)) + 0.05,
+        arm_length_m=0.2,
+        torque_to_thrust_ratio_m=0.016,
+        g_mpss=9.81,
+        device=device,
+    )
+    return params, cost, initial_trajectory_from_state(init_states, desired)
 
 
 def aggressive_tumble(

@@ -33,7 +33,10 @@ NVCC_FLAGS = (
     # print each kernel's registers and local-memory spills
     "-Xptxas", "-v",
 )
-ENTRIES = ("qilqr_backward", "qilqr_rollout", "qilqr_solve", "qilqr_fddp")
+ENTRIES = (
+    "qilqr_backward", "qilqr_rollout", "qilqr_solve", "qilqr_fddp", "qilqr_stream",
+    "qilqr_stream_fddp",
+)
 
 
 class _Library:

@@ -61,66 +61,8 @@ struct FddpIO {
   T* bigks;           // scratch (N, 4, 12, B)
   Traj<T> best;       // scratch (N, d, B): the line search's candidate
   T* d;               // scratch (N, 12, B): the defects
-  int max_iters, ls_max_iters, ddp;
-  T quu_reg, rtol, atol, ls_step, ls_jump, gf, gub, gap_tol, reg_init, reg_up, reg_down,
-      reg_min, reg_max, a_dec, a_inc;
+  FddpKnobs<T> k;
 };
-
-// c + (dx'Q dx + du'R du) of stage n: never inlined, so the seed sweep and
-// every probe evaluate it with the same instructions
-template <typename T>
-__device__ __noinline__ T fddp_stage_cost(const Problem<T>& P, int n, int b, const T* q,
-                                          const T* t, const T* v, const T* u) {
-  T xq, ur;
-  stage_cost_terms(P, n, b, q, t, v, u, &xq, &ur);
-  return xq + ur;
-}
-
-// max that keeps a NaN, as jnp.maximum / torch.amax do
-template <typename T>
-__device__ __forceinline__ T nan_max(T a, T b) {
-  if (a != a) return a;
-  return (b != b || b > a) ? b : a;
-}
-
-// One gap-contracting rollout stage (fddp.py rollout_stage): control, cost,
-// candidate write, then x' = f(x, u) (+) (-(1 - alpha) d_n). Updates the
-// carry (q, t, v) in place and returns the running cost, summed raw or with
-// the frozen-saturating fold (kSat).
-template <typename T, bool kSat>
-__device__ __forceinline__ T rollout_gap_stage(const Problem<T>& P, const FddpIO<T>& io, int n,
-                                               int b, T alpha, T* q, T* t, T* v, T c, T gdj,
-                                               T current, T cap) {
-  const int B = P.B;
-  T qo[4], to[3], vo[6], uo[4], dx[12], u[4];
-  load_stage(io.live, B, n, b, qo, to, vo, uo);
-  state_minus(q, t, v, qo, to, vo, dx);
-  for (int a = 0; a < 4; ++a) {
-    T fb = io.bigks[((n * 4 + a) * 12) * B + b] * dx[0];
-    for (int j = 1; j < 12; ++j) fb += io.bigks[((n * 4 + a) * 12 + j) * B + b] * dx[j];
-    u[a] = (uo[a] + alpha * io.ks[(n * 4 + a) * B + b]) + fb;
-  }
-  const T cs = fddp_stage_cost(P, n, b, q, t, v, u);
-  if (kSat) {
-    const bool frozen = (c - current) > gdj;
-    T c2 = c + cs;
-    c2 = (c2 <= cap) ? c2 : cap;
-    c = frozen ? c : c2;
-  } else {
-    c = c + cs;
-  }
-  store_stage(io.best, B, n, b, q, t, v, u);
-  dynamics_step(P, b, q, t, v, u);
-  T tau[12], qe[4], te[3], qn[4], tn[3];
-  const T shrink = -(T(1) - alpha);
-  for (int i = 0; i < 12; ++i) tau[i] = shrink * io.d[(n * 12 + i) * B + b];
-  se3_exp(tau, qe, te);
-  se3_multiply(q, t, qe, te, qn, tn);
-  for (int i = 0; i < 4; ++i) q[i] = qn[i];
-  for (int i = 0; i < 3; ++i) t[i] = tn[i];
-  for (int i = 0; i < 6; ++i) v[i] = v[i] + tau[6 + i];
-  return c;
-}
 
 template <typename T, bool kDdp>
 __global__ void fddp_kernel(Problem<T> P, FddpIO<T> io) {
@@ -133,20 +75,15 @@ __global__ void fddp_kernel(Problem<T> P, FddpIO<T> io) {
   int iters = io.iiter != nullptr ? io.iiter[b] : 0;
   bool done = status != 0;
   // FDDP seeds from the true (possibly infeasible) trajectory's cost
-  T cost = T(0);
-  for (int n = 0; n < N; ++n) {
-    T q[4], t[3], v[6], u[4];
-    load_stage(io.live, B, n, b, q, t, v, u);
-    cost = cost + fddp_stage_cost(P, n, b, q, t, v, u);
-  }
+  T cost = fddp_cost_lane(P, io.live, b);
   bool take = false;  // the last trip accepted a candidate not yet merged
   bool stale = true;  // the defects need computing (trip 0, or after an accept)
   T gap = T(0);
   int stages_run = 0, defect_trips = 0;
   StageScratch<T> S;
-  for (int i = 0; i < io.max_iters && !done; ++i) {
+  for (int i = 0; i < io.k.max_iters && !done; ++i) {
     const T current = cost;
-    const T quu_reg = io.quu_reg + mu;
+    const T quu_reg = io.k.quu_reg + mu;
 
     // ---- fused merge + defects + gap-transported backward pass ----
     if (stale) {
@@ -200,87 +137,61 @@ __global__ void fddp_kernel(Problem<T> P, FddpIO<T> io) {
     bool accepted = false;
     T best_cost = current;
     T l1 = T(0), l2 = T(0);
-    if (io.ls_max_iters >= 1) {
-      T q[4], t[3], v[6], u[4], p[12];
+    if (io.k.ls_max_iters >= 1) {
+      T q[4], t[3], v[6], u[4], p[12], ju[16];
       load_stage(io.live, B, 0, b, q, t, v, u);
       for (int j = 0; j < 12; ++j) p[j] = T(0);
-      T ju[16];
       for (int j = 0; j < 16; ++j) ju[j] = P.par(P.ju, 32 + j, b);
       T c = T(0);
       for (int n = 0; n < N; ++n) {
         // model terms at the live stage (not the rollout carry)
-        T lq[4], lt[3], lv[6], lu[4], c_x[12], c_u[4];
-        load_stage(io.live, B, n, b, lq, lt, lv, lu);
-        stage_jx_blocks(P, b, lq, lv, S.J);
-        stage_cost_diffs<T, kDdp>(P, n, b, lq, lt, lv, lu, S.X, S.qxx, c_x, c_u);
-        T wv[4];
-        for (int a = 0; a < 4; ++a) {
-          T acc = io.bigks[((n * 4 + a) * 12) * B + b] * p[0];
-          for (int j = 1; j < 12; ++j) acc += io.bigks[((n * 4 + a) * 12 + j) * B + b] * p[j];
-          wv[a] = io.ks[(n * 4 + a) * B + b] + acc;
-        }
-        l1 = l1 + dot<12>(c_x, p) + dot<4>(c_u, wv);
-        T cxxp[12], r2w[4];
-        for (int r = 0; r < 12; ++r) {
-          T acc = S.qxx[r * 12] * p[0];
-          for (int j = 1; j < 12; ++j) acc += S.qxx[r * 12 + j] * p[j];
-          cxxp[r] = acc;
-        }
-        for (int r = 0; r < 4; ++r) {
-          T acc = (T(2) * P.r(r * 4, b)) * wv[0];
-          for (int j = 1; j < 4; ++j) acc += (T(2) * P.r(r * 4 + j, b)) * wv[j];
-          r2w[r] = acc;
-        }
-        l2 = l2 + T(0.5) * (dot<12>(p, cxxp) + dot<4>(wv, r2w));
         T p2[12];
-        jx_vec(S.J, p, p2);
-        for (int r = 0; r < 4; ++r) {
-          T acc = ju[r * 4] * wv[0];
-          for (int a = 1; a < 4; ++a) acc += ju[r * 4 + a] * wv[a];
-          p2[8 + r] = p2[8 + r] + acc;
-        }
-        c = rollout_gap_stage<T, false>(P, io, n, b, alpha, q, t, v, c, T(0), T(0), T(0));
+        fddp_model_stage<T, kDdp>(P, io.live, io.ks, io.bigks, io.d, n, b, S, ju, p, p2, &l1,
+                                  &l2);
+        c = rollout_gap_stage(P, io.live, io.ks, io.bigks, io.d, alpha, false, T(0), T(0), T(0),
+                              io.best, true, n, b, q, t, v, c);
         for (int j = 0; j < 12; ++j) p[j] = p2[j] + io.d[(n * 12 + j) * B + b];
       }
       stages_run += N;
       // Goldstein accept/backtrack (fddp.py _goldstein_probe_commit)
       const T dj = alpha * l1 + alpha * alpha * l2;
-      const T gdj = ((dj <= T(0)) ? io.gf : io.gub) * dj;
+      const T gdj = ((dj <= T(0)) ? io.k.gf : io.k.gub) * dj;
       best_cost = c;
       accepted = (c - current) <= gdj && f_abs(c) < T(INFINITY);
       const T cap = T(2) * (f_abs(current + gdj) + f_abs(current)) + T(1);
-      if (!accepted) alpha = (c < cap) ? alpha * io.ls_step : alpha * io.ls_jump;
+      if (!accepted) alpha = (c < cap) ? alpha * io.k.ls_step : alpha * io.k.ls_jump;
     }
-    for (int j = 1; j < io.ls_max_iters && !accepted; ++j) {
+    for (int j = 1; j < io.k.ls_max_iters && !accepted; ++j) {
       const T dj = alpha * l1 + alpha * alpha * l2;
-      const T gdj = ((dj <= T(0)) ? io.gf : io.gub) * dj;
+      const T gdj = ((dj <= T(0)) ? io.k.gf : io.k.gub) * dj;
       const T cap = T(2) * (f_abs(current + gdj) + f_abs(current)) + T(1);
       T q[4], t[3], v[6], u[4];
       load_stage(io.live, B, 0, b, q, t, v, u);
       T c = T(0);
       for (int n = 0; n < N; ++n) {
         if ((c - current) > gdj) break;  // frozen: the rest cannot change c
-        c = rollout_gap_stage<T, true>(P, io, n, b, alpha, q, t, v, c, gdj, current, cap);
+        c = rollout_gap_stage(P, io.live, io.ks, io.bigks, io.d, alpha, true, gdj, current, cap,
+                              io.best, true, n, b, q, t, v, c);
         ++stages_run;
       }
       best_cost = c;
       accepted = (c - current) <= gdj && f_abs(c) < T(INFINITY);
-      if (!accepted) alpha = (c < cap) ? alpha * io.ls_step : alpha * io.ls_jump;
+      if (!accepted) alpha = (c < cap) ? alpha * io.k.ls_step : alpha * io.k.ls_jump;
     }
 
     // ---- trip close (fddp.py _fddp_trip_close) ----
     take = accepted;
     if (take) cost = best_cost;
-    const bool headroom = mu < io.reg_max;
+    const bool headroom = mu < io.k.reg_max;
     const bool terminal = !accepted && !headroom;
-    T mu_dec = mu * io.reg_down;
-    if (mu_dec < io.reg_min) mu_dec = T(0);
-    T mu_inc = mu * io.reg_up;
-    mu_inc = (mu == T(0)) ? io.reg_init : ((mu_inc > io.reg_max) ? io.reg_max : mu_inc);
-    const T mu_accept = (alpha >= io.a_dec) ? mu_dec : ((alpha <= io.a_inc) ? mu_inc : mu);
+    T mu_dec = mu * io.k.reg_down;
+    if (mu_dec < io.k.reg_min) mu_dec = T(0);
+    T mu_inc = mu * io.k.reg_up;
+    mu_inc = (mu == T(0)) ? io.k.reg_init : ((mu_inc > io.k.reg_max) ? io.k.reg_max : mu_inc);
+    const T mu_accept = (alpha >= io.k.a_dec) ? mu_dec : ((alpha <= io.k.a_inc) ? mu_inc : mu);
     mu = accepted ? mu_accept : (headroom ? mu_inc : mu);
     const bool post_conv =
-        take && gap < io.gap_tol && converged(current, best_cost, io.rtol, io.atol);
+        take && gap < io.k.gap_tol && converged(current, best_cost, io.k.rtol, io.k.atol);
     status = terminal ? 2 : (post_conv ? 1 : status);
     done = post_conv || terminal;
     iters += 1;
@@ -326,16 +237,10 @@ int launch_fddp(const void* const* ptrs, const long long* ints, const double* re
   io.best = traj_from<T>(p + 18);
   io.d = static_cast<T*>(out(22));
   io.defect_trips = static_cast<int*>(out(23));
-  io.max_iters = static_cast<int>(ip[0]);
-  io.ls_max_iters = static_cast<int>(ip[1]);
-  io.ddp = static_cast<int>(ip[2]);
-  T* reals_out[] = {&io.quu_reg, &io.rtol, &io.atol, &io.ls_step, &io.ls_jump,
-                    &io.gf, &io.gub, &io.gap_tol, &io.reg_init, &io.reg_up,
-                    &io.reg_down, &io.reg_min, &io.reg_max, &io.a_dec, &io.a_inc};
-  for (int i = 0; i < 15; ++i) *reals_out[i] = static_cast<T>(rp[i]);
+  io.k = fddp_knobs<T>(ip, rp);
   if (P.B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (io.ddp) {
+  if (io.k.ddp) {
     fddp_kernel<T, true><<<blocks_for(P.B), kThreadsPerBlock, 0, s>>>(P, io);
   } else {
     fddp_kernel<T, false><<<blocks_for(P.B), kThreadsPerBlock, 0, s>>>(P, io);

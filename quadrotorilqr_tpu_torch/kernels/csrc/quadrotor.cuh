@@ -4,8 +4,11 @@
 // LaneModel), kernels/rollout.py (_dynamics_step, _state_minus) and
 // kernels/backward.py (_stage_jx_blocks, _stage_cost_diffs, _riccati_stage
 // with its ddp option, _vfxx_lanes, _cxx_corr_lanes; without the
-// box/weights/drag/substep/penalty options). Shared by the kernels
-// backward.cu, rollout.cu, solve.cu and fddp.cu.
+// box/weights/drag/substep/penalty options), solve.py's line search and
+// trip close (shared by solve.cu and stream.cu), and fddp.py's
+// gap-contracting rollout stage and quadratic-model stage (shared by fddp.cu
+// and stream_fddp.cu). Shared by the kernels backward.cu, rollout.cu,
+// solve.cu, stream.cu, fddp.cu and stream_fddp.cu.
 //
 // Layout. Per-stage buffers are scenario-minor, (N, d, B): element (n, i) of
 // scenario b sits at [(n * d + i) * B + b], so the 32 threads of a warp read
@@ -637,32 +640,259 @@ __device__ void backward_lane(const Problem<T>& P, T quu_reg, const Traj<T>& x, 
   *ktquuk = sum_ktquuk;
 }
 
-// Closed-loop rollout of scenario b with step alpha (rollout.py
-// _rollout_kernel's stage loop), written to `out`; returns the new
-// trajectory's cost, summed (J + dx'Q dx) + du'R du stage by stage.
+
+// ---- the exact loop's forward pieces (rollout.cu, solve.cu, stream.cu) ----
+
+// One closed-loop rollout stage n of scenario b (rollout.py _rollout_kernel's
+// stage body): u_n = u_old_n + alpha k_n + K_n (x_n (-) x_old_n) from the
+// carry (q, t, v) = x_n, the running cost c + dx'Q dx + du'R du (that order),
+// the stage written to `out` when `store`, then the carry stepped to
+// f(x_n, u_n). `out` may be `x` itself: stage n is read before it is
+// written.
 template <typename T>
-__device__ T rollout_lane(const Problem<T>& P, const Traj<T>& x, const T* ks, const T* bigks,
-                          T alpha, const Traj<T>& out, int b) {
+__device__ __forceinline__ T rollout_stage(const Problem<T>& P, const Traj<T>& x, const T* ks,
+                                           const T* bigks, T alpha, const Traj<T>& out,
+                                           bool store, int n, int b, T* q, T* t, T* v, T c) {
   const int B = P.B;
+  T qo[4], to[3], vo[6], uo[4], dx[12], u[4];
+  load_stage(x, B, n, b, qo, to, vo, uo);
+  state_minus(q, t, v, qo, to, vo, dx);
+  for (int a = 0; a < 4; ++a) {
+    T fb = bigks[((n * 4 + a) * 12) * B + b] * dx[0];
+    for (int j = 1; j < 12; ++j) fb += bigks[((n * 4 + a) * 12 + j) * B + b] * dx[j];
+    u[a] = (uo[a] + alpha * ks[(n * 4 + a) * B + b]) + fb;
+  }
+  T xq, ur;
+  stage_cost_terms(P, n, b, q, t, v, u, &xq, &ur);
+  c = c + xq + ur;
+  if (store) store_stage(out, B, n, b, q, t, v, u);
+  dynamics_step(P, b, q, t, v, u);
+  return c;
+}
+
+// Closed-loop rollout of scenario b with step alpha (rollout.py
+// _rollout_kernel's stage loop), written to `out` when `store`; returns the
+// new trajectory's cost. Never inlined, and the store is a runtime flag: a
+// cost-only probe sweep and the sweep that writes its candidate run the same
+// instructions, so the written trajectory is, bit for bit, the one whose cost
+// the probe returned.
+template <typename T>
+__device__ __noinline__ T rollout_lane(const Problem<T>& P, const Traj<T>& x, const T* ks,
+                                       const T* bigks, T alpha, const Traj<T>& out, bool store,
+                                       int b) {
   T q[4], t[3], v[6], u[4];
-  load_stage(x, B, 0, b, q, t, v, u);
+  load_stage(x, P.B, 0, b, q, t, v, u);
   T cost = T(0);
   for (int n = 0; n < P.N; ++n) {
-    T qo[4], to[3], vo[6], uo[4], dx[12];
-    load_stage(x, B, n, b, qo, to, vo, uo);
-    state_minus(q, t, v, qo, to, vo, dx);
-    for (int a = 0; a < 4; ++a) {
-      T fb = bigks[((n * 4 + a) * 12) * B + b] * dx[0];
-      for (int j = 1; j < 12; ++j) fb += bigks[((n * 4 + a) * 12 + j) * B + b] * dx[j];
-      u[a] = (uo[a] + alpha * ks[(n * 4 + a) * B + b]) + fb;
-    }
-    T xq, ur;
-    stage_cost_terms(P, n, b, q, t, v, u, &xq, &ur);
-    cost = cost + xq + ur;
-    store_stage(out, B, n, b, q, t, v, u);
-    dynamics_step(P, b, q, t, v, u);
+    cost = rollout_stage(P, x, ks, bigks, alpha, out, store, n, b, q, t, v, cost);
   }
   return cost;
+}
+
+// The cost of scenario b's trajectory x, summed stage by stage as the rollout
+// sums it.
+template <typename T>
+__device__ T trajectory_cost_lane(const Problem<T>& P, const Traj<T>& x, int b) {
+  T cost = T(0);
+  for (int n = 0; n < P.N; ++n) {
+    T q[4], t[3], v[6], u[4], xq, ur;
+    load_stage(x, P.B, n, b, q, t, v, u);
+    stage_cost_terms(P, n, b, q, t, v, u, &xq, &ur);
+    cost = cost + xq + ur;
+  }
+  return cost;
+}
+
+// What a line search leaves: whether it accepted, the cost of its last probe,
+// the alpha it ends on, and the probe stages it ran.
+template <typename T>
+struct LineSearch {
+  bool accepted;
+  T cost;
+  T alpha;
+  int stages;
+};
+
+// The exact loop's backtracking line search from scenario b's live
+// trajectory x (solve.py _ls_probe_commit): probe j rolls out at
+// alpha = ls_step^j and is accepted when its cost change falls below
+// ls_frac dJ(alpha), or at once with `force` (trip 0's full step). A search
+// that runs out ends on the alpha it last tried. With `store` each probe
+// writes its candidate to `out`; otherwise the probes sum costs only.
+template <typename T>
+__device__ LineSearch<T> exact_line_search(const Problem<T>& P, const Traj<T>& x, const T* ks,
+                                           const T* bigks, T qutk, T ktquuk, T current,
+                                           bool force, int ls_max_iters, T ls_step, T ls_frac,
+                                           const Traj<T>& out, bool store, int b) {
+  LineSearch<T> ls{false, current, T(1), 0};
+  T alpha = T(1);
+  for (int j = 0; j < ls_max_iters; ++j) {
+    const T cand = rollout_lane(P, x, ks, bigks, alpha, out, store, b);
+    const T desired = ls_frac * (alpha * qutk + alpha * alpha * ktquuk * T(0.5));
+    ls.cost = cand;
+    ls.alpha = alpha;
+    ls.stages += P.N;
+    ls.accepted = (cand - current) < desired || force;
+    if (ls.accepted) break;
+    alpha = alpha * ls_step;
+  }
+  return ls;
+}
+
+// The exact loop's trip close (solve.py _trip_close) after a trip whose gate
+// left the lane `active` (or pre-converged it): the cost commit, the
+// achieved-cost convergence check (not on trip 0), LINE_SEARCH_FAILED (2) on
+// a search that ran out, CONVERGED (1). Returns whether the lane is done.
+template <typename T>
+__device__ __forceinline__ bool exact_trip_close(bool first, bool pre_conv, bool active,
+                                                 const LineSearch<T>& ls, T current, T rtol,
+                                                 T atol, T* cost, int* status, int* iters) {
+  const bool post_conv =
+      !first && converged(current, ls.cost, rtol, atol) && active && ls.accepted;
+  const bool ls_failed = active && !ls.accepted;
+  *cost = active ? ls.cost : current;
+  const bool conv = post_conv || pre_conv;
+  *status = ls_failed ? 2 : (conv ? 1 : *status);
+  *iters += active ? 1 : 0;
+  return conv || ls_failed;
+}
+
+// ---- the robust FDDP loop's stage pieces (fddp.cu, stream_fddp.cu) ----
+
+// The FDDP loop's scalar options, in the packed order the hosts pass:
+//   ints:  max_iters ls_max_iters ddp
+//   reals: quu_reg rtol atol ls_step ls_jump goldstein_frac goldstein_ub gap_tol
+//          reg_init reg_scale_up reg_scale_down reg_min reg_max alpha_dec alpha_inc
+template <typename T>
+struct FddpKnobs {
+  int max_iters, ls_max_iters, ddp;
+  T quu_reg, rtol, atol, ls_step, ls_jump, gf, gub, gap_tol, reg_init, reg_up, reg_down,
+      reg_min, reg_max, a_dec, a_inc;
+};
+
+template <typename T>
+inline FddpKnobs<T> fddp_knobs(const long long* ip, const double* rp) {
+  FddpKnobs<T> k;
+  k.max_iters = static_cast<int>(ip[0]);
+  k.ls_max_iters = static_cast<int>(ip[1]);
+  k.ddp = static_cast<int>(ip[2]);
+  T* reals[] = {&k.quu_reg, &k.rtol,   &k.atol,     &k.ls_step, &k.ls_jump,
+                &k.gf,      &k.gub,    &k.gap_tol,  &k.reg_init, &k.reg_up,
+                &k.reg_down, &k.reg_min, &k.reg_max, &k.a_dec,  &k.a_inc};
+  for (int i = 0; i < 15; ++i) *reals[i] = static_cast<T>(rp[i]);
+  return k;
+}
+
+// c + (dx'Q dx + du'R du) of stage n: never inlined, so the seed sweep and
+// every probe evaluate it with the same instructions
+template <typename T>
+__device__ __noinline__ T fddp_stage_cost(const Problem<T>& P, int n, int b, const T* q,
+                                          const T* t, const T* v, const T* u) {
+  T xq, ur;
+  stage_cost_terms(P, n, b, q, t, v, u, &xq, &ur);
+  return xq + ur;
+}
+
+// The FDDP seed: scenario b's trajectory cost, stage costs summed from 0 up.
+template <typename T>
+__device__ __forceinline__ T fddp_cost_lane(const Problem<T>& P, const Traj<T>& x, int b) {
+  T cost = T(0);
+  for (int n = 0; n < P.N; ++n) {
+    T q[4], t[3], v[6], u[4];
+    load_stage(x, P.B, n, b, q, t, v, u);
+    cost = cost + fddp_stage_cost(P, n, b, q, t, v, u);
+  }
+  return cost;
+}
+
+// max that keeps a NaN, as jnp.maximum / torch.amax do
+template <typename T>
+__device__ __forceinline__ T nan_max(T a, T b) {
+  if (a != a) return a;
+  return (b != b || b > a) ? b : a;
+}
+
+// One gap-contracting rollout stage n of scenario b (fddp.py rollout_stage):
+// the control from the carry (q, t, v), the running cost, summed raw or
+// (with `sat`) with the frozen-saturating fold of
+// solver/fddp._saturating_stage_cost_add, the stage written to `out` when
+// `store`, then the carry stepped to f(x_n, u_n) (+) (-(1 - alpha) d_n).
+template <typename T>
+__device__ __forceinline__ T rollout_gap_stage(const Problem<T>& P, const Traj<T>& x,
+                                               const T* ks, const T* bigks, const T* d, T alpha,
+                                               bool sat, T gdj, T current, T cap,
+                                               const Traj<T>& out, bool store, int n, int b, T* q,
+                                               T* t, T* v, T c) {
+  const int B = P.B;
+  T qo[4], to[3], vo[6], uo[4], dx[12], u[4];
+  load_stage(x, B, n, b, qo, to, vo, uo);
+  state_minus(q, t, v, qo, to, vo, dx);
+  for (int a = 0; a < 4; ++a) {
+    T fb = bigks[((n * 4 + a) * 12) * B + b] * dx[0];
+    for (int j = 1; j < 12; ++j) fb += bigks[((n * 4 + a) * 12 + j) * B + b] * dx[j];
+    u[a] = (uo[a] + alpha * ks[(n * 4 + a) * B + b]) + fb;
+  }
+  const T cs = fddp_stage_cost(P, n, b, q, t, v, u);
+  if (sat) {
+    const bool frozen = (c - current) > gdj;
+    T c2 = c + cs;
+    c2 = (c2 <= cap) ? c2 : cap;
+    c = frozen ? c : c2;
+  } else {
+    c = c + cs;
+  }
+  if (store) store_stage(out, B, n, b, q, t, v, u);
+  dynamics_step(P, b, q, t, v, u);
+  T tau[12], qe[4], te[3], qn[4], tn[3];
+  const T shrink = -(T(1) - alpha);
+  for (int i = 0; i < 12; ++i) tau[i] = shrink * d[(n * 12 + i) * B + b];
+  se3_exp(tau, qe, te);
+  se3_multiply(q, t, qe, te, qn, tn);
+  for (int i = 0; i < 4; ++i) q[i] = qn[i];
+  for (int i = 0; i < 3; ++i) t[i] = tn[i];
+  for (int i = 0; i < 6; ++i) v[i] = v[i] + tau[6 + i];
+  return c;
+}
+
+// The exact quadratic model's terms at live stage n (probe 0's forward
+// sweep): w = k_n + K_n p, L1 += c_x'p + c_u'w, L2 += (p'c_xx p + w'2R w) / 2,
+// and p2 = J_x p + J_u w. ju holds j_u's nonzero rows 8:12. The caller sets
+// p <- p2 + d_n after the stage's rollout step.
+template <typename T, bool kDdp>
+__device__ __forceinline__ void fddp_model_stage(const Problem<T>& P, const Traj<T>& x,
+                                                 const T* ks, const T* bigks, const T* d, int n,
+                                                 int b, StageScratch<T>& S, const T* ju,
+                                                 const T* p, T* p2, T* l1, T* l2) {
+  const int B = P.B;
+  T lq[4], lt[3], lv[6], lu[4], c_x[12], c_u[4];
+  load_stage(x, B, n, b, lq, lt, lv, lu);
+  stage_jx_blocks(P, b, lq, lv, S.J);
+  stage_cost_diffs<T, kDdp>(P, n, b, lq, lt, lv, lu, S.X, S.qxx, c_x, c_u);
+  T wv[4];
+  for (int a = 0; a < 4; ++a) {
+    T acc = bigks[((n * 4 + a) * 12) * B + b] * p[0];
+    for (int j = 1; j < 12; ++j) acc += bigks[((n * 4 + a) * 12 + j) * B + b] * p[j];
+    wv[a] = ks[(n * 4 + a) * B + b] + acc;
+  }
+  *l1 = *l1 + dot<12>(c_x, p) + dot<4>(c_u, wv);
+  T cxxp[12], r2w[4];
+  for (int r = 0; r < 12; ++r) {
+    T acc = S.qxx[r * 12] * p[0];
+    for (int j = 1; j < 12; ++j) acc += S.qxx[r * 12 + j] * p[j];
+    cxxp[r] = acc;
+  }
+  for (int r = 0; r < 4; ++r) {
+    T acc = (T(2) * P.r(r * 4, b)) * wv[0];
+    for (int j = 1; j < 4; ++j) acc += (T(2) * P.r(r * 4 + j, b)) * wv[j];
+    r2w[r] = acc;
+  }
+  *l2 = *l2 + T(0.5) * (dot<12>(p, cxxp) + dot<4>(wv, r2w));
+  jx_vec(S.J, p, p2);
+  for (int r = 0; r < 4; ++r) {
+    T acc = ju[r * 4] * wv[0];
+    for (int a = 1; a < 4; ++a) acc += ju[r * 4 + a] * wv[a];
+    p2[8 + r] = p2[8 + r] + acc;
+  }
 }
 
 }  // namespace qilqr

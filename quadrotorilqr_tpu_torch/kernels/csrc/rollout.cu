@@ -38,7 +38,7 @@ __global__ void rollout_kernel(Problem<T> P, RolloutIO<T> io) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= P.B) return;
   if (io.active != nullptr && io.active[b] == 0) return;
-  io.cost[b] = rollout_lane(P, io.x, io.ks, io.bigks, io.alpha[b], io.out, b);
+  io.cost[b] = rollout_lane(P, io.x, io.ks, io.bigks, io.alpha[b], io.out, true, b);
 }
 
 // packed operands after the Problem block:

@@ -16,8 +16,9 @@
 // (V_xx, Q_xx, j_x blocks; see backward.cu) live in local memory, and with
 // one thread per scenario B = 4096 is about one warp per SM, so the loop is
 // latency-bound. The live, candidate and gain trajectories stay in device
-// memory at any horizon (about 3 KB per stage per 32 scenarios in float32),
-// so unlike the TPU kernel there is no horizon cap and no streamed variant.
+// memory at any horizon (about 3 KB per stage per 32 scenarios in float32);
+// the batch solvers send horizons past 256 stages to stream.cu, the
+// candidate-free variant, as the JAX package routes them.
 // What the design does about it: no host round trip and no launch between
 // trips (the whole solve is one launch), scenario-minor buffers for
 // coalesced loads, block-sparse j_x / j_u products, and broadcast reads of
@@ -47,17 +48,9 @@ __global__ void solve_kernel(Problem<T> P, SolveIO<T> io) {
   if (b >= P.B) return;
   const int B = P.B, N = P.N;
   copy_traj(io.x0, io.live, B, N, b);
-  T cost = T(0);
+  // the loop never runs: report the initial trajectory's true cost
+  T cost = io.max_iters == 0 ? trajectory_cost_lane(P, io.live, b) : T(0);
   int status = 0, iters = 0;
-  if (io.max_iters == 0) {
-    // the loop never runs: report the initial trajectory's true cost
-    for (int n = 0; n < N; ++n) {
-      T q[4], t[3], v[6], u[4], xq, ur;
-      load_stage(io.live, B, n, b, q, t, v, u);
-      stage_cost_terms(P, n, b, q, t, v, u, &xq, &ur);
-      cost = cost + xq + ur;
-    }
-  }
   for (int i = 0; i < io.max_iters; ++i) {
     // ---- backward pass ----
     T qutk, ktquuk;
@@ -65,36 +58,21 @@ __global__ void solve_kernel(Problem<T> P, SolveIO<T> io) {
 
     // ---- trip gate (solve.py _trip_gate): pre-check on the expected cost ----
     const T current = cost;
-    const bool li_pos = i > 0;
     const T expected = current + (qutk + T(0.5) * ktquuk);
-    const bool pre_conv = li_pos && converged(current, expected, io.rtol, io.atol);
+    const bool pre_conv = i > 0 && converged(current, expected, io.rtol, io.atol);
     const bool active = !pre_conv;
 
-    // ---- line search (solve.py _ls_probe_commit); trip 0 force-accepts ----
-    bool accepted = false;
-    T best_cost = current;
+    // ---- line search, each probe kept as the candidate; trip 0 force-accepts ----
+    LineSearch<T> ls{false, current, T(1), 0};
     if (active) {
-      T alpha = T(1);
-      for (int j = 0; j < io.ls_max_iters; ++j) {
-        const T cand = rollout_lane(P, io.live, io.ks, io.bigks, alpha, io.best, b);
-        const T desired = io.ls_frac * (alpha * qutk + alpha * alpha * ktquuk * T(0.5));
-        best_cost = cand;
-        accepted = (cand - current) < desired || i == 0;
-        if (accepted) break;
-        alpha = alpha * io.ls_step;
-      }
+      ls = exact_line_search(P, io.live, io.ks, io.bigks, qutk, ktquuk, current, i == 0,
+                             io.ls_max_iters, io.ls_step, io.ls_frac, io.best, true, b);
       copy_traj(io.best, io.live, B, N, b);
     }
-
-    // ---- trip close (solve.py _trip_close) ----
-    const bool post_conv = li_pos && converged(current, best_cost, io.rtol, io.atol) &&
-                           active && accepted;
-    const bool ls_failed = active && !accepted;
-    cost = active ? best_cost : current;
-    const bool conv = post_conv || pre_conv;
-    status = ls_failed ? 2 : (conv ? 1 : status);
-    iters += active ? 1 : 0;
-    if (conv || ls_failed) break;
+    if (exact_trip_close(i == 0, pre_conv, active, ls, current, io.rtol, io.atol, &cost,
+                         &status, &iters)) {
+      break;
+    }
   }
   io.cost[b] = cost;
   io.iters[b] = iters;

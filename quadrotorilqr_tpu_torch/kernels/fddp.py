@@ -7,10 +7,12 @@ trip's accepted candidate, computes the defects and runs the gap-transported
 Riccati stage (Gauss-Newton, or exact DDP curvature with `ddp=True`), then
 the Goldstein line search with gap-contracting rollouts (probe 0 also
 carries the exact quadratic model; with no probes every trip rejects), then
-the per-lane mu schedule and status. Trajectories, gains and defects stay in device memory, so any
-horizon fits. `solve_fddp_fused` launches it for CUDA tensors and takes
-`solve_fddp_whole_reference` (the plain loop `solver.fddp.fddp_loop`) only
-for CPU tensors.
+the per-lane mu schedule and status. Trajectories, gains and defects stay
+in device memory, so any horizon fits; the batch solvers send horizons
+past 231 stages to `kernels/stream_fddp.py`, the candidate-free variant, as
+the JAX package routes them. `solve_fddp_fused` launches it for CUDA
+tensors and takes `solve_fddp_whole_reference` (the plain loop
+`solver.fddp.fddp_loop`) only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -74,10 +76,18 @@ def solve_fddp_fused(
         _check_cuda(device)
         out = _launch(params, cost, traj, dt_s, options, fo, ddp, initial_mu, initial_status,
                       initial_iters)
+        solve_fddp_fused.launches += 1
     return out[:4] + ((out[4],) if return_mu else ()) + (out[5:] if return_probes else ())
 
 
-def _launch(params, cost, traj, dt_s, options, fo, ddp, initial_mu, initial_status, initial_iters):
+def _launch(
+    params, cost, traj, dt_s, options, fo, ddp, initial_mu, initial_status, initial_iters,
+    streamed=False,
+):
+    """Launch csrc/fddp.cu, or with `streamed` csrc/stream_fddp.cu (no
+    candidate buffer; the apply sweeps each lane ran come last in the
+    result). Returns (Trajectory, cost, iterations, status, mu, probe
+    sweeps, defect trips[, apply sweeps])."""
     dtype = traj.controls.dtype
     device = traj.controls.device
     batch, n = traj.controls.shape[0], traj.controls.shape[1]
@@ -86,7 +96,8 @@ def _launch(params, cost, traj, dt_s, options, fo, ddp, initial_mu, initial_stat
     ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device)
     kw = dict(dtype=dtype, device=device)
     live = [torch.empty((n, d, batch), **kw) for d in (4, 3, 6, CONTROL_DIM)]
-    best = [torch.empty((n, d, batch), **kw) for d in (4, 3, 6, CONTROL_DIM)]
+    best = [] if streamed else [torch.empty((n, d, batch), **kw) for d in (4, 3, 6, CONTROL_DIM)]
+    applies = [torch.empty((batch,), dtype=torch.int32, device=device)] if streamed else []
     cost_out, mu_out, probes = (torch.empty((batch,), **kw) for _ in range(3))
     iters, status, defect_trips = (
         torch.empty((batch,), dtype=torch.int32, device=device) for _ in range(3)
@@ -101,7 +112,7 @@ def _launch(params, cost, traj, dt_s, options, fo, ddp, initial_mu, initial_stat
     ]
     ops = ops.extend(
         [*_traj_lanes(traj, dtype, device), *rows, *live, cost_out, iters, status, mu_out,
-         probes, ks, big_ks, *best, d, defect_trips],
+         probes, ks, big_ks, *best, d, defect_trips, *applies],
         ints=[int(cc.max_iters), int(ls.max_iters), int(bool(ddp))],
         reals=[
             options.quu_reg, cc.rtol, cc.atol, ls.step_update, fddp.alpha_jump(ls.step_update),
@@ -110,10 +121,11 @@ def _launch(params, cost, traj, dt_s, options, fo, ddp, initial_mu, initial_stat
             fo.alpha_inc,
         ],
     )
-    _build.launch("qilqr_fddp", dtype, ops.ptrs, ops.ints, ops.reals, device)
-    solve_fddp_fused.launches += 1
+    entry = "qilqr_stream_fddp" if streamed else "qilqr_fddp"
+    _build.launch(entry, dtype, ops.ptrs, ops.ints, ops.reals, device)
     return (
-        _traj_from_lanes(traj.times, *live), cost_out, iters, status, mu_out, probes, defect_trips
+        _traj_from_lanes(traj.times, *live), cost_out, iters, status, mu_out, probes, defect_trips,
+        *applies,
     )
 
 

@@ -4,9 +4,10 @@ Counterpart of `quadrotorilqr_tpu/kernels/solve.py:618` (`solve_fused_whole`
 over the Pallas `_solve_kernel`). `csrc/solve.cu` runs each scenario's whole
 solve (backward pass, line search, convergence checks, status and
 iterations) in one thread, keeping the live, candidate and gain
-trajectories in device memory, so any horizon fits. `solve_fused_whole`
-launches it for CUDA tensors and takes `solve_whole_reference` only for CPU
-tensors.
+trajectories in device memory, so any horizon fits; the batch solver sends
+horizons past 256 stages to `kernels/stream.py`, the candidate-free
+variant, as the JAX package routes them. `solve_fused_whole` launches it for
+CUDA tensors and takes `solve_whole_reference` only for CPU tensors.
 """
 
 from __future__ import annotations

@@ -7,17 +7,21 @@ Counterpart of `quadrotorilqr_tpu/solver/batched.py`:
     kernel launch over all scenarios (`kernels/backward.py`,
     `kernels/rollout.py`); finished or accepted lanes are masked out of the
     launches.
-  * `solve_batch_latency` runs the whole loop in one kernel launch
-    (`kernels/solve.py`), except for a zero-probe line search, which the
-    whole-solve kernel cannot express and which goes to the batch loop.
-  * `solve_batch_fddp` runs the robust FDDP loop in one kernel launch
-    (`kernels/fddp.py`); with `refine` it goes to
+  * `solve_batch_latency` runs the whole loop in one kernel launch:
+    `kernels/solve.py` up to STREAM_HORIZON stages, `kernels/stream.py`
+    (no candidate trajectory) past it; a zero-probe line search, which the
+    whole-solve kernels cannot express, goes to the batch loop.
+  * `solve_batch_fddp` runs the robust FDDP loop in one kernel launch:
+    `kernels/fddp.py` up to STREAM_HORIZON_FDDP stages,
+    `kernels/stream_fddp.py` past it; with `refine` it goes to
     `solve_batch_fddp_refine`, the multi-phase solve that may switch the
     curvature per phase (`resolve_refine_auto`) and resumes each phase
-    from the last one's per-lane state.
+    from the last one's per-lane state, on the same engine.
 
-All take any B and any N (no lane padding, no horizon routing). On CPU
-tensors the kernel wrappers run their plain PyTorch versions.
+The horizon routing is the JAX package's, so that every horizon runs the
+engine the reference runs; every engine here takes any B and any N (no
+lane padding). On CPU tensors the kernel wrappers run their plain PyTorch
+versions.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from ..kernels.backward import backward_pass_fused
 from ..kernels.fddp import solve_fddp_fused
 from ..kernels.rollout import rollout_cost_fused
 from ..kernels.solve import solve_fused_whole
+from ..kernels.stream import solve_fused_streamed
+from ..kernels.stream_fddp import solve_fddp_streamed
 from . import fddp
 from .ilqr import (
     CONTINUATION_TODO,
@@ -39,6 +45,17 @@ from .ilqr import (
     solve_loop,
 )
 from .options import ILQROptions
+
+# The JAX package's switch points to its streamed kernels for the quadrotor
+# (u = 4): max_horizon_for(4) = 256 stages (quadrotorilqr_tpu/kernels/
+# solve.py:68-76) and max_horizon_for_fddp(4) = 231 (kernels/fddp.py:125-128).
+# There they are the VMEM budgets of the whole-solve kernels; here they are
+# route points only, so that each horizon runs the reference's engine. On
+# the H100 the streamed engines are a few percent slower than their
+# whole-solve twins at these horizons (PERF.md): the route costs time until
+# one engine per solver is at least as fast as both.
+STREAM_HORIZON = 256
+STREAM_HORIZON_FDDP = 231
 
 
 def _refuse(options, continuation, model, limits):
@@ -86,14 +103,15 @@ def solve_batch_latency(
     model=None,
     limits=None,
 ) -> SolveResult:
-    """Batched iLQR with the whole loop in one kernel launch; lane for lane
-    the same result as `solve_batch_fused`."""
+    """Batched iLQR with the whole loop in one kernel launch (the streamed
+    kernel past STREAM_HORIZON stages); lane for lane the same result as
+    `solve_batch_fused`."""
     _refuse(options, continuation, model, limits)
     if options.line_search_params.max_iters < 1:
         return solve_batch_fused(params, cost, initial_trajs, dt_s, options)
-    traj, cost_v, iterations, status = solve_fused_whole(
-        params, cost, initial_trajs, dt_s, options
-    )
+    streamed = initial_trajs.controls.shape[1] > STREAM_HORIZON
+    engine = solve_fused_streamed if streamed else solve_fused_whole
+    traj, cost_v, iterations, status = engine(params, cost, initial_trajs, dt_s, options)
     return SolveResult(trajectory=traj, cost=cost_v, iterations=iterations, status=status)
 
 
@@ -137,7 +155,8 @@ def solve_batch_fddp(
     refine=None,
 ) -> SolveResult:
     """Batched robust FDDP solve (solver/fddp.py semantics), the whole loop in
-    one kernel launch; lane for lane the plain `solver.fddp.solve_fddp`.
+    one kernel launch (the streamed kernel past STREAM_HORIZON_FDDP stages);
+    lane for lane the plain `solver.fddp.solve_fddp`.
 
     `refine="auto"` runs the multi-phase schedule of `resolve_refine_auto`
     (and, with ddp=False, the hybrid curvature); an int or tuple passes
@@ -159,10 +178,16 @@ def solve_batch_fddp(
         raise ValueError(
             "per-phase ddp tuples need refine=... (solve_batch_fddp_refine semantics)"
         )
-    traj, cost_v, iterations, status = solve_fddp_fused(
+    traj, cost_v, iterations, status = _fddp_engine(initial_trajs)(
         params, cost, initial_trajs, dt_s, options, fo, ddp=ddp
     )
     return SolveResult(trajectory=traj, cost=cost_v, iterations=iterations, status=status)
+
+
+def _fddp_engine(trajs):
+    """The FDDP kernel wrapper for this horizon."""
+    streamed = trajs.controls.shape[1] > STREAM_HORIZON_FDDP
+    return solve_fddp_streamed if streamed else solve_fddp_fused
 
 
 def solve_batch_fddp_refine(
@@ -224,10 +249,11 @@ def solve_batch_fddp_refine(
             launches[-1][0] += budget
         else:
             launches.append([budget, bool(flag)])
+    engine = _fddp_engine(initial_trajs)
     traj = initial_trajs
     mu = status = iters = None
     for budget, flag in launches:
-        traj, cost_v, iters, status, mu = solve_fddp_fused(
+        traj, cost_v, iters, status, mu = engine(
             params, cost, traj, dt_s, _with_max_iters(options, budget), fo,
             ddp=flag, initial_mu=mu, initial_status=status, initial_iters=iters,
             return_mu=True,

@@ -255,16 +255,19 @@ def rollout_gap(params, traj: Trajectory, d, ks, big_ks, alpha, dt_s, model=None
     return Trajectory(times=traj.times, states=stacked, controls=torch.stack(controls, -2))
 
 
-def _line_search(params, cost, traj, d, current, ks, big_ks, l1, l2, active, options, fo, dt_s):
+def _line_search(
+    params, cost, traj, d, current, ks, big_ks, l1, l2, active, options, fo, dt_s, keep=True
+):
     """Goldstein backtracking for every pending lane at once. Probe 0 sums
     its cost raw; later probes fold with the frozen-saturating add. Returns
     (candidate, its cost, accepted (B,), the last probe's alpha (B,), stages
-    the probes ran (B,) int: the kernel stops a probe at its lane's freeze)."""
+    the probes ran (B,) int: the kernel stops a probe at its lane's freeze).
+    With keep=False the probes are cost-only and the candidate is None."""
     ls = options.line_search_params
     n_stages = traj.horizon
     alpha = torch.ones_like(current)
     accepted = torch.zeros_like(active)
-    best, best_cost = traj, current
+    best, best_cost = traj if keep else None, current
     stages = torch.zeros(current.shape, dtype=torch.int64, device=current.device)
     for j in range(int(ls.max_iters)):
         pending = active & ~accepted
@@ -286,7 +289,8 @@ def _line_search(params, cost, traj, d, current, ks, big_ks, l1, l2, active, opt
                 c = _saturating_stage_cost_add(c, scs[..., n], gdj, current, cap)
         stages = stages + torch.where(pending, ran, torch.zeros_like(ran))
         ok = ((c - current) <= gdj) & (torch.abs(c) < math.inf)
-        best = _where_lanes(pending, cand, best)
+        if keep:
+            best = _where_lanes(pending, cand, best)
         best_cost = torch.where(pending, c, best_cost)
         accepted = accepted | (pending & ok)
         alpha = torch.where(accepted | ~active, alpha, _next_alpha(alpha, c, cap, ls.step_update))
@@ -310,7 +314,7 @@ def _mu_schedule(mu, accepted, alpha, fo):
 
 def fddp_loop(
     params, cost, traj: Trajectory, dt_s, options: ILQROptions, fddp_options: FDDPOptions,
-    ddp=False, initial_mu=None, initial_status=None, initial_iters=None,
+    ddp=False, initial_mu=None, initial_status=None, initial_iters=None, streamed=False,
 ):
     """The FDDP loop over a (B, N, ...) batch in flattened-trip form.
 
@@ -322,20 +326,25 @@ def fddp_loop(
     int32: the trips that need the defects computed, the first and each one
     after an accepted trip).
 
+    With `streamed` it runs the streamed kernel's schedule: the probes are
+    cost-only, an accepted lane's candidate is rebuilt by one apply rollout
+    at its accepted alpha (the same trajectory: rollouts are deterministic),
+    and the apply sweeps (B,) int32 come last in the result.
+
     The loop dispatches thousands of small ops per trip, so it runs in
     inference mode (about a third less dispatch time) and hands back
     ordinary tensors."""
     with torch.inference_mode():
         out = _fddp_loop(
             params, cost, traj, dt_s, options, fddp_options, ddp,
-            initial_mu, initial_status, initial_iters,
+            initial_mu, initial_status, initial_iters, streamed,
         )
     return tree_map(lambda a: a.clone(), out[0]), *(a.clone() for a in out[1:])
 
 
 def _fddp_loop(
     params, cost, traj, dt_s, options, fddp_options, ddp, initial_mu, initial_status,
-    initial_iters,
+    initial_iters, streamed,
 ):
     fo = fddp_options
     max_iters = int(options.convergence_criteria.max_iters)
@@ -356,6 +365,7 @@ def _fddp_loop(
     current = sequential_cost(qc.per_stage_costs(cost, traj.states, traj.controls))
     stages = torch.zeros(batch, dtype=torch.int64, device=device)
     defect_trips = torch.zeros(batch, dtype=torch.int32, device=device)
+    applies = torch.zeros(batch, dtype=torch.int32, device=device)
     stale = torch.ones(batch, dtype=torch.bool, device=device)
     for _ in range(max_iters):
         if bool(done.all()):
@@ -366,11 +376,15 @@ def _fddp_loop(
         derivs = _stage_derivs(params, cost, traj, dt_s, ddp)
         ks, big_ks, l1, l2 = _backward_from_derivs(derivs, d, options.quu_reg + mu)
         cand, cand_cost, accepted, alpha, ran = _line_search(
-            params, cost, traj, d, current, ks, big_ks, l1, l2, active, options, fo, dt_s
+            params, cost, traj, d, current, ks, big_ks, l1, l2, active, options, fo, dt_s,
+            keep=not streamed,
         )
         stages = stages + ran
         defect_trips = defect_trips + (active & stale).to(torch.int32)
         take = active & accepted
+        if streamed and bool(take.any()):
+            cand = rollout_gap(params, traj, d, ks, big_ks, alpha, dt_s)
+            applies = applies + take.to(torch.int32)
         stale = torch.where(active, take, stale)
         terminal = active & ~accepted & ~(mu < fo.reg_max)
         mu = torch.where(active, _mu_schedule(mu, accepted, alpha, fo), mu)
@@ -380,11 +394,13 @@ def _fddp_loop(
             STATUS_LINE_SEARCH_FAILED,
             torch.where(post_conv, STATUS_CONVERGED, status),
         ).to(torch.int32)
-        traj = _where_lanes(take, cand, traj)
+        if cand is not None:  # None: a streamed trip that accepted no lane
+            traj = _where_lanes(take, cand, traj)
         current = torch.where(take, cand_cost, current)
         done = done | post_conv | terminal
         iters = iters + active.to(torch.int32)
-    return traj, current, iters, status, mu, stages.to(dtype) / n_stages, defect_trips
+    out = (traj, current, iters, status, mu, stages.to(dtype) / n_stages, defect_trips)
+    return out + (applies,) if streamed else out
 
 
 def solve_fddp(

@@ -204,14 +204,32 @@ def _where_lanes(mask, a, b):
     )
 
 
-def solve_loop(backward, rollout, traj_cost, initial_traj: Trajectory, options: ILQROptions):
+def solve_loop(
+    backward, rollout, traj_cost, initial_traj: Trajectory, options: ILQROptions, apply=None
+):
     """The reference outer loop over a (B, N, ...) batch, lane by lane.
 
     `backward(traj, active)` -> (ks, Ks, QuTk, kTQuuk);
     `rollout(traj, ks, Ks, alpha, active)` -> (Trajectory, cost);
     `traj_cost(traj)` -> cost. `active` is the (B,) mask of lanes whose
     outputs are read (None: all); kernel engines may skip the other lanes.
+
+    With `apply(traj, ks, Ks, alpha, active)` -> Trajectory the loop runs the
+    streamed kernels' schedule: the line search reads only the probes'
+    costs, and each active lane's candidate is rebuilt by one apply rollout
+    at the alpha it last tried (the accepted one, or the last probed when the
+    search ran out). Rollouts being deterministic, the result is the same.
+
+    The loop dispatches thousands of small ops per trip, so it runs in
+    inference mode (as `solver.fddp.fddp_loop`) and hands back ordinary
+    tensors.
     """
+    with torch.inference_mode():
+        result = _solve_loop(backward, rollout, traj_cost, initial_traj, options, apply)
+    return tree_map(lambda a: a.clone(), result)
+
+
+def _solve_loop(backward, rollout, traj_cost, initial_traj, options, apply):
     ls = options.line_search_params
     max_iters = int(options.convergence_criteria.max_iters)
     controls = initial_traj.controls
@@ -227,6 +245,7 @@ def solve_loop(backward, rollout, traj_cost, initial_traj: Trajectory, options: 
 
     def line_search(traj, current, ks, big_ks, qutk, ktquuk, active):
         alpha = torch.ones(batch, **kw)
+        tried = alpha
         accepted = torch.zeros_like(active)
         best, best_cost = traj, current
         for _ in range(ls.max_iters):
@@ -236,10 +255,14 @@ def solve_loop(backward, rollout, traj_cost, initial_traj: Trajectory, options: 
             cand, cand_cost = rollout(traj, ks, big_ks, alpha, pending)
             desired = ls.desired_reduction_frac * expected_cost_reduction(qutk, ktquuk, alpha)
             ok = (cand_cost - current) < desired
-            best = _where_lanes(pending, cand, best)
+            if apply is None:
+                best = _where_lanes(pending, cand, best)
+            tried = torch.where(pending, alpha, tried)
             best_cost = torch.where(pending, cand_cost, best_cost)
             accepted = accepted | (pending & ok)
             alpha = torch.where(accepted | ~active, alpha, alpha * ls.step_update)
+        if apply is not None:
+            best = apply(traj, ks, big_ks, tried, active)
         return best, best_cost, accepted
 
     for i in range(max_iters):
@@ -251,7 +274,10 @@ def solve_loop(backward, rollout, traj_cost, initial_traj: Trajectory, options: 
         pre_conv = (i > 0) & is_converged(current, expected, options) & ~done
         active = ~(done | pre_conv)
         if i == 0:
-            cand, cand_cost = rollout(traj, ks, big_ks, torch.ones(batch, **kw), None)
+            ones = torch.ones(batch, **kw)
+            cand, cand_cost = rollout(traj, ks, big_ks, ones, None)
+            if apply is not None:
+                cand = apply(traj, ks, big_ks, ones, active)
             ls_ok = torch.ones_like(active)
         else:
             cand, cand_cost, ls_ok = line_search(traj, current, ks, big_ks, qutk, ktquuk, active)

@@ -1,0 +1,197 @@
+#!/usr/bin/env python3
+"""Time the FDDP and exact whole-solve kernels of several checkouts of the
+port side by side on one GPU.
+
+    python3 quadrotorilqr_tpu_torch/tools/ab_time.py [--order 0,1,1,0] ROOT [ROOT ...]
+
+Each ROOT is a checkout of the repository (for example the parent commit
+unpacked with `git archive` into a git-ignored directory, and this tree).
+The script first builds every checkout's kernels at once, one process per
+checkout, then times the checkouts one process at a time in `--order`
+(indices into the ROOT list; default each once, then in reverse), so that a
+drift of the card over the run shows up in both. Each timing process
+imports the port from its ROOT and measures, with CUDA events after a
+warm-up, the median of 5 of:
+
+  * the aggressive tumble (B=4096, N=50, dt 0.1, scale 1.8, f32, 40
+    iterations; benchmarks/run_all.py config 6) through
+    `QuadrotorILQR(solver="fddp").solve_batch` (two `fddp.cu` launches), each
+    of the two launches on its own, and the single-phase `fddp.cu` launch;
+  * the bench workload (hover to waypoint, B=4096, N=100, f32, 10
+    iterations) through `solve_batch_latency` (`solve.cu`).
+
+Each process prints one JSON line with its times and a digest of its
+results (summed cost, status counts), so that the checkouts can be seen to
+compute the same thing. The last line is a JSON summary: every time of
+every checkout, in run order, with the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+
+def _card():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def _import_port(root):
+    sys.path.insert(0, os.path.abspath(root))
+    import quadrotorilqr_tpu_torch
+
+    got = os.path.dirname(os.path.dirname(os.path.abspath(quadrotorilqr_tpu_torch.__file__)))
+    if got != os.path.abspath(root):
+        raise RuntimeError(f"imported the port from {got}, not {root}")
+
+
+def build(root):
+    _import_port(root)
+    from quadrotorilqr_tpu_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    lib = _build.load()
+    print(json.dumps({"root": root, "build_s": time.perf_counter() - t0, "lib": lib.path.name}),
+          flush=True)
+
+
+def measure(root):
+    _import_port(root)
+    import torch
+
+    from quadrotorilqr_tpu_torch.api import QuadrotorILQR
+    from quadrotorilqr_tpu_torch.app import workloads
+    from quadrotorilqr_tpu_torch.kernels import fddp as kf
+    from quadrotorilqr_tpu_torch.parallel.batch import initial_trajectory_from_state
+    from quadrotorilqr_tpu_torch.solver import fddp
+    from quadrotorilqr_tpu_torch.solver.batched import (
+        _with_max_iters,
+        resolve_refine_auto,
+        solve_batch_latency,
+    )
+    from quadrotorilqr_tpu_torch.solver.options import (
+        ConvergenceCriteria,
+        ILQROptions,
+        LineSearchParams,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    def time_ms(fn, repeats=5):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(repeats):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    def digest(out):
+        cost, status = (out.cost, out.status) if hasattr(out, "cost") else (out[1], out[3])
+        return [float(cost.double().sum()), torch.bincount(status.long(), minlength=3).tolist()]
+
+    # config 6, as chip_smoke.py builds it
+    r_batch, r_n, r_dt, iters = 4096, 50, 0.1, 40
+    gen = torch.Generator(device=dev).manual_seed(0)
+    r_params, r_q, r_r, x0, r_desired = workloads.aggressive_tumble(
+        gen, r_batch, n=r_n, dt_s=r_dt, dtype=torch.float32, device=dev
+    )
+    r_opts = ILQROptions(LineSearchParams(0.5, 0.5, 20), ConvergenceCriteria(1e-6, 1e-6, iters))
+    r_fo = fddp.FDDPOptions(gap_tol=1e-5)
+    robust = QuadrotorILQR(
+        float(r_params.mass_kg), r_params.inertia, float(r_params.arm_length_m),
+        float(r_params.torque_to_thrust_ratio_m), float(r_params.g_mpss), r_q, r_r,
+        r_desired, r_dt, r_opts, dtype=torch.float32, device=dev, solver="fddp",
+    )
+    r_trajs = initial_trajectory_from_state(x0, r_desired)
+    bounds, flags = resolve_refine_auto(iters, False)
+    switch = ((0,) + bounds)[flags.index(True)]
+    p_args = (robust.params, robust.cost)
+    gn_opts, ddp_opts = _with_max_iters(r_opts, switch), _with_max_iters(r_opts, iters - switch)
+    gn = kf.solve_fddp_fused(*p_args, r_trajs, r_dt, gn_opts, r_fo, return_mu=True)
+    rows = dict(initial_mu=gn[4], initial_status=gn[3], initial_iters=gn[2])
+    out = {"root": root}
+    out["fddp_api_ms"] = time_ms(lambda: robust.solve_batch(r_trajs))
+    out["fddp_gn_ms"] = time_ms(
+        lambda: kf.solve_fddp_fused(*p_args, r_trajs, r_dt, gn_opts, r_fo))
+    out["fddp_ddp_ms"] = time_ms(lambda: kf.solve_fddp_fused(
+        *p_args, gn[0], r_dt, ddp_opts, r_fo, ddp=True, **rows))
+    out["fddp_single_ms"] = time_ms(
+        lambda: kf.solve_fddp_fused(*p_args, r_trajs, r_dt, r_opts, r_fo))
+    out["fddp_api_digest"] = digest(robust.solve_batch(r_trajs))
+    out["fddp_single_digest"] = digest(kf.solve_fddp_fused(*p_args, r_trajs, r_dt, r_opts, r_fo))
+
+    # the bench workload
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x0, desired = workloads.hover_to_waypoint(
+        gen, 4096, n=100, dt_s=0.02, dtype=torch.float32, pose_scale=0.3, device=dev
+    )
+    q_w, r_w = workloads.demo_weights(torch.float32, dev)
+    b_opts = ILQROptions(LineSearchParams(0.5, 0.5, 20), ConvergenceCriteria(1e-6, 1e-6, 10))
+    api = QuadrotorILQR(1.0, torch.eye(3), 0.2, 0.016, 9.81, q_w, r_w, desired, 0.02, b_opts,
+                        dtype=torch.float32, device=dev)
+    trajs = initial_trajectory_from_state(x0, desired)
+    s_args = (api.params, api.cost, trajs, 0.02, b_opts)
+    out["solve_ms"] = time_ms(lambda: solve_batch_latency(*s_args))
+    out["solve_digest"] = digest(solve_batch_latency(*s_args))
+    print(json.dumps(out), flush=True)
+
+
+def main(argv):
+    if len(argv) >= 2 and argv[0] in ("--build", "--measure"):
+        (build if argv[0] == "--build" else measure)(argv[1])
+        return 0
+    order = None
+    if argv and argv[0] == "--order":
+        order = [int(i) for i in argv[1].split(",")]
+        argv = argv[2:]
+    roots = argv
+    if not roots:
+        print(__doc__, file=sys.stderr)
+        return 2
+    order = order or list(range(len(roots))) + list(reversed(range(len(roots))))
+    card = _card()
+    print(card, flush=True)
+    me = os.path.abspath(__file__)
+    procs = [subprocess.Popen([sys.executable, me, "--build", r]) for r in roots]
+    try:
+        codes = [p.wait() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    if any(codes):
+        print(f"a build failed: {codes}", file=sys.stderr)
+        return 1
+    runs = []
+    for i in order:
+        res = subprocess.run([sys.executable, me, "--measure", roots[i]], capture_output=True,
+                             text=True, timeout=900)
+        sys.stderr.write(res.stderr[-4000:])
+        if res.returncode != 0:
+            print(f"measuring {roots[i]} failed with code {res.returncode}", file=sys.stderr)
+            return 1
+        line = res.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        runs.append(json.loads(line))
+    keys = [k for k in runs[0] if k.endswith("_ms")]
+    summary = {r: {k: [run[k] for run in runs if run["root"] == r] for k in keys} for r in roots}
+    print(json.dumps({"card": card, "order": [roots[i] for i in order], "ms": summary}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

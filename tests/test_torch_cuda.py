@@ -5,7 +5,9 @@ per-scenario params so the B-strided operand groups are exercised.
 Tolerances as chip_smoke.py: backward k, K atol 1e-9 and QuTk, kTQuuk rtol
 1e-9; rollout trajectory atol 1e-10 and cost rtol 1e-10; whole solve and
 FDDP solve status and iterations equal, cost rtol 1e-8, controls atol 1e-7;
-phases resumed from the kernel's own rows bit-equal to one launch.
+phases resumed from the kernel's own rows bit-equal to one launch. The
+streamed kernels also against their whole-solve twins on the card: status
+and iterations equal, cost rtol 1e-12, controls atol 1e-10.
 
 This file imports no JAX, so the card machine runs it without the JAX
 package's conftest:
@@ -24,6 +26,8 @@ from quadrotorilqr_tpu_torch.kernels import backward as kb
 from quadrotorilqr_tpu_torch.kernels import fddp as kf
 from quadrotorilqr_tpu_torch.kernels import rollout as kr
 from quadrotorilqr_tpu_torch.kernels import solve as ks
+from quadrotorilqr_tpu_torch.kernels import stream as kst
+from quadrotorilqr_tpu_torch.kernels import stream_fddp as ksf
 from quadrotorilqr_tpu_torch.solver.batched import (
     _with_max_iters,
     solve_batch_fddp,
@@ -37,6 +41,12 @@ from quadrotorilqr_tpu_torch.solver.options import (
 )
 
 DT = 0.02
+
+# The plain loops dispatch thousands of tiny ops, on which torch's intra-op
+# threads only spin (four times the CPU time, and a longer wall time, than
+# one thread): one thread runs them faster and leaves the other cores to the
+# other test workers.
+torch.set_num_threads(1)
 B, N = 300, 12
 
 
@@ -86,7 +96,9 @@ def card_problem():
     return problem("cuda")
 
 
-@pytest.mark.parametrize("wrapper", ["backward", "rollout", "solve", "fddp"])
+@pytest.mark.parametrize(
+    "wrapper", ["backward", "rollout", "solve", "fddp", "stream", "stream_fddp"]
+)
 def test_wrappers_raise_off_cpu_and_cuda(wrapper):
     """No fallback: a tensor that is neither on the CPU nor on a CUDA card
     reaches no plain version."""
@@ -99,6 +111,8 @@ def test_wrappers_raise_off_cpu_and_cuda(wrapper):
         ),
         "solve": lambda: ks.solve_fused_whole(params, cost, traj, DT, OPTIONS),
         "fddp": lambda: kf.solve_fddp_fused(params, cost, traj, DT, FDDP_OPTIONS),
+        "stream": lambda: kst.solve_fused_streamed(params, cost, traj, DT, OPTIONS),
+        "stream_fddp": lambda: ksf.solve_fddp_streamed(params, cost, traj, DT, FDDP_OPTIONS),
     }
     with pytest.raises(ValueError, match="CUDA tensors"):
         calls[wrapper]()
@@ -247,3 +261,66 @@ def test_cuda_fddp_zero_probes_matches_plain(card_problem):
         torch.testing.assert_close(g, r, rtol=0, atol=0)
     torch.testing.assert_close(got[1], ref[1], rtol=1e-12, atol=0)
     torch.testing.assert_close(got[0].controls, traj.controls, rtol=0, atol=0)
+
+
+def assert_twins(got, ref):
+    """A streamed kernel against its whole-solve twin on the same inputs."""
+    torch.testing.assert_close(got[3], ref[3], rtol=0, atol=0)
+    torch.testing.assert_close(got[2], ref[2], rtol=0, atol=0)
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-12, atol=0)
+    torch.testing.assert_close(got[0].controls, ref[0].controls, rtol=0, atol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card")
+@pytest.mark.parametrize("starved", [False, True], ids=["default", "starved"])
+def test_cuda_stream_matches_plain_and_whole(card_problem, starved):
+    """stream.cu against its plain version and solve.cu; the starved line
+    search (one probe, twice the predicted reduction) ends lanes at
+    LINE_SEARCH_FAILED on the candidate of the alpha they last tried."""
+    params, cost, traj = card_problem
+    opts = OPTIONS
+    if starved:
+        opts = ILQROptions(LineSearchParams(0.5, 2.0, 1), ConvergenceCriteria(1e-12, 1e-12, 4))
+    got = kst.solve_fused_streamed(params, cost, traj, DT, opts, return_probes=True)
+    ref = kst.solve_streamed_reference(params, cost, traj, DT, opts)
+    for g, r in zip(got[2:], ref[2:]):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-8, atol=0)
+    torch.testing.assert_close(got[0].controls, ref[0].controls, rtol=0, atol=1e-7)
+    assert_twins(got, ks.solve_fused_whole(params, cost, traj, DT, opts))
+    assert bool((got[3] == 2).any()) == starved
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card")
+def test_cuda_stream_fddp_matches_plain_and_whole(card_problem):
+    params, cost, traj = card_problem
+    got = ksf.solve_fddp_streamed(
+        params, cost, traj, DT, FDDP_OPTIONS, return_mu=True, return_probes=True
+    )
+    ref = ksf.solve_fddp_streamed_reference(params, cost, traj, DT, FDDP_OPTIONS, kf.fddp.FDDPOptions())
+    for g, r in zip(got[2:4] + got[6:], ref[2:4] + ref[6:]):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    for g, r in zip((got[1], got[4], got[5]), (ref[1], ref[4], ref[5])):
+        torch.testing.assert_close(g, r, rtol=1e-8, atol=0)
+    torch.testing.assert_close(got[0].controls, ref[0].controls, rtol=0, atol=1e-7)
+    assert_twins(got, kf.solve_fddp_fused(params, cost, traj, DT, FDDP_OPTIONS))
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card")
+def test_cuda_stream_fddp_two_phases_equal_one(card_problem):
+    """Resume rows on the streamed kernel: 3 trips, then 7 from their mu,
+    status and iterations, give the bits of one 10-trip launch."""
+    params, cost, traj = card_problem
+    one = ksf.solve_fddp_streamed(params, cost, traj, DT, FDDP_OPTIONS)
+    first = ksf.solve_fddp_streamed(
+        params, cost, traj, DT, _with_max_iters(FDDP_OPTIONS, 3), ddp=False, return_mu=True
+    )
+    assert bool((first[3] == 0).any())
+    rest = ksf.solve_fddp_streamed(
+        params, cost, first[0], DT, _with_max_iters(FDDP_OPTIONS, 7),
+        initial_mu=first[4], initial_status=first[3], initial_iters=first[2],
+    )
+    assert_bit_equal(SolveResult(*rest), SolveResult(*one))

@@ -8,8 +8,9 @@ and DDP, at the bar of tests/test_fddp_fused.py (status and iterations
 equal, cost rtol 1e-8, controls atol 1e-9); the multi-phase solve by
 composition (its first phase against JAX, its resume against the single
 phase, its curvature schedule against JAX's `resolve_refine_auto`); the
-zero-probe line search on the kernel wrapper; and the API's
-`solver="fddp"` routes. No JAX call here runs in interpret mode.
+streamed schedule's plain loop across a resume against JAX; the zero-probe
+line search on the kernel wrapper; and the API's `solver="fddp"` routes. No
+JAX call here runs in interpret mode.
 """
 
 import dataclasses
@@ -39,6 +40,7 @@ from quadrotorilqr_tpu_torch import convert
 from quadrotorilqr_tpu_torch.api import QuadrotorILQR
 from quadrotorilqr_tpu_torch.costs import quadratic as p_qc
 from quadrotorilqr_tpu_torch.kernels import fddp as p_kfddp
+from quadrotorilqr_tpu_torch.kernels import stream_fddp as p_kstream
 from quadrotorilqr_tpu_torch.lie import se3 as p_se3
 from quadrotorilqr_tpu_torch.lie import so3 as p_so3
 from quadrotorilqr_tpu_torch.solver import batched as p_batched
@@ -243,6 +245,33 @@ def test_zero_probe_line_search_runs_on_the_fddp_wrapper(problem, monkeypatch):
     fo = p_fddp.FDDPOptions()
     torch.testing.assert_close(mu, torch.full_like(mu, fo.reg_init * fo.reg_scale_up ** (iters - 1)))
     assert probes.eq(0).all() and defect_trips.eq(1).all()
+
+
+# ---- the streamed schedule's plain version ----
+
+
+def test_streamed_reference_matches_vmapped_jax_across_a_resume(problem, jax_refs, port_gn):
+    """The streamed schedule's plain loop (cost-only probes, one apply
+    rollout per accepted trip) in two calls, the second resumed from the
+    first's mu, status and iterations: lane for lane vmap(solve_fddp) at
+    this file's Gauss-Newton tolerances, and bit for bit the whole loop in
+    one call (tests/test_torch_stream.py holds one streamed call to the
+    whole loop, exact DDP included)."""
+    _, (params, cost, trajs) = problem
+    first = p_kstream.solve_fddp_streamed(
+        params, cost, trajs, DT, p_batched._with_max_iters(P_OPTS, 7), return_mu=True
+    )
+    assert bool(first[3].eq(0).any()) and bool(first[3].ne(0).any())
+    rest = p_kstream.solve_fddp_streamed(
+        params, cost, first[0], DT, p_batched._with_max_iters(P_OPTS, ITERS - 7),
+        initial_mu=first[4], initial_status=first[3], initial_iters=first[2], return_probes=True,
+    )
+    assert_same_solution(rest[:4], as_tuple(jax_refs(False)), rtol_cost=1e-8, atol_traj=1e-9)
+    for g, r in zip(rest[1:4], as_tuple(port_gn)[1:]):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    torch.testing.assert_close(rest[0].controls, port_gn.trajectory.controls, rtol=0, atol=0)
+    # an apply sweep for each accepted trip of the second call
+    assert bool((rest[6] <= rest[2] - first[2]).all()) and bool((rest[6] >= 1).any())
 
 
 # ---- the multi-phase solve, by composition ----

@@ -37,6 +37,12 @@ from quadrotorilqr_tpu_torch.solver import options as P_options
 
 DT = 0.02
 
+# The plain loops dispatch thousands of tiny ops, on which torch's intra-op
+# threads only spin (four times the CPU time, and a longer wall time, than
+# one thread): one thread runs them faster and leaves the other cores to the
+# other test workers.
+torch.set_num_threads(1)
+
 
 def np_problem(seed, batch, n, random_states, per_scenario_params=False):
     """Hover-to-waypoint problem as numpy arrays: randomized poses and

@@ -21,6 +21,7 @@ from quadrotorilqr_tpu_torch.costs import quadratic as p_qc
 from quadrotorilqr_tpu_torch.lie import se3 as p_se3
 from quadrotorilqr_tpu_torch.lie import so3 as p_so3
 from quadrotorilqr_tpu_torch.models import quadrotor as p_qm
+from quadrotorilqr_tpu_torch.solver.ilqr import Trajectory
 
 from test_torch_kernels import jax_objects, np_problem, port_objects
 
@@ -255,4 +256,39 @@ def test_hover_workload_and_initial_trajectory_match_jax():
     # the same initial states on both sides give the same initial trajectories
     x0 = convert.state_from_numpy(jax.tree.map(np.asarray, j_x0))
     for p_a, j_a in zip(fields(p_init(x0, p_des)), fields(j_init(j_x0, j_des))):
+        close(p_a, j_a, tol=0)
+
+
+def test_long_horizon_workload_matches_jax():
+    """long_horizon_problem's deterministic parts: params, weights, the
+    desired hover, and the initial trajectories built from given states."""
+    from quadrotorilqr_tpu.app import workloads as j_wl
+    from quadrotorilqr_tpu_torch.app import workloads as p_wl
+    from quadrotorilqr_tpu_torch.parallel.batch import initial_trajectory_from_state as p_init
+
+    j_params, j_cost, j_trajs = j_wl.long_horizon_problem(3, 6, dtype=jnp.float64, dt_s=0.05)
+    gen = torch.Generator().manual_seed(0)
+    p_params, p_cost, p_trajs = p_wl.long_horizon_problem(gen, 3, 6, torch.float64, dt_s=0.05)
+    for name in ("mass_kg", "inertia", "arm_length_m", "torque_to_thrust_ratio_m", "g_mpss"):
+        close(getattr(p_params, name), getattr(j_params, name), tol=0)
+    for p_a, j_a in (
+        (p_cost.Q, j_cost.Q), (p_cost.R, j_cost.R), (p_cost.desired_controls, j_cost.desired_controls),
+        (p_cost.desired_states.pose.quat, j_cost.desired_states.pose.quat),
+        (p_cost.desired_states.pose.trans, j_cost.desired_states.pose.trans),
+        (p_cost.desired_states.vel, j_cost.desired_states.vel),
+    ):
+        close(p_a, j_a, tol=0)
+    assert p_trajs.controls.shape == (3, 6, 4) and p_trajs.states.vel.shape == (3, 6, 6)
+    # the draws differ by design; from JAX's initial states the port builds
+    # JAX's initial trajectories
+    j_x0 = jax.tree.map(lambda a: np.asarray(a)[:, 0], j_trajs.states)
+    desired = Trajectory(
+        times=p_trajs.times[0], states=p_cost.desired_states, controls=p_cost.desired_controls
+    )
+    got = p_init(convert.state_from_numpy(j_x0), desired)
+    for p_a, j_a in (
+        (got.times, j_trajs.times), (got.controls, j_trajs.controls),
+        (got.states.pose.quat, j_trajs.states.pose.quat),
+        (got.states.pose.trans, j_trajs.states.pose.trans), (got.states.vel, j_trajs.states.vel),
+    ):
         close(p_a, j_a, tol=0)

@@ -22,6 +22,7 @@ from quadrotorilqr_tpu.solver.batched import solve_batch_fused as j_solve_batch_
 from quadrotorilqr_tpu.solver.batched import solve_batch_latency as j_solve_batch_latency
 from quadrotorilqr_tpu_torch import convert
 from quadrotorilqr_tpu_torch.api import QuadrotorILQR
+from quadrotorilqr_tpu_torch.kernels import stream as p_stream
 from quadrotorilqr_tpu_torch.solver import batched as p_batched
 from quadrotorilqr_tpu_torch.solver import options as p_options
 
@@ -114,6 +115,16 @@ def test_api_solve_batch_matches_jax(api_pair, route):
         convert.trajectory_from_numpy(jax.tree.map(np.asarray, j_trajs)), **route
     )
     assert_same_solution(as_tuple(got), as_tuple(ref))
+
+
+def test_streamed_reference_matches_jax(api_pair):
+    """The streamed schedule's plain version (cost-only probes, one apply
+    rollout at the alpha each lane last tried) on the fixture's inputs
+    against JAX's float64 batch route."""
+    p_api, j_trajs, ref, _ = api_pair
+    trajs = convert.trajectory_from_numpy(jax.tree.map(np.asarray, j_trajs))
+    got = p_stream.solve_streamed_reference(p_api.params, p_api.cost, trajs, DT, p_api.options)
+    assert_same_solution(got[:4], as_tuple(ref))
 
 
 def test_api_solve_pytree_matches_jax(api_pair):
