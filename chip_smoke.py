@@ -31,8 +31,10 @@ It checks convergence, times the kernels against their plain PyTorch
 versions with CUDA events, and computes each kernel's bound (the least time
 the card could take for the work this run's inputs needed).
 
-Output: progress lines, the card's `nvidia-smi` name and power limit, a
-JSON line `{"kernels": [...]}` with each kernel's launches, error and times,
+Output: progress lines (with each kernel's ptxas registers and spills and
+the streamed kernels' team geometry: lanes per scenario, teams per block,
+shared bytes), the card's `nvidia-smi` name and power limit, a JSON line
+`{"kernels": [...]}` with each kernel's launches, error and times,
 and as the last line `{"ok": true, "device": {...}}`. Any failed check
 raises, so the exit code is not 0. Without a CUDA device, or without the
 repository beside it, it exits with code 2 and prints no result.
@@ -40,6 +42,7 @@ repository beside it, it exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import statistics
@@ -209,6 +212,18 @@ def main() -> int:
     for line in lib.build_log.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
+    # the streamed kernels' team geometry (csrc/team.cuh): lanes per
+    # scenario, teams per block, shared memory per block and per team
+    team = {}
+    for dtype_name, f64 in (("float32", 0), ("float64", 1)):
+        for strides in ((0, 0), (1, 1)):
+            info = (ctypes.c_longlong * 6)()
+            lib.cdll.qilqr_team_info(f64, *strides, info)
+            team[(dtype_name, strides)] = list(info)
+            log(f"streamed kernels, {dtype_name}, Q/R and model parameters at B-stride "
+                f"{strides}: {info[0]} lanes per scenario, {info[1]} teams per block of "
+                f"{info[2]} threads, {info[3]} shared bytes per block ({info[5]} per team's "
+                f"state), {info[4]} ring slots")
 
     wrappers = {
         "backward": kb.backward_pass_fused, "rollout": kr.rollout_cost_fused,
@@ -936,10 +951,13 @@ def main() -> int:
         }
         for name in ("backward", "rollout", "solve", "fddp", "stream", "stream_fddp")
     ]
+    # the long paths' geometry: float32, Q/R and the model parameters shared
+    g = team[("float32", (0, 0))]
     for k in kernels[4:]:
         k_ms, w_ms, n_ = full[k["name"]]
         k["full_width"] = {"B": lh_batch, "N": n_, "ms": k_ms, "whole_twin_ms": w_ms,
                            "bound_ms": full_bounds[k["name"]][0]}
+        k["team"] = {"lanes": g[0], "teams_per_block": g[1], "smem_bytes_per_block": g[3]}
     log(f"chip_smoke took {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -90,6 +90,11 @@ def _declare(cdll):
             ]
     cdll.qilqr_error_string.restype = ctypes.c_char_p
     cdll.qilqr_error_string.argtypes = [ctypes.c_int]
+    # the streamed kernels' launch geometry (csrc/stream.cu)
+    cdll.qilqr_team_info.restype = ctypes.c_int
+    cdll.qilqr_team_info.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
+    ]
 
 
 def load() -> _Library:

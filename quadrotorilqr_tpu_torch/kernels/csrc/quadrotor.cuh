@@ -5,10 +5,11 @@
 // kernels/backward.py (_stage_jx_blocks, _stage_cost_diffs, _riccati_stage
 // with its ddp option, _vfxx_lanes, _cxx_corr_lanes; without the
 // box/weights/drag/substep/penalty options), solve.py's line search and
-// trip close (shared by solve.cu and stream.cu), and fddp.py's
-// gap-contracting rollout stage and quadratic-model stage (shared by fddp.cu
-// and stream_fddp.cu). Shared by the kernels backward.cu, rollout.cu,
-// solve.cu, stream.cu, fddp.cu and stream_fddp.cu.
+// trip close (the line search for solve.cu, the trip close for solve.cu and
+// stream.cu), and fddp.py's gap-contracting rollout stage and
+// quadratic-model stage (fddp.cu; team.cuh holds the streamed kernels' team
+// versions). Shared by the kernels backward.cu, rollout.cu, solve.cu,
+// fddp.cu and, through team.cuh, stream.cu and stream_fddp.cu.
 //
 // Layout. Per-stage buffers are scenario-minor, (N, d, B): element (n, i) of
 // scenario b sits at [(n * d + i) * B + b], so the 32 threads of a warp read

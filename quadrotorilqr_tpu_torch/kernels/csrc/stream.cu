@@ -1,30 +1,35 @@
 // The whole exact iLQR loop in one kernel without a candidate trajectory,
-// one thread per scenario: the batch solvers' engine past 256 stages.
+// one team of kTeamLanes lanes per scenario: the batch solvers' engine past
+// 256 stages.
 //
 // Replaces the Pallas kernel quadrotorilqr_tpu/kernels/stream.py:
 // _stream_kernel (called through solve_fused_streamed). It computes what
 // solve.cu computes, lane for lane, with the TPU kernel's schedule: each
-// trip runs a backward pass into ks / bigks, the trip gate, a line search
-// whose probes sum costs only (trip 0 force-accepts its first probe), then
-// ONE apply sweep that re-rolls the lane at the alpha of its last tried
-// probe (the accepted one, or, when the search ran out, the last tried, the
-// stream.py _TRIED row, never the alpha backtracked once more) and writes
-// the candidate into the live trajectory in place, then the trip close. The
-// probe and the apply sweep run the same non-inlined sweep function, so the
-// trajectory written is, bit for bit, the one whose cost the probe returned.
-// The TPU kernel streams `chunk` stages at a time through VMEM; here every
-// stage already lives in device memory, so there is no window.
+// trip runs a backward pass into the gains scratch, the trip gate, a line
+// search whose probes sum costs only (trip 0 force-accepts its first
+// probe), then ONE apply sweep that re-rolls the scenario at the alpha of
+// its last tried probe (the accepted one, or, when the search ran out, the
+// last tried, the stream.py _TRIED row, never the alpha backtracked once
+// more) and writes the candidate into the live trajectory in place, then the
+// trip close. The probes and the apply sweep run the same never-inlined
+// sweep function with the store as a runtime flag, so the trajectory written
+// is, bit for bit, the one whose cost the probe returned.
 //
-// What bounds it on an H100: as solve.cu, the Riccati stage's ~400 values a
-// thread live in local memory at 255 registers, and B = 4096 is about one
-// warp per SM, so each thread's chain of dependent local-memory loads sets
-// the time (latency-bound; PERF.md section 5). What the design does about
-// it: no candidate buffer, so a probe stores nothing (17 values per stage
-// saved per probe) and no copy of the candidate into the live trajectory
-// follows the search; one launch for the whole solve; scenario-minor buffers
-// for coalesced loads. It reports the backward passes, probe sweeps and
-// apply sweeps each lane ran.
-#include "quadrotor.cuh"
+// What bounds it on an H100: the dependent chain of one scenario's stages.
+// A Riccati stage is ~12k operations and a rollout stage ~1.2k, each stage
+// depending on the last; at B = 4096 the card holds every scenario at once,
+// so a launch lasts as long as its slowest scenario's chain. The per-thread
+// design ran that chain in one thread, with the Riccati state spilled to
+// local memory at 255 registers and every stage operand fetched from device
+// memory when needed (0.2-0.85% of the bound, PERF.md section 5). What this
+// design does about it (team.cuh): a team of lanes shares each scenario, the
+// Riccati state lives in shared memory, the 12x12 and 12x4 products are
+// split over the team by output entries, Q, R and the model parameters are
+// read from shared memory, and each stage's operands arrive through a
+// cp.async ring kRing - 1 stages ahead (the TPU kernel's `chunk` window).
+// It reports the backward passes, probe sweeps and apply sweeps each
+// scenario ran.
+#include "team.cuh"
 
 namespace qilqr {
 
@@ -35,8 +40,7 @@ struct StreamIO {
   T* cost;       // out (B,)
   int* iters;    // out (B,)
   int* status;   // out (B,)
-  T* ks;         // scratch (N, 4, B)
-  T* bigks;      // scratch (N, 4, 12, B)
+  T* gains;      // scratch (N, B, 52): k | K
   int* passes;   // out (B,): backward passes run
   int* probes;   // out (B,): probe sweeps run
   int* applies;  // out (B,): apply sweeps run
@@ -44,19 +48,125 @@ struct StreamIO {
   T quu_reg, rtol, atol, ls_step, ls_frac;
 };
 
+// The reverse sweep of the team's scenario over x (backward_lane): k|K of
+// every stage into the gains scratch; the sums of Qu.k and k.Quu.k.
 template <typename T>
-__global__ void stream_kernel(Problem<T> P, StreamIO<T> io) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= P.B) return;
-  const int B = P.B, N = P.N;
-  copy_traj(io.x0, io.live, B, N, b);
+__device__ __forceinline__ void team_backward(const Team<T>& tm, const Problem<T>& P,
+                                              const Problem<T>& Ps, T quu_reg, const Traj<T>& x,
+                                              T* gains, T* qutk, T* ktquuk) {
+  team_zero_value(tm);
+  T sum_qutk = T(0), sum_ktquuk = T(0);
+  ring_sweep(tm, P, RingSrc<T>{x, nullptr, nullptr}, true, [&](int n, const T* slot) {
+    T a, c;
+    team_riccati_stage<T, false>(tm, Ps, quu_reg, slot, &a, &c);
+    sum_qutk = sum_qutk + a;
+    sum_ktquuk = sum_ktquuk + c;
+    team_put_row(tm, tm.s->gains, scratch_row(gains, P.B, n, tm.b, 52), 52);
+    return true;
+  });
+  *qutk = sum_qutk;
+  *ktquuk = sum_ktquuk;
+}
+
+// Closed-loop rollout of the team's scenario with step alpha (rollout_lane):
+// per stage u_n = u_old_n + alpha k_n + K_n (x_n (-) x_old_n), the running
+// cost c + dx'Q dx + du'R du, the stage written back into x when `store`
+// (stage n is read before it is written), then the carry stepped. Never
+// inlined, and the store is a runtime flag: a cost-only probe and the sweep
+// that writes its candidate run the same instructions.
+template <typename T>
+__device__ __noinline__ T team_rollout(Team<T> tm, Problem<T> P, Traj<T> x, const T* gains,
+                                       T alpha, bool store) {
+  const Problem<T> Ps = smem_problem(P, tm);
+  const Tile tile = team_tile();
+  T q[4], t[3], v[6];
+  T cost = T(0);
+  ring_sweep(tm, P, RingSrc<T>{x, gains, nullptr}, false, [&](int n, const T* slot) {
+    T qo[4], to[3], vo[6], uo[4], dx[12], u[4];
+    read_stage(slot + kSlotLive, qo, to, vo, uo);
+    if (n == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) q[i] = qo[i];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) t[i] = to[i];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) v[i] = vo[i];
+    }
+    state_minus(q, t, v, qo, to, vo, dx);
+    const T* g = slot + kSlotGains;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      T fb = g[4 + a * 12] * dx[0];
+#pragma unroll
+      for (int j = 1; j < 12; ++j) fb += g[4 + a * 12 + j] * dx[j];
+      u[a] = (uo[a] + alpha * g[a]) + fb;
+    }
+    T xq, ur;
+    team_cost_terms(tile, tm.lane, tm.cc, slot + kSlotDes, q, t, v, u, &xq, &ur);
+    cost = cost + xq + ur;
+    if (store) team_store_stage(tm, x, P.B, n, q, t, v, u);
+    dynamics_step(Ps, 0, q, t, v, u);
+    return true;
+  });
+  return cost;
+}
+
+// The cost of the team's trajectory x, summed stage by stage as the rollout
+// sums it (trajectory_cost_lane).
+template <typename T>
+__device__ __forceinline__ T team_trajectory_cost(const Team<T>& tm, const Problem<T>& P,
+                                                  const Traj<T>& x) {
+  const Tile tile = team_tile();
+  T cost = T(0);
+  ring_sweep(tm, P, RingSrc<T>{x, nullptr, nullptr}, false, [&](int n, const T* slot) {
+    T q[4], t[3], v[6], u[4], xq, ur;
+    read_stage(slot + kSlotLive, q, t, v, u);
+    team_cost_terms(tile, tm.lane, tm.cc, slot + kSlotDes, q, t, v, u, &xq, &ur);
+    cost = cost + xq + ur;
+    return true;
+  });
+  return cost;
+}
+
+// The backtracking line search (exact_line_search) with cost-only probes:
+// probe j rolls out at alpha = ls_step^j and is accepted when its cost
+// change falls below ls_frac dJ(alpha), or at once with `force`. A search
+// that runs out ends on the alpha it last tried.
+template <typename T>
+__device__ __forceinline__ LineSearch<T> team_line_search(const Team<T>& tm, const Problem<T>& P,
+                                                          const Traj<T>& x, const T* gains,
+                                                          T qutk, T ktquuk, T current, bool force,
+                                                          int ls_max_iters, T ls_step,
+                                                          T ls_frac) {
+  LineSearch<T> ls{false, current, T(1), 0};
+  T alpha = T(1);
+  for (int j = 0; j < ls_max_iters; ++j) {
+    const T cand = team_rollout(tm, P, x, gains, alpha, false);
+    const T desired = ls_frac * (alpha * qutk + alpha * alpha * ktquuk * T(0.5));
+    ls.cost = cand;
+    ls.alpha = alpha;
+    ls.stages += P.N;
+    ls.accepted = (cand - current) < desired || force;
+    if (ls.accepted) break;
+    alpha = alpha * ls_step;
+  }
+  return ls;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTeamThreads) stream_kernel(Problem<T> P, StreamIO<T> io) {
+  Team<T> tm;
+  if (!team_setup(P, &tm)) return;
+  const Problem<T> Ps = smem_problem(P, tm);
+  const int N = P.N;
+  team_copy_traj(tm, P, io.x0, io.live);
   // the loop never runs: report the initial trajectory's true cost
-  T cost = io.max_iters == 0 ? trajectory_cost_lane(P, io.live, b) : T(0);
+  T cost = io.max_iters == 0 ? team_trajectory_cost(tm, P, io.live) : T(0);
   int status = 0, iters = 0, passes = 0, stages = 0, applies = 0;
   for (int i = 0; i < io.max_iters; ++i) {
     // ---- backward pass ----
     T qutk, ktquuk;
-    backward_lane(P, io.quu_reg, io.live, io.ks, io.bigks, b, &qutk, &ktquuk);
+    team_backward(tm, P, Ps, io.quu_reg, io.live, io.gains, &qutk, &ktquuk);
     ++passes;
 
     // ---- trip gate (solve.py _trip_gate): pre-check on the expected cost ----
@@ -68,10 +178,10 @@ __global__ void stream_kernel(Problem<T> P, StreamIO<T> io) {
     // ---- cost-only probes; trip 0 force-accepts; then the apply sweep ----
     LineSearch<T> ls{false, current, T(1), 0};
     if (active) {
-      ls = exact_line_search(P, io.live, io.ks, io.bigks, qutk, ktquuk, current, i == 0,
-                             io.ls_max_iters, io.ls_step, io.ls_frac, io.live, false, b);
+      ls = team_line_search(tm, P, io.live, io.gains, qutk, ktquuk, current, i == 0,
+                            io.ls_max_iters, io.ls_step, io.ls_frac);
       stages += ls.stages;
-      rollout_lane(P, io.live, io.ks, io.bigks, ls.alpha, io.live, true, b);
+      team_rollout(tm, P, io.live, io.gains, ls.alpha, true);
       ++applies;
     }
     if (exact_trip_close(i == 0, pre_conv, active, ls, current, io.rtol, io.atol, &cost,
@@ -79,16 +189,20 @@ __global__ void stream_kernel(Problem<T> P, StreamIO<T> io) {
       break;
     }
   }
-  io.cost[b] = cost;
-  io.iters[b] = iters;
-  io.status[b] = status;
-  io.passes[b] = passes;
-  io.probes[b] = stages / N;
-  io.applies[b] = applies;
+  ring_drain();
+  if (tm.lane == 0) {
+    const int b = tm.b;
+    io.cost[b] = cost;
+    io.iters[b] = iters;
+    io.status[b] = status;
+    io.passes[b] = passes;
+    io.probes[b] = stages / N;
+    io.applies[b] = applies;
+  }
 }
 
 // packed operands after the Problem block:
-//   ptrs:  q t v u  oq ot ov ou  cost iters status  ks bigks  passes probes applies
+//   ptrs:  q t v u  oq ot ov ou  cost iters status  gains  passes probes applies
 //   ints:  max_iters ls_max_iters
 //   reals: quu_reg rtol atol ls_step ls_frac
 template <typename T>
@@ -105,11 +219,10 @@ int launch_stream(const void* const* ptrs, const long long* ints, const double* 
   io.cost = static_cast<T*>(out(8));
   io.iters = static_cast<int*>(out(9));
   io.status = static_cast<int*>(out(10));
-  io.ks = static_cast<T*>(out(11));
-  io.bigks = static_cast<T*>(out(12));
-  io.passes = static_cast<int*>(out(13));
-  io.probes = static_cast<int*>(out(14));
-  io.applies = static_cast<int*>(out(15));
+  io.gains = static_cast<T*>(out(11));
+  io.passes = static_cast<int*>(out(12));
+  io.probes = static_cast<int*>(out(13));
+  io.applies = static_cast<int*>(out(14));
   io.max_iters = static_cast<int>(ip[0]);
   io.ls_max_iters = static_cast<int>(ip[1]);
   io.quu_reg = static_cast<T>(rp[0]);
@@ -117,10 +230,7 @@ int launch_stream(const void* const* ptrs, const long long* ints, const double* 
   io.atol = static_cast<T>(rp[2]);
   io.ls_step = static_cast<T>(rp[3]);
   io.ls_frac = static_cast<T>(rp[4]);
-  if (P.B == 0) return 0;
-  stream_kernel<T><<<blocks_for(P.B), kThreadsPerBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      P, io);
-  return static_cast<int>(cudaGetLastError());
+  return team_launch(stream_kernel<T>, P.B, team_block_bytes<T>(P.s_qr, P.s_par), stream, P, io);
 }
 
 }  // namespace qilqr
@@ -133,4 +243,20 @@ extern "C" int qilqr_stream_f32(const void* const* ptrs, const long long* ints,
 extern "C" int qilqr_stream_f64(const void* const* ptrs, const long long* ints,
                                 const double* reals, void* stream) {
   return qilqr::launch_stream<double>(ptrs, ints, reals, stream);
+}
+
+// The streamed kernels' launch geometry: out = (lanes per scenario, teams per
+// block, threads per block, shared bytes per block, ring slots, shared bytes
+// of one team's state) for float64 (f64 != 0) or float32 and the operand
+// groups' B-strides.
+extern "C" int qilqr_team_info(int f64, int s_qr, int s_par, long long* out) {
+  out[0] = qilqr::kTeamLanes;
+  out[1] = qilqr::kTeamsPerBlock;
+  out[2] = qilqr::kTeamThreads;
+  out[3] = static_cast<long long>(f64 ? qilqr::team_block_bytes<double>(s_qr, s_par)
+                                      : qilqr::team_block_bytes<float>(s_qr, s_par));
+  out[4] = qilqr::kRing;
+  out[5] = static_cast<long long>(f64 ? sizeof(qilqr::TeamState<double>)
+                                      : sizeof(qilqr::TeamState<float>));
+  return 0;
 }

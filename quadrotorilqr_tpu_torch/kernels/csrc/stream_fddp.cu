@@ -1,5 +1,6 @@
 // The whole robust FDDP loop in one kernel without a candidate trajectory,
-// one thread per scenario: the batch solvers' robust engine past 231 stages.
+// one team of kTeamLanes lanes per scenario: the batch solvers' robust
+// engine past 231 stages.
 //
 // Replaces the Pallas kernel quadrotorilqr_tpu/kernels/stream_fddp.py:
 // _stream_fddp_kernel (called through solve_fddp_streamed). It computes what
@@ -10,32 +11,33 @@
 //      Riccati stage (Gauss-Newton, or exact DDP curvature with kDdp);
 //   2. probe 0 at alpha = 1 with the exact quadratic model, then Goldstein
 //      probes with the frozen-saturating cost fold, each probe summing costs
-//      only and stopping at its lane's freeze;
-//   3. for an accepted lane only, ONE apply sweep over the whole horizon that
-//      re-rolls the candidate at the accepted alpha and writes it into the
-//      live trajectory in place; a rejected lane keeps its trajectory for the
-//      mu retry;
+//      only and stopping at its scenario's freeze;
+//   3. for an accepted scenario only, ONE apply sweep over the whole horizon
+//      that re-rolls the candidate at the accepted alpha and writes it into
+//      the live trajectory in place; a rejected scenario keeps its
+//      trajectory for the mu retry;
 //   4. the close: cost commit, mu schedule, status.
-// The probes and the apply sweep run the same non-inlined stage function, so
-// the trajectory written is, bit for bit, the one whose cost was accepted,
-// and a resumed launch's seed cost equals the committed one. Resume rows
-// (mu, status, iterations) continue a solve; a lane with a nonzero status is
+// The probes and the apply sweep run the same never-inlined sweep function
+// (the model terms, the saturating fold and the store are runtime flags),
+// and every stage cost goes through one never-inlined function, so the
+// trajectory written is, bit for bit, the one whose cost was accepted, and
+// a resumed launch's seed cost equals the committed one. Resume rows (mu,
+// status, iterations) continue a solve; a scenario with a nonzero status is
 // frozen and only copies its trajectory. With no probes every trip rejects.
-// The TPU kernel streams `chunk` stages at a time through VMEM; here every
-// stage already lives in device memory, so there is no window.
 //
-// What bounds it on an H100: as fddp.cu, the Riccati stage's values (more
-// with kDdp) live in local memory at 255 registers, B = 4096 is about one
-// warp per SM, and a warp lasts as long as its slowest lane, so each
-// thread's chain of dependent loads sets the time (latency-bound; PERF.md
-// section 5, where the robust path's exact-DDP launch spends most of its
-// time in ~6 probe sweeps a trip). What the design does about it: no
-// candidate buffer, so a probe stores nothing (17 values per stage saved
-// per probe stage) and the merge into the live trajectory happens once, in
-// the apply sweep, only for accepted lanes; probe sweeps stop at their
-// freeze; one launch per curvature. It reports the probe sweeps, defect
-// trips and apply sweeps each lane ran.
-#include "quadrotor.cuh"
+// What bounds it on an H100: as stream.cu, the dependent chain of one
+// scenario's stages (a Riccati stage ~12k operations, ~19k with kDdp, a
+// probe stage ~1.4k); and a launch lasts as long as its slowest scenario,
+// so the straggler scenarios of the exact-DDP launch, which run ~12 probe
+// sweeps a trip (PERF.md section 5), set its time. What the design does
+// about it (team.cuh): a team of lanes shares each scenario, the Riccati
+// state and the curvature scratch live in shared memory, the products
+// (with kDdp also sum v_x f_xx and the c_xx correction) are split over the
+// team by output entries, the stage operands (live stage, k|K, the defects,
+// the desired stage) arrive through a cp.async ring kRing - 1 stages ahead,
+// and a probe sweep stops at its scenario's freeze. It reports the probe
+// sweeps, defect trips and apply sweeps each scenario ran.
+#include "team.cuh"
 
 namespace qilqr {
 
@@ -53,112 +55,215 @@ struct StreamFddpIO {
   T* probes;          // out (B,): stages the probes ran / N
   int* defect_trips;  // out (B,): trips whose reverse sweep computed the defects
   int* applies;       // out (B,): apply sweeps run
-  T* ks;              // scratch (N, 4, B)
-  T* bigks;           // scratch (N, 4, 12, B)
-  T* d;               // scratch (N, 12, B): the defects
+  T* gains;           // scratch (N, B, 52): k | K
+  T* d;               // scratch (N, B, 12): the defects
   FddpKnobs<T> k;
 };
 
-// One FDDP reverse sweep of scenario b over its live trajectory. With
-// `stale` it recomputes the defects d_n = f(x_n, u_n) (-) x_{n+1}
+// The team Riccati stage compiled as a function of its own, as fddp.cu
+// compiles riccati_stage apart from its sweep.
+template <typename T, bool kDdp>
+__device__ __noinline__ void team_riccati_stage_call(Team<T> tm, Problem<T> Ps, T quu_reg,
+                                                     const T* slot, T* qutk, T* ktquuk) {
+  team_riccati_stage<T, kDdp>(tm, Ps, quu_reg, slot, qutk, ktquuk);
+}
+
+// One FDDP reverse sweep of the team's scenario over its live trajectory.
+// With `stale` it recomputes the defects d_n = f(x_n, u_n) (-) x_{n+1}
 // (d_{N-1} = 0) into d and their max |d| into *gap; otherwise it reads the
 // stored defects. Every stage transports the value gradient across its gap,
 // v_x + V_xx d_n, and runs the Riccati stage with quu_reg (exact DDP
-// curvature when kDdp); the gains go to ks / bigks.
+// curvature when kDdp); the gains go to the gains scratch.
 template <typename T, bool kDdp>
-__device__ __forceinline__ void fddp_reverse_sweep(const Problem<T>& P, T quu_reg,
-                                                   const Traj<T>& live, bool stale, T* ks,
-                                                   T* bigks, T* d, StageScratch<T>& S, int b,
-                                                   T* gap) {
-  const int B = P.B, N = P.N;
+__device__ __forceinline__ void team_fddp_reverse(const Team<T>& tm, const Problem<T>& P,
+                                                  const Problem<T>& Ps, T quu_reg,
+                                                  const Traj<T>& live, bool stale, T* gains,
+                                                  T* d, T* gap) {
+  const Tile tile = team_tile();
+  TeamState<T>& S = *tm.s;
   if (stale) *gap = T(0);
-  T v_x[12], v_xx[144];
-  for (int j = 0; j < 12; ++j) v_x[j] = T(0);
-  for (int j = 0; j < 144; ++j) v_xx[j] = T(0);
-  for (int n = N - 1; n >= 0; --n) {
+  team_zero_value(tm);
+  T q1[4], t1[3], v1[6];  // live stage n + 1, from the step before
+  ring_sweep(tm, P, RingSrc<T>{live, nullptr, stale ? nullptr : d}, true,
+             [&](int n, const T* slot) {
     T q[4], t[3], v[6], u[4], dk[12];
+    read_stage(slot + kSlotLive, q, t, v, u);
     if (stale) {
-      load_stage(live, B, n, b, q, t, v, u);
-      if (n < N - 1) {
-        T qn[4], tn[3], vn[6], q1[4], t1[3], v1[6], u1[4];
+      if (n < P.N - 1) {
+        T qn[4], tn[3], vn[6];
+#pragma unroll
         for (int j = 0; j < 4; ++j) qn[j] = q[j];
+#pragma unroll
         for (int j = 0; j < 3; ++j) tn[j] = t[j];
+#pragma unroll
         for (int j = 0; j < 6; ++j) vn[j] = v[j];
-        dynamics_step(P, b, qn, tn, vn, u);
-        load_stage(live, B, n + 1, b, q1, t1, v1, u1);
+        dynamics_step(Ps, 0, qn, tn, vn, u);
         state_minus(qn, tn, vn, q1, t1, v1, dk);
+#pragma unroll
         for (int j = 0; j < 12; ++j) *gap = nan_max(*gap, f_abs(dk[j]));
       } else {
+#pragma unroll
         for (int j = 0; j < 12; ++j) dk[j] = T(0);
       }
-      for (int j = 0; j < 12; ++j) d[(n * 12 + j) * B + b] = dk[j];
+#pragma unroll
+      for (int j = 0; j < 12; ++j) S.dk[j] = dk[j];
+      tile.sync();
+      team_put_row(tm, S.dk, scratch_row(d, P.B, n, tm.b, 12), 12);
     } else {
-      load_stage(live, B, n, b, q, t, v, u);
-      for (int j = 0; j < 12; ++j) dk[j] = d[(n * 12 + j) * B + b];
+#pragma unroll
+      for (int j = 0; j < 12; ++j) dk[j] = slot[kSlotD + j];
     }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) q1[j] = q[j];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) t1[j] = t[j];
+#pragma unroll
+    for (int j = 0; j < 6; ++j) v1[j] = v[j];
     // first-order value transport across the gap
-    for (int r = 0; r < 12; ++r) {
-      T acc = v_xx[r * 12] * dk[0];
-      for (int j = 1; j < 12; ++j) acc += v_xx[r * 12 + j] * dk[j];
-      v_x[r] = v_x[r] + acc;
-    }
-    T k[4], K[48], qutk, ktquuk;
-    riccati_stage<T, kDdp>(P, quu_reg, n, b, q, t, v, u, v_x, v_xx, S, k, K, &qutk, &ktquuk);
-    for (int j = 0; j < 4; ++j) ks[(n * 4 + j) * B + b] = k[j];
-    for (int j = 0; j < 48; ++j) bigks[(n * 48 + j) * B + b] = K[j];
-  }
+    team_each<12>(tm.lane, [&](int r) {
+      T acc = S.vxx[r * 12] * dk[0];
+#pragma unroll
+      for (int j = 1; j < 12; ++j) acc += S.vxx[r * 12 + j] * dk[j];
+      S.v_x[r] = S.v_x[r] + acc;
+    });
+    tile.sync();
+    T qutk, ktquuk;
+    team_riccati_stage_call<T, kDdp>(tm, Ps, quu_reg, slot, &qutk, &ktquuk);
+    team_put_row(tm, S.gains, scratch_row(gains, P.B, n, tm.b, 52), 52);
+    return true;
+  });
 }
 
-// rollout_gap_stage as one never-inlined function. The probes and the apply
-// sweep both run it, so the trajectory the apply sweep writes is, bit for
-// bit, the one whose cost the probe accepted (fddp.cu, which keeps each
-// probe's candidate, runs the stage inline).
+// What one gap-contracting sweep leaves: its cost fold, the quadratic
+// model's terms (probe 0) and the stages it ran.
 template <typename T>
-__device__ __noinline__ T rollout_gap_stage_call(const Problem<T>& P, const Traj<T>& x,
-                                                 const T* ks, const T* bigks, const T* d,
-                                                 T alpha, bool sat, T gdj, T current, T cap,
-                                                 const Traj<T>& out, bool store, int n, int b,
-                                                 T* q, T* t, T* v, T c) {
-  return rollout_gap_stage(P, x, ks, bigks, d, alpha, sat, gdj, current, cap, out, store, n, b,
-                           q, t, v, c);
+struct GapSweep {
+  T c, l1, l2;
+  int stages;
+};
+
+// One gap-contracting sweep of the team's scenario from its live trajectory
+// x at step alpha (rollout_gap_stage over the horizon): per stage the
+// control from the carry, the stage cost summed raw or (with `sat`) with
+// the frozen-saturating fold, the stage written back into x when `store`,
+// then the carry stepped to f(x_n, u_n) (+) (-(1 - alpha) d_n). With `model`
+// it also carries probe 0's exact quadratic model at the live stages
+// (fddp_model_stage, p <- J_x p + J_u w + d_n). With `sat` it stops where
+// the fold freezes: nothing later can change it. Never inlined, and the
+// flags are runtime values: the probes and the apply sweep run the same
+// instructions.
+template <typename T, bool kDdp>
+__device__ __noinline__ GapSweep<T> team_gap_sweep(Team<T> tm, Problem<T> P, Traj<T> x,
+                                                   const T* gains, const T* d, T alpha,
+                                                   bool model, bool sat, T gdj, T current, T cap,
+                                                   bool store) {
+  const Problem<T> Ps = smem_problem(P, tm);
+  GapSweep<T> o{T(0), T(0), T(0), 0};
+  T q[4], t[3], v[6], p[12];
+#pragma unroll
+  for (int j = 0; j < 12; ++j) p[j] = T(0);
+  ring_sweep(tm, P, RingSrc<T>{x, gains, d}, false, [&](int n, const T* slot) {
+    if (sat && (o.c - current) > gdj) return false;  // frozen
+    T qo[4], to[3], vo[6], uo[4], dx[12];
+    read_stage(slot + kSlotLive, qo, to, vo, uo);
+    if (n == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) q[i] = qo[i];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) t[i] = to[i];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) v[i] = vo[i];
+    }
+    // model terms at the live stage (not the rollout carry)
+    T p2[12];
+    if (model) team_model_stage<T, kDdp>(tm, Ps, slot, p, p2, &o.l1, &o.l2);
+    StageVals<T> sv;
+    state_minus(q, t, v, qo, to, vo, dx);
+    const T* g = slot + kSlotGains;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      T fb = g[4 + a * 12] * dx[0];
+#pragma unroll
+      for (int j = 1; j < 12; ++j) fb += g[4 + a * 12 + j] * dx[j];
+      sv.u[a] = (uo[a] + alpha * g[a]) + fb;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sv.q[i] = q[i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) sv.t[i] = t[i];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) sv.v[i] = v[i];
+    const T cs = team_fddp_stage_cost(tm.cc, slot + kSlotDes, sv);
+    if (sat) {
+      const bool frozen = (o.c - current) > gdj;
+      T c2 = o.c + cs;
+      c2 = (c2 <= cap) ? c2 : cap;
+      o.c = frozen ? o.c : c2;
+    } else {
+      o.c = o.c + cs;
+    }
+    if (store) team_store_stage(tm, x, P.B, n, q, t, v, sv.u);
+    dynamics_step(Ps, 0, q, t, v, sv.u);
+    T tau[12], qe[4], te[3], qn[4], tn[3];
+    const T shrink = -(T(1) - alpha);
+#pragma unroll
+    for (int i = 0; i < 12; ++i) tau[i] = shrink * slot[kSlotD + i];
+    se3_exp(tau, qe, te);
+    se3_multiply(q, t, qe, te, qn, tn);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) q[i] = qn[i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) t[i] = tn[i];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) v[i] = v[i] + tau[6 + i];
+    if (model) {
+#pragma unroll
+      for (int j = 0; j < 12; ++j) p[j] = p2[j] + slot[kSlotD + j];
+    }
+    ++o.stages;
+    return true;
+  });
+  return o;
 }
 
-// The Goldstein line search of scenario b from its live trajectory x
+// The FDDP seed: the team's trajectory cost, stage costs summed from 0 up
+// (fddp_cost_lane).
+template <typename T>
+__device__ __forceinline__ T team_fddp_cost(const Team<T>& tm, const Problem<T>& P,
+                                            const Traj<T>& x) {
+  T cost = T(0);
+  ring_sweep(tm, P, RingSrc<T>{x, nullptr, nullptr}, false, [&](int n, const T* slot) {
+    StageVals<T> sv;
+    read_stage(slot + kSlotLive, sv.q, sv.t, sv.v, sv.u);
+    cost = cost + team_fddp_stage_cost(tm.cc, slot + kSlotDes, sv);
+    return true;
+  });
+  return cost;
+}
+
+// The Goldstein line search from the live trajectory x
 // (fddp.py _goldstein_probe_commit): probe 0 at alpha = 1 also carries the
 // exact quadratic model dJ(alpha) = alpha L1 + alpha^2 L2 and sums its cost
-// raw; probes 1.. fold with the frozen-saturating add, and once a probe's
-// fold freezes (its Goldstein crossing) nothing later can change it, so the
-// sweep stops there. A probe is accepted when its cost change is within
-// the Goldstein band and finite; a rejection backtracks by ls_step, or by
-// ls_jump when the probe exploded. The probes sum costs only, through
-// rollout_gap_stage_call, and store nothing. With no probes the search
-// rejects.
+// raw; probes 1.. fold with the frozen-saturating add and stop at the
+// freeze. A probe is accepted when its cost change is within the Goldstein
+// band and finite; a rejection backtracks by ls_step, or by ls_jump when the
+// probe exploded. The probes sum costs only and store nothing. With no
+// probes the search rejects.
 template <typename T, bool kDdp>
-__device__ __forceinline__ LineSearch<T> fddp_line_search(const Problem<T>& P,
-                                                          const FddpKnobs<T>& k, const Traj<T>& x,
-                                                          const T* ks, const T* bigks, const T* d,
-                                                          StageScratch<T>& S, T current, int b) {
-  const int B = P.B, N = P.N;
-  auto stage = [&](T alpha, bool sat, T gdj, T cap, int n, T* q, T* t, T* v, T c) {
-    return rollout_gap_stage_call(P, x, ks, bigks, d, alpha, sat, gdj, current, cap, x, false, n,
-                                  b, q, t, v, c);
-  };
+__device__ __forceinline__ LineSearch<T> team_fddp_line_search(const Team<T>& tm,
+                                                               const Problem<T>& P,
+                                                               const FddpKnobs<T>& k,
+                                                               const Traj<T>& x, const T* gains,
+                                                               const T* d, T current) {
   LineSearch<T> ls{false, current, T(1), 0};
   T alpha = T(1), l1 = T(0), l2 = T(0);
   if (k.ls_max_iters >= 1) {
-    T q[4], t[3], v[6], u[4], p[12], ju[16];
-    load_stage(x, B, 0, b, q, t, v, u);
-    for (int j = 0; j < 12; ++j) p[j] = T(0);
-    for (int j = 0; j < 16; ++j) ju[j] = P.par(P.ju, 32 + j, b);
-    T c = T(0);
-    for (int n = 0; n < N; ++n) {
-      // model terms at the live stage (not the rollout carry)
-      T p2[12];
-      fddp_model_stage<T, kDdp>(P, x, ks, bigks, d, n, b, S, ju, p, p2, &l1, &l2);
-      c = stage(alpha, false, T(0), T(0), n, q, t, v, c);
-      for (int j = 0; j < 12; ++j) p[j] = p2[j] + d[(n * 12 + j) * B + b];
-    }
-    ls.stages += N;
+    const GapSweep<T> o = team_gap_sweep<T, kDdp>(tm, P, x, gains, d, alpha, true, false, T(0),
+                                                  current, T(0), false);
+    l1 = o.l1;
+    l2 = o.l2;
+    const T c = o.c;
+    ls.stages += P.N;
     const T dj = alpha * l1 + alpha * alpha * l2;
     const T gdj = ((dj <= T(0)) ? k.gf : k.gub) * dj;
     ls.cost = c;
@@ -170,14 +275,10 @@ __device__ __forceinline__ LineSearch<T> fddp_line_search(const Problem<T>& P,
     const T dj = alpha * l1 + alpha * alpha * l2;
     const T gdj = ((dj <= T(0)) ? k.gf : k.gub) * dj;
     const T cap = T(2) * (f_abs(current + gdj) + f_abs(current)) + T(1);
-    T q[4], t[3], v[6], u[4];
-    load_stage(x, B, 0, b, q, t, v, u);
-    T c = T(0);
-    for (int n = 0; n < N; ++n) {
-      if ((c - current) > gdj) break;  // frozen: the rest cannot change c
-      c = stage(alpha, true, gdj, cap, n, q, t, v, c);
-      ++ls.stages;
-    }
+    const GapSweep<T> o = team_gap_sweep<T, kDdp>(tm, P, x, gains, d, alpha, false, true, gdj,
+                                                  current, cap, false);
+    const T c = o.c;
+    ls.stages += o.stages;
     ls.cost = c;
     ls.accepted = (c - current) <= gdj && f_abs(c) < T(INFINITY);
     if (!ls.accepted) alpha = (c < cap) ? alpha * k.ls_step : alpha * k.ls_jump;
@@ -211,40 +312,36 @@ __device__ __forceinline__ bool fddp_trip_close(const FddpKnobs<T>& k, const Lin
 }
 
 template <typename T, bool kDdp>
-__global__ void stream_fddp_kernel(Problem<T> P, StreamFddpIO<T> io) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= P.B) return;
-  const int B = P.B, N = P.N;
-  copy_traj(io.x0, io.live, B, N, b);
+__global__ void __launch_bounds__(kTeamThreads) stream_fddp_kernel(Problem<T> P,
+                                                                   StreamFddpIO<T> io) {
+  Team<T> tm;
+  if (!team_setup(P, &tm)) return;
+  const Problem<T> Ps = smem_problem(P, tm);
+  const int b = tm.b, N = P.N;
+  team_copy_traj(tm, P, io.x0, io.live);
   T mu = io.imu != nullptr ? io.imu[b] : T(0);
   int status = io.istat != nullptr ? io.istat[b] : 0;
   int iters = io.iiter != nullptr ? io.iiter[b] : 0;
   bool done = status != 0;
   // FDDP seeds from the true (possibly infeasible) trajectory's cost
-  T cost = fddp_cost_lane(P, io.live, b);
+  T cost = team_fddp_cost(tm, P, io.live);
   bool stale = true;  // the defects need computing (trip 0, or after an accept)
   T gap = T(0);
   int stages_run = 0, defect_trips = 0, applies = 0;
-  StageScratch<T> S;
   for (int i = 0; i < io.k.max_iters && !done; ++i) {
     const T current = cost;
     // ---- defects (when stale) + gap-transported backward pass ----
     defect_trips += stale ? 1 : 0;
-    fddp_reverse_sweep<T, kDdp>(P, io.k.quu_reg + mu, io.live, stale, io.ks, io.bigks, io.d, S,
-                                b, &gap);
+    team_fddp_reverse<T, kDdp>(tm, P, Ps, io.k.quu_reg + mu, io.live, stale, io.gains, io.d,
+                               &gap);
     // ---- the line search, cost-only probes ----
     const LineSearch<T> ls =
-        fddp_line_search<T, kDdp>(P, io.k, io.live, io.ks, io.bigks, io.d, S, current, b);
+        team_fddp_line_search<T, kDdp>(tm, P, io.k, io.live, io.gains, io.d, current);
     stages_run += ls.stages;
     // ---- apply sweep: the accepted candidate into the live trajectory ----
     if (ls.accepted) {
-      T q[4], t[3], v[6], u[4];
-      load_stage(io.live, B, 0, b, q, t, v, u);
-      T c = T(0);
-      for (int n = 0; n < N; ++n) {
-        c = rollout_gap_stage_call(P, io.live, io.ks, io.bigks, io.d, ls.alpha, false, T(0),
-                                   T(0), T(0), io.live, true, n, b, q, t, v, c);
-      }
+      team_gap_sweep<T, kDdp>(tm, P, io.live, io.gains, io.d, ls.alpha, false, false, T(0),
+                              T(0), T(0), true);
       ++applies;
     }
     // ---- trip close (fddp.py _fddp_trip_close) ----
@@ -252,18 +349,21 @@ __global__ void stream_fddp_kernel(Problem<T> P, StreamFddpIO<T> io) {
     iters += 1;
     stale = ls.accepted;
   }
-  io.cost[b] = cost;
-  io.iters[b] = iters;
-  io.status[b] = status;
-  io.mu[b] = mu;
-  io.probes[b] = static_cast<T>(stages_run) / static_cast<T>(N);
-  io.defect_trips[b] = defect_trips;
-  io.applies[b] = applies;
+  ring_drain();
+  if (tm.lane == 0) {
+    io.cost[b] = cost;
+    io.iters[b] = iters;
+    io.status[b] = status;
+    io.mu[b] = mu;
+    io.probes[b] = static_cast<T>(stages_run) / static_cast<T>(N);
+    io.defect_trips[b] = defect_trips;
+    io.applies[b] = applies;
+  }
 }
 
 // packed operands after the Problem block:
 //   ptrs:  q t v u  imu istat iiter  oq ot ov ou  cost iters status mu probes
-//          ks bigks  d  defect_trips applies
+//          gains d  defect_trips applies
 //   ints and reals: as fddp.cu (FddpKnobs)
 template <typename T>
 int launch_stream_fddp(const void* const* ptrs, const long long* ints, const double* reals,
@@ -282,20 +382,14 @@ int launch_stream_fddp(const void* const* ptrs, const long long* ints, const dou
   io.status = static_cast<int*>(out(13));
   io.mu = static_cast<T*>(out(14));
   io.probes = static_cast<T*>(out(15));
-  io.ks = static_cast<T*>(out(16));
-  io.bigks = static_cast<T*>(out(17));
-  io.d = static_cast<T*>(out(18));
-  io.defect_trips = static_cast<int*>(out(19));
-  io.applies = static_cast<int*>(out(20));
+  io.gains = static_cast<T*>(out(16));
+  io.d = static_cast<T*>(out(17));
+  io.defect_trips = static_cast<int*>(out(18));
+  io.applies = static_cast<int*>(out(19));
   io.k = fddp_knobs<T>(ints + kProblemInts, reals + kProblemReals);
-  if (P.B == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (io.k.ddp) {
-    stream_fddp_kernel<T, true><<<blocks_for(P.B), kThreadsPerBlock, 0, s>>>(P, io);
-  } else {
-    stream_fddp_kernel<T, false><<<blocks_for(P.B), kThreadsPerBlock, 0, s>>>(P, io);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const size_t smem = team_block_bytes<T>(P.s_qr, P.s_par);
+  if (io.k.ddp) return team_launch(stream_fddp_kernel<T, true>, P.B, smem, stream, P, io);
+  return team_launch(stream_fddp_kernel<T, false>, P.B, smem, stream, P, io);
 }
 
 }  // namespace qilqr

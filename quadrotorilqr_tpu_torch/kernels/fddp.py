@@ -24,6 +24,7 @@ from ..solver import fddp
 from ..solver.options import ILQROptions
 from . import _build
 from .backward import _check_cuda, _on, _problem_operands, _traj_from_lanes, _traj_lanes
+from .stream import GAINS_WIDTH
 
 
 def solve_fddp_whole_reference(
@@ -96,15 +97,21 @@ def _launch(
     ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device)
     kw = dict(dtype=dtype, device=device)
     live = [torch.empty((n, d, batch), **kw) for d in (4, 3, 6, CONTROL_DIM)]
-    best = [] if streamed else [torch.empty((n, d, batch), **kw) for d in (4, 3, 6, CONTROL_DIM)]
     applies = [torch.empty((batch,), dtype=torch.int32, device=device)] if streamed else []
     cost_out, mu_out, probes = (torch.empty((batch,), **kw) for _ in range(3))
     iters, status, defect_trips = (
         torch.empty((batch,), dtype=torch.int32, device=device) for _ in range(3)
     )
-    ks = torch.empty((n, CONTROL_DIM, batch), **kw)
-    big_ks = torch.empty((n, CONTROL_DIM, 12, batch), **kw)
-    d = torch.empty((n, 12, batch), **kw)
+    if streamed:
+        # one contiguous row per scenario and stage: k | K, and the defects
+        scratch = [torch.empty((n, batch, w), **kw) for w in (GAINS_WIDTH, 12)]
+    else:
+        scratch = [
+            torch.empty((n, CONTROL_DIM, batch), **kw),
+            torch.empty((n, CONTROL_DIM, 12, batch), **kw),
+            *(torch.empty((n, d, batch), **kw) for d in (4, 3, 6, CONTROL_DIM)),
+            torch.empty((n, 12, batch), **kw),
+        ]
     rows = [
         _resume_row(initial_mu, batch, dtype, device),
         _resume_row(initial_status, batch, torch.int32, device),
@@ -112,7 +119,7 @@ def _launch(
     ]
     ops = ops.extend(
         [*_traj_lanes(traj, dtype, device), *rows, *live, cost_out, iters, status, mu_out,
-         probes, ks, big_ks, *best, d, defect_trips, *applies],
+         probes, *scratch, defect_trips, *applies],
         ints=[int(cc.max_iters), int(ls.max_iters), int(bool(ddp))],
         reals=[
             options.quu_reg, cc.rtol, cc.atol, ls.step_update, fddp.alpha_jump(ls.step_update),

@@ -7,13 +7,16 @@ Counterpart of `quadrotorilqr_tpu/kernels/stream.py:701`
 package does. It computes what `kernels/solve.py` computes, lane for lane,
 with the streamed schedule: the line search's probes sum costs only, and one
 apply sweep re-rolls each active lane at the alpha it last tried and writes
-the candidate into the live trajectory. `csrc/stream.cu` runs it one thread
-per scenario; `solve_fused_streamed` launches it for CUDA tensors and takes
+the candidate into the live trajectory. `csrc/stream.cu` runs it with one
+team of lanes of a warp per scenario (`csrc/team.cuh`);
+`solve_fused_streamed` launches it for CUDA tensors and takes
 `solve_streamed_reference` only for CPU tensors.
 
 The JAX function's `chunk` sets the stages its TPU kernel streams through a
-VMEM window at a time. Every stage here lives in device memory, so there is
-no window and no `chunk`; `interpret` and `supertile` are TPU options too.
+VMEM window at a time. Here every stage lives in device memory and the
+kernel prefetches a fixed number of stages ahead into shared memory, so
+there is no `chunk` parameter; `interpret` and `supertile` are TPU options
+too.
 """
 
 from __future__ import annotations
@@ -26,6 +29,9 @@ from ..solver import ilqr
 from ..solver.options import ILQROptions
 from . import _build
 from .backward import _check_cuda, _problem_operands, _traj_from_lanes, _traj_lanes
+
+# a row of the streamed kernels' gains scratch: k (4), then K (4 x 12)
+GAINS_WIDTH = CONTROL_DIM + CONTROL_DIM * 12
 
 
 def solve_streamed_reference(params, cost, traj, dt_s, options: ILQROptions):
@@ -104,10 +110,10 @@ def _launch(params, cost, traj, dt_s, options):
     iters, status, passes, probes, applies = (
         torch.empty((batch,), dtype=torch.int32, device=device) for _ in range(5)
     )
-    ks = torch.empty((n, CONTROL_DIM, batch), **kw)
-    big_ks = torch.empty((n, CONTROL_DIM, 12, batch), **kw)
+    # k | K of every stage, one contiguous row per scenario (csrc/team.cuh)
+    gains = torch.empty((n, batch, GAINS_WIDTH), **kw)
     ops = ops.extend(
-        [*_traj_lanes(traj, dtype, device), *live, cost_out, iters, status, ks, big_ks, passes,
+        [*_traj_lanes(traj, dtype, device), *live, cost_out, iters, status, gains, passes,
          probes, applies],
         ints=[int(cc.max_iters), int(ls.max_iters)],
         reals=[options.quu_reg, cc.rtol, cc.atol, ls.step_update, ls.desired_reduction_frac],

@@ -9,14 +9,17 @@ past 231 stages, as the JAX package does. It computes what
 defects are recomputed on the trips that need them, the Goldstein probes sum
 costs only, and one apply sweep re-rolls each accepted lane at its accepted
 alpha and writes the candidate into the live trajectory (a rejected lane
-keeps its trajectory for the mu retry). `csrc/stream_fddp.cu` runs it one
-thread per scenario; `solve_fddp_streamed` launches it for CUDA tensors and
+keeps its trajectory for the mu retry). `csrc/stream_fddp.cu` runs it with
+one team of lanes of a warp per scenario (`csrc/team.cuh`);
+`solve_fddp_streamed` launches it for CUDA tensors and
 takes `solve_fddp_streamed_reference` only for CPU tensors. As on
 `fddp.py`, a line search with no probes rejects every trip.
 
 The JAX function's `chunk` sets the stages its TPU kernel streams through a
-VMEM window at a time. Every stage here lives in device memory, so there is
-no window and no `chunk`; `interpret` and `supertile` are TPU options too.
+VMEM window at a time. Here every stage lives in device memory and the
+kernel prefetches a fixed number of stages ahead into shared memory, so
+there is no `chunk` parameter; `interpret` and `supertile` are TPU options
+too.
 """
 
 from __future__ import annotations

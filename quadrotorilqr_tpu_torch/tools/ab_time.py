@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the FDDP and exact whole-solve kernels of several checkouts of the
+"""Time the whole-solve and streamed kernels of several checkouts of the
 port side by side on one GPU.
 
     python3 quadrotorilqr_tpu_torch/tools/ab_time.py [--order 0,1,1,0] ROOT [ROOT ...]
@@ -17,8 +17,22 @@ warm-up, the median of 5 of:
     iterations; benchmarks/run_all.py config 6) through
     `QuadrotorILQR(solver="fddp").solve_batch` (two `fddp.cu` launches), each
     of the two launches on its own, and the single-phase `fddp.cu` launch;
+  * the same two launches on `stream_fddp.cu`;
   * the bench workload (hover to waypoint, B=4096, N=100, f32, 10
-    iterations) through `solve_batch_latency` (`solve.cu`).
+    iterations) through `solve_batch_latency` (`solve.cu`);
+  * the long-horizon paths on `long_horizon_problem` (f32, B=4096), as
+    chip_smoke.py drives them: exact iLQR at N=1024 through
+    `solve_batch(latency=True)` (one `stream.cu` launch; 10 iterations) and
+    robust FDDP at N=512 through `solver="fddp"` (two `stream_fddp.cu`
+    launches; 12 iterations);
+  * one backward pass and one rollout sweep of `stream.cu` at the exact
+    long path's shapes (B=4096, N=1024), from two launches in which every
+    scenario does the same work: one trip (a backward pass, trip 0's
+    forced probe and the apply sweep: T1 = b + 2 r) and two trips whose
+    second line search can accept nothing (desired reduction 1e9 times the
+    model's), so it runs out after 20 probes and applies the last
+    (T2 = 2 b + 23 r); r = (T2 - 2 T1) / 19, b = T1 - 2 r. Whether every
+    scenario ran those counts is reported beside them.
 
 Each process prints one JSON line with its times and a digest of its
 results (summed cost, status counts), so that the checkouts can be seen to
@@ -69,6 +83,9 @@ def measure(root):
     from quadrotorilqr_tpu_torch.api import QuadrotorILQR
     from quadrotorilqr_tpu_torch.app import workloads
     from quadrotorilqr_tpu_torch.kernels import fddp as kf
+    from quadrotorilqr_tpu_torch.kernels import stream as kst
+    from quadrotorilqr_tpu_torch.kernels import stream_fddp as ksf
+    from quadrotorilqr_tpu_torch.solver import ilqr
     from quadrotorilqr_tpu_torch.parallel.batch import initial_trajectory_from_state
     from quadrotorilqr_tpu_torch.solver import fddp
     from quadrotorilqr_tpu_torch.solver.batched import (
@@ -131,7 +148,13 @@ def measure(root):
         *p_args, gn[0], r_dt, ddp_opts, r_fo, ddp=True, **rows))
     out["fddp_single_ms"] = time_ms(
         lambda: kf.solve_fddp_fused(*p_args, r_trajs, r_dt, r_opts, r_fo))
+    out["stream_fddp_gn_ms"] = time_ms(
+        lambda: ksf.solve_fddp_streamed(*p_args, r_trajs, r_dt, gn_opts, r_fo))
+    out["stream_fddp_ddp_ms"] = time_ms(lambda: ksf.solve_fddp_streamed(
+        *p_args, gn[0], r_dt, ddp_opts, r_fo, ddp=True, **rows))
     out["fddp_api_digest"] = digest(robust.solve_batch(r_trajs))
+    out["stream_fddp_ddp_digest"] = digest(ksf.solve_fddp_streamed(
+        *p_args, gn[0], r_dt, ddp_opts, r_fo, ddp=True, **rows))
     out["fddp_single_digest"] = digest(kf.solve_fddp_fused(*p_args, r_trajs, r_dt, r_opts, r_fo))
 
     # the bench workload
@@ -147,6 +170,44 @@ def measure(root):
     s_args = (api.params, api.cost, trajs, 0.02, b_opts)
     out["solve_ms"] = time_ms(lambda: solve_batch_latency(*s_args))
     out["solve_digest"] = digest(solve_batch_latency(*s_args))
+
+    # the long-horizon paths, as chip_smoke.py builds them
+    def api_for(params, cost, trajs, opts, **kw):
+        desired = ilqr.Trajectory(
+            times=trajs.times[0], states=cost.desired_states, controls=cost.desired_controls
+        )
+        return QuadrotorILQR(
+            float(params.mass_kg), params.inertia, float(params.arm_length_m),
+            float(params.torque_to_thrust_ratio_m), float(params.g_mpss), cost.Q, cost.R,
+            desired, 0.02, opts, dtype=torch.float32, device=dev, **kw,
+        )
+
+    for key, seed, n, iters, kw in (
+        ("long_exact", 0, 1024, 10, dict(latency=True)), ("long_robust", 1, 512, 12, {}),
+    ):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params, cost, trajs = workloads.long_horizon_problem(gen, 4096, n, torch.float32, 0.02, dev)
+        opts = ILQROptions(LineSearchParams(0.5, 0.5, 20), ConvergenceCriteria(1e-6, 1e-6, iters))
+        api_l = api_for(params, cost, trajs, opts, **({} if kw else dict(solver="fddp")))
+        out[f"{key}_ms"] = time_ms(lambda: api_l.solve_batch(trajs, **kw))
+        out[f"{key}_digest"] = digest(api_l.solve_batch(trajs, **kw))
+        if key == "long_exact":
+            l_args = (api_l.params, api_l.cost, trajs, 0.02)
+
+    # one backward pass and one rollout sweep of stream.cu at B=4096, N=1024
+    def trips(k):
+        return ILQROptions(LineSearchParams(0.5, 1e9, 20), ConvergenceCriteria(1e-12, 1e-12, k))
+
+    # every scenario ran (1, 1, 1) and (2, 21, 2) (passes, probes, applies)?
+    out["split_counts_uniform"] = all(
+        bool((c == w).all())
+        for k, want in ((1, (1, 1, 1)), (2, (2, 21, 2)))
+        for c, w in zip(kst.solve_fused_streamed(*l_args, trips(k), return_probes=True)[4:], want)
+    )
+    t1 = time_ms(lambda: kst.solve_fused_streamed(*l_args, trips(1)))
+    t2 = time_ms(lambda: kst.solve_fused_streamed(*l_args, trips(2)))
+    out["rollout_sweep_ms"] = (t2 - 2 * t1) / 19
+    out["backward_pass_ms"] = t1 - 2 * out["rollout_sweep_ms"]
     print(json.dumps(out), flush=True)
 
 

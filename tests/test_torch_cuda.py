@@ -7,7 +7,9 @@ Tolerances as chip_smoke.py: backward k, K atol 1e-9 and QuTk, kTQuuk rtol
 FDDP solve status and iterations equal, cost rtol 1e-8, controls atol 1e-7;
 phases resumed from the kernel's own rows bit-equal to one launch. The
 streamed kernels also against their whole-solve twins on the card: status
-and iterations equal, cost rtol 1e-12, controls atol 1e-10.
+and iterations equal, cost rtol 1e-12, controls atol 1e-10; and at the edges
+of their team design (csrc/team.cuh): B of 1, 37 and 300, horizons of 1, 2
+and 40 stages, shared and per-scenario operand groups.
 
 This file imports no JAX, so the card machine runs it without the JAX
 package's conftest:
@@ -324,3 +326,104 @@ def test_cuda_stream_fddp_two_phases_equal_one(card_problem):
         initial_mu=first[4], initial_status=first[3], initial_iters=first[2],
     )
     assert_bit_equal(SolveResult(*rest), SolveResult(*one))
+
+
+# ---- the streamed kernels' team design (csrc/team.cuh) at its edges ----
+# B not a multiple of the teams a block holds (1, 37, 300), horizons shorter
+# than the operand ring (N = 1, 2) and longer (40), and the cost operand
+# groups shared (B-stride 0) or per scenario (B-stride 1); each held against
+# its plain version at the bars above.
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+def edge_problem(batch, n, per_scenario):
+    """problem() on the card; with `per_scenario` every scenario gets its
+    own Q, R and desired trajectory."""
+    params, cost, traj = problem("cuda", batch=batch, n=n, seed=batch + n)
+    if not per_scenario:
+        return params, cost, traj
+    rng = np.random.default_rng(batch)
+    des_q = np.concatenate([np.ones((batch, n, 1)), 0.05 * rng.normal(size=(batch, n, 3))], -1)
+    des_q /= np.linalg.norm(des_q, axis=-1, keepdims=True)
+    w = 1.0 + 0.3 * rng.uniform(size=(batch, 12))
+    per = SimpleNamespace(
+        Q=np.stack([np.diag(np.concatenate([100.0 * wi[:6], wi[6:]])) for wi in w]),
+        R=np.eye(4) * (1.0 + 0.1 * rng.uniform(size=(batch, 1, 1))),
+        desired_states=SimpleNamespace(
+            pose=SimpleNamespace(quat=des_q, trans=0.05 * rng.normal(size=(batch, n, 3))),
+            vel=np.zeros((batch, n, 6)),
+        ),
+        desired_controls=np.full((batch, n, 4), 9.81 / 4),
+    )
+    return params, convert.cost_from_numpy(per, device="cuda"), traj
+
+
+def assert_lanes(got, ref, rtol=1e-8):
+    """Status, iterations and the per-lane counts equal; cost within rtol,
+    controls within 1e-7."""
+    for g, r in zip(got[2:4] + got[4:], ref[2:4] + ref[4:]):
+        if g.is_floating_point():
+            torch.testing.assert_close(g, r, rtol=rtol, atol=0)
+        else:
+            torch.testing.assert_close(g, r, rtol=0, atol=0)
+    torch.testing.assert_close(got[1], ref[1], rtol=rtol, atol=0)
+    torch.testing.assert_close(got[0].controls, ref[0].controls, rtol=0, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", ["shared", "per_scenario"])
+@pytest.mark.parametrize("n", [1, 2, 40])
+@pytest.mark.parametrize("batch", [1, 37, 300])
+def test_cuda_stream_team_edges(card, batch, n, groups):
+    """stream.cu against its plain version, lane for lane, with its
+    backward-pass, probe and apply counts."""
+    params, cost, traj = edge_problem(batch, n, groups == "per_scenario")
+    got = kst.solve_fused_streamed(params, cost, traj, DT, OPTIONS, return_probes=True)
+    ref = kst.solve_streamed_reference(params, cost, traj, DT, OPTIONS)
+    assert_lanes(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gauss_newton", "ddp", "zero_probes"])
+@pytest.mark.parametrize("groups", ["shared", "per_scenario"])
+@pytest.mark.parametrize("batch,n", [(1, 2), (37, 40), (300, 2), (300, 40)])
+def test_cuda_stream_fddp_team_edges(card, batch, n, groups, case):
+    """stream_fddp.cu against its plain version: Gauss-Newton lane for lane
+    with its probe, defect-trip and apply counts; exact DDP at the DDP
+    engines' bar (test_cuda_fddp_ddp_matches_plain); no line-search probes
+    (every trip rejects, the mu schedule runs) with its counts equal and the
+    cost within 1e-12. At N=2 the line-searched cases run one trip: once
+    a 2-stage lane has taken its full step its predicted change dJ is
+    ~1e-15, so whether the next Goldstein probe is accepted depends on the
+    last bits of the cost sums, which differ between any two engines: there
+    fddp.cu, and the per-thread streamed kernel this design replaced, agree
+    with plain on about half of 300 lanes too."""
+    params, cost, traj = edge_problem(batch, n, groups == "per_scenario")
+    fo = kf.fddp.FDDPOptions()
+    opts = FDDP_OPTIONS if n > 2 else _with_max_iters(FDDP_OPTIONS, 1)
+    if case == "zero_probes":
+        opts = ILQROptions(LineSearchParams(0.5, 0.5, 0), ConvergenceCriteria(1e-8, 1e-8, 5))
+    ddp = case == "ddp"
+    got = ksf.solve_fddp_streamed(
+        params, cost, traj, DT, opts, ddp=ddp, return_mu=True, return_probes=True
+    )
+    ref = ksf.solve_fddp_streamed_reference(params, cost, traj, DT, opts, fo, ddp)
+    if case == "gauss_newton":
+        assert_lanes(got, ref)
+    elif case == "zero_probes":
+        assert_lanes(got, ref, rtol=1e-12)
+        torch.testing.assert_close(got[0].controls, traj.controls, rtol=0, atol=0)
+    else:
+        same = (got[3] == ref[3]) & (got[2] == ref[2])
+        assert (got[3] == ref[3]).double().mean() >= 0.98 and same.double().mean() >= 0.95
+        strict = same & (ref[3] == 1)
+        rel = (got[1] - ref[1]).abs() / ref[1].abs()
+        assert rel.max() < 2e-4
+        if strict.any():
+            du = (got[0].controls - ref[0].controls).abs().amax((1, 2))
+            assert rel[strict].max() <= 1e-8 and du[strict].max() <= 1e-4
