@@ -37,6 +37,8 @@ ENTRIES = (
     "qilqr_backward", "qilqr_rollout", "qilqr_solve", "qilqr_fddp", "qilqr_stream",
     "qilqr_stream_fddp",
 )
+# the kernels built on csrc/team.cuh, each with a qilqr_<name>_team_info entry
+TEAM_KERNELS = ("solve", "fddp", "stream", "stream_fddp")
 
 
 class _Library:
@@ -90,11 +92,13 @@ def _declare(cdll):
             ]
     cdll.qilqr_error_string.restype = ctypes.c_char_p
     cdll.qilqr_error_string.argtypes = [ctypes.c_int]
-    # the streamed kernels' launch geometry (csrc/stream.cu)
-    cdll.qilqr_team_info.restype = ctypes.c_int
-    cdll.qilqr_team_info.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
-    ]
+    # each team kernel's launch geometry (csrc/team.cuh team_info)
+    for name in TEAM_KERNELS:
+        fn = getattr(cdll, f"qilqr_{name}_team_info")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
+        ]
 
 
 def load() -> _Library:

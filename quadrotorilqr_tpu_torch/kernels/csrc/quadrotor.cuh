@@ -2,14 +2,12 @@
 //
 // Counterpart of quadrotorilqr_tpu/kernels/models.py (the quadrotor
 // LaneModel), kernels/rollout.py (_dynamics_step, _state_minus) and
-// kernels/backward.py (_stage_jx_blocks, _stage_cost_diffs, _riccati_stage
-// with its ddp option, _vfxx_lanes, _cxx_corr_lanes; without the
-// box/weights/drag/substep/penalty options), solve.py's line search and
-// trip close (the line search for solve.cu, the trip close for solve.cu and
-// stream.cu), and fddp.py's gap-contracting rollout stage and
-// quadratic-model stage (fddp.cu; team.cuh holds the streamed kernels' team
-// versions). Shared by the kernels backward.cu, rollout.cu, solve.cu,
-// fddp.cu and, through team.cuh, stream.cu and stream_fddp.cu.
+// kernels/backward.py (_stage_jx_blocks, _stage_cost_diffs, _riccati_stage;
+// without the box/weights/drag/substep/penalty options), and the scalar trip
+// logic of solve.py (_trip_close) and fddp.py (the FDDP options). The
+// per-pass kernels backward.cu and rollout.cu run these pieces one thread
+// per scenario; team.cuh builds the team kernels (solve.cu, fddp.cu,
+// stream.cu, stream_fddp.cu) on their serial parts.
 //
 // Layout. Per-stage buffers are scenario-minor, (N, d, B): element (n, i) of
 // scenario b sits at [(n * d + i) * B + b], so the 32 threads of a warp read
@@ -126,16 +124,6 @@ __device__ __forceinline__ void store_stage(const Traj<T>& x, int B, int n, int 
   for (int i = 0; i < 3; ++i) x.t[(n * 3 + i) * B + b] = t[i];
   for (int i = 0; i < 6; ++i) x.v[(n * 6 + i) * B + b] = v[i];
   for (int i = 0; i < 4; ++i) x.u[(n * 4 + i) * B + b] = u[i];
-}
-
-template <typename T>
-__device__ __forceinline__ void copy_traj(const Traj<T>& src, const Traj<T>& dst, int B, int N,
-                                          int b) {
-  for (int n = 0; n < N; ++n) {
-    T q[4], t[3], v[6], u[4];
-    load_stage(src, B, n, b, q, t, v, u);
-    store_stage(dst, B, n, b, q, t, v, u);
-  }
 }
 
 template <typename T>
@@ -363,119 +351,10 @@ __device__ __forceinline__ void ad_cot(const T* w, T* c) {
   }
 }
 
-// Adds the exact-minus-Gauss-Newton c_xx pose block (backward.py
-// _cxx_corr_lanes) into qxx[0:6, 0:6]: -(sym(C(w~)) + 2 sym(W^T Th W)),
-// w~ = W^T z, Th = D[Jr(tau_p)^T w~]^T, W = Jr(tau_p)^-1, z = (Q dx)[0:6].
-template <typename T>
-__device__ __forceinline__ void add_cxx_correction(const T* tau_p, const T* W, const T* z6,
-                                                   T* qxx) {
-  T wt[6];
-  for (int i = 0; i < 6; ++i) {
-    T acc = W[i] * z6[0];
-    for (int k = 1; k < 6; ++k) acc += W[k * 6 + i] * z6[k];
-    wt[i] = acc;
-  }
-  T tj[36], th_w[36], inner[36], cw[36];
-  se3_right_jacobian_t_jac(tau_p, wt, tj);
-  // (Th W)[r][c] with Th = tj^T
-  for (int r = 0; r < 6; ++r) {
-    for (int c = 0; c < 6; ++c) {
-      T acc = tj[r] * W[c];
-      for (int k = 1; k < 6; ++k) acc += tj[k * 6 + r] * W[k * 6 + c];
-      th_w[r * 6 + c] = acc;
-    }
-  }
-  // W^T (Th W)
-  for (int r = 0; r < 6; ++r) {
-    for (int c = 0; c < 6; ++c) {
-      T acc = W[r] * th_w[c];
-      for (int k = 1; k < 6; ++k) acc += W[k * 6 + r] * th_w[k * 6 + c];
-      inner[r * 6 + c] = acc;
-    }
-  }
-  ad_cot(wt, cw);
-  for (int r = 0; r < 6; ++r) {
-    for (int c = 0; c < 6; ++c) {
-      const T sym_c = T(0.5) * (cw[r * 6 + c] + cw[c * 6 + r]);
-      const T sym_i = T(0.5) * (inner[r * 6 + c] + inner[c * 6 + r]);
-      qxx[r * 12 + c] = qxx[r * 12 + c] + -(sym_c + T(2) * sym_i);
-    }
-  }
-}
-
-// Adds sum_i (v_x)_i f_xx[i] (backward.py _vfxx_lanes) into qxx, reusing the
-// stage's j_x blocks P = Adj(Exp(dt v))^-1 and Tm = dt Jr(dt v):
-//   [0:6, 6:12] and its transpose: P^T C(w_p) Tm / 2
-//   [6:12, 6:12]: sym(Tm^T C(w_p) Tm / 2 + dt^2 D[Jr(dt v)^T w_p]^T)
-//   [3:6, 3:6]: gravity (-dt g / 2)(w r^T + r w^T - 2 (w.r) I), w = v_x[6:9],
-//               r = R^T e_z
-//   [9:12, 9:12]: gyroscopic dt (hat(y) I - I hat(y)), y = I^-1 v_x[9:12]
-template <typename T>
-__device__ __forceinline__ void add_vfxx(const Problem<T>& P, int b, const T* q, const T* vel,
-                                         const T* v_x, const JxBlocks<T>& J, T* qxx) {
-  const T dt = P.dt;
-  T cw[36], ct[36];
-  ad_cot(v_x, cw);
-  matmul<6, 6, 6>(cw, J.Tm, ct);
-  for (int r = 0; r < 6; ++r) {
-    for (int c = 0; c < 6; ++c) {
-      T acc = J.P[r] * ct[c];
-      for (int k = 1; k < 6; ++k) acc += J.P[k * 6 + r] * ct[k * 6 + c];
-      const T g_ps = T(0.5) * acc;
-      qxx[r * 12 + 6 + c] = qxx[r * 12 + 6 + c] + g_ps;
-      qxx[(6 + c) * 12 + r] = qxx[(6 + c) * 12 + r] + g_ps;
-    }
-  }
-  T tau[6], tj[36], m[36];
-  for (int i = 0; i < 6; ++i) tau[i] = dt * vel[i];
-  se3_right_jacobian_t_jac(tau, v_x, tj);
-  const T dt2 = dt * dt;
-  for (int r = 0; r < 6; ++r) {
-    for (int c = 0; c < 6; ++c) {
-      T acc = J.Tm[r] * ct[c];
-      for (int k = 1; k < 6; ++k) acc += J.Tm[k * 6 + r] * ct[k * 6 + c];
-      m[r * 6 + c] = T(0.5) * acc + dt2 * tj[c * 6 + r];
-    }
-  }
-  // gyroscopic block, added onto the symmetrized g_ss
-  T I[9], Iinv[9], y[3], vx_w[3], hy[9], hy_i[9], i_hy[9];
-  for (int i = 0; i < 9; ++i) {
-    I[i] = P.par(P.inertia, i, b);
-    Iinv[i] = P.par(P.inertia_inv, i, b);
-  }
-  for (int i = 0; i < 3; ++i) vx_w[i] = v_x[9 + i];
-  matvec<3, 3>(Iinv, vx_w, y);
-  hat(y, hy);
-  matmul<3, 3, 3>(hy, I, hy_i);
-  matmul<3, 3, 3>(I, hy, i_hy);
-  for (int r = 0; r < 6; ++r) {
-    for (int c = 0; c < 6; ++c) {
-      T g_ss = T(0.5) * (m[r * 6 + c] + m[c * 6 + r]);
-      if (r >= 3 && c >= 3) g_ss = g_ss + dt * (hy_i[(r - 3) * 3 + c - 3] - i_hy[(r - 3) * 3 + c - 3]);
-      qxx[(6 + r) * 12 + 6 + c] = qxx[(6 + r) * 12 + 6 + c] + g_ss;
-    }
-  }
-  // gravity block
-  const T ez[3] = {T(0), T(0), T(1)};
-  T qc[4], r_t_ez[3];
-  quat_conjugate(q, qc);
-  quat_rotate(qc, ez, r_t_ez);
-  const T* w_lin = v_x + 6;
-  const T wr = w_lin[0] * r_t_ez[0] + w_lin[1] * r_t_ez[1] + w_lin[2] * r_t_ez[2];
-  const T gscale = ((T(-0.5) * dt) * P.par(P.g, 0, b));
-  for (int r = 0; r < 3; ++r) {
-    for (int c = 0; c < 3; ++c) {
-      const T g_grav = gscale * (w_lin[r] * r_t_ez[c] + r_t_ez[r] * w_lin[c] -
-                                 T(2) * wr * ((r == c) ? T(1) : T(0)));
-      qxx[(3 + r) * 12 + 3 + c] = qxx[(3 + r) * 12 + 3 + c] + g_grav;
-    }
-  }
-}
-
 // Tracking-cost differentials of stage n (backward.py _stage_cost_diffs):
-// c_x (12), c_u (4) and c_xx into qxx (X is scratch for Q J_d). Gauss-Newton,
-// plus with kExact the curvature of the Lie (-) residual in the pose block.
-template <typename T, bool kExact>
+// c_x (12), c_u (4) and the Gauss-Newton c_xx into qxx (X is scratch for
+// Q J_d).
+template <typename T>
 __device__ __forceinline__ void stage_cost_diffs(const Problem<T>& P, int n, int b, const T* q,
                                                  const T* t, const T* v, const T* u, T* X,
                                                  T* qxx, T* c_x, T* c_u) {
@@ -513,7 +392,6 @@ __device__ __forceinline__ void stage_cost_diffs(const Problem<T>& P, int n, int
     }
   }
   for (int i = 72; i < 144; ++i) qxx[i] = T(2) * X[i];
-  if constexpr (kExact) add_cxx_correction(dx, W, qdx, qxx);
   T e[4];
   for (int i = 0; i < 4; ++i) e[i] = u[i] - dud[i];
   for (int r = 0; r < 4; ++r) {
@@ -528,18 +406,15 @@ __device__ __forceinline__ void stage_cost_diffs(const Problem<T>& P, int n, int
 // contracted over its nonzero rows 8:12 only, unregularized 4x4 Cholesky
 // gains (plus quu_reg * I), symmetrized value update. Stage n of scenario b
 // with state (q, t, v, u). Updates v_x, v_xx in place; writes k (4), K (4x12)
-// and the stage's Qu.k and k.Quu.k. kDdp adds the exact curvature: the exact
-// c_xx, and sum_i (v_x)_i f_xx[i] into Q_xx weighted by the incoming v_x
-// (FDDP passes the gap-transported one); f_uu = f_ux = 0 for this model, so
-// Q_u, Q_uu, Q_xu and the gains are untouched.
-template <typename T, bool kDdp = false>
+// and the stage's Qu.k and k.Quu.k.
+template <typename T>
 __device__ void riccati_stage(const Problem<T>& P, T quu_reg, int n, int b, const T* q,
                               const T* t, const T* v, const T* u, T* v_x, T* v_xx,
                               StageScratch<T>& S, T* k, T* K, T* qutk_inc, T* ktquuk_inc) {
   JxBlocks<T>& J = S.J;
   stage_jx_blocks(P, b, q, v, J);
   T c_x[12], c_u[4];
-  stage_cost_diffs<T, kDdp>(P, n, b, q, t, v, u, S.X, S.qxx, c_x, c_u);
+  stage_cost_diffs(P, n, b, q, t, v, u, S.X, S.qxx, c_x, c_u);
 
   // --- Q-expansion ---
   // j_u rows 8:12 (the others are structural zeros): ju[r][a], r = 0..3
@@ -556,7 +431,6 @@ __device__ void riccati_stage(const Problem<T>& P, T quu_reg, int n, int b, cons
   }
   mat_jx(J, v_xx, S.X);          // X = V_xx j_x
   jxt_mat<12>(J, S.X, S.qxx, true);  // Q_xx = c_xx + j_x^T V_xx j_x
-  if constexpr (kDdp) add_vfxx(P, b, q, v, v_x, J, S.qxx);
   T vxx_ju[48];                   // V_xx[:, 8:12] ju_lo   (12 x 4)
   for (int r = 0; r < 12; ++r) {
     for (int c = 0; c < 4; ++c) {
@@ -641,8 +515,7 @@ __device__ void backward_lane(const Problem<T>& P, T quu_reg, const Traj<T>& x, 
   *ktquuk = sum_ktquuk;
 }
 
-
-// ---- the exact loop's forward pieces (rollout.cu, solve.cu, stream.cu) ----
+// ---- the exact loop's rollout (rollout.cu) and trip close (solve.cu, stream.cu) ----
 
 // One closed-loop rollout stage n of scenario b (rollout.py _rollout_kernel's
 // stage body): u_n = u_old_n + alpha k_n + K_n (x_n (-) x_old_n) from the
@@ -673,10 +546,7 @@ __device__ __forceinline__ T rollout_stage(const Problem<T>& P, const Traj<T>& x
 
 // Closed-loop rollout of scenario b with step alpha (rollout.py
 // _rollout_kernel's stage loop), written to `out` when `store`; returns the
-// new trajectory's cost. Never inlined, and the store is a runtime flag: a
-// cost-only probe sweep and the sweep that writes its candidate run the same
-// instructions, so the written trajectory is, bit for bit, the one whose cost
-// the probe returned.
+// new trajectory's cost.
 template <typename T>
 __device__ __noinline__ T rollout_lane(const Problem<T>& P, const Traj<T>& x, const T* ks,
                                        const T* bigks, T alpha, const Traj<T>& out, bool store,
@@ -690,20 +560,6 @@ __device__ __noinline__ T rollout_lane(const Problem<T>& P, const Traj<T>& x, co
   return cost;
 }
 
-// The cost of scenario b's trajectory x, summed stage by stage as the rollout
-// sums it.
-template <typename T>
-__device__ T trajectory_cost_lane(const Problem<T>& P, const Traj<T>& x, int b) {
-  T cost = T(0);
-  for (int n = 0; n < P.N; ++n) {
-    T q[4], t[3], v[6], u[4], xq, ur;
-    load_stage(x, P.B, n, b, q, t, v, u);
-    stage_cost_terms(P, n, b, q, t, v, u, &xq, &ur);
-    cost = cost + xq + ur;
-  }
-  return cost;
-}
-
 // What a line search leaves: whether it accepted, the cost of its last probe,
 // the alpha it ends on, and the probe stages it ran.
 template <typename T>
@@ -713,32 +569,6 @@ struct LineSearch {
   T alpha;
   int stages;
 };
-
-// The exact loop's backtracking line search from scenario b's live
-// trajectory x (solve.py _ls_probe_commit): probe j rolls out at
-// alpha = ls_step^j and is accepted when its cost change falls below
-// ls_frac dJ(alpha), or at once with `force` (trip 0's full step). A search
-// that runs out ends on the alpha it last tried. With `store` each probe
-// writes its candidate to `out`; otherwise the probes sum costs only.
-template <typename T>
-__device__ LineSearch<T> exact_line_search(const Problem<T>& P, const Traj<T>& x, const T* ks,
-                                           const T* bigks, T qutk, T ktquuk, T current,
-                                           bool force, int ls_max_iters, T ls_step, T ls_frac,
-                                           const Traj<T>& out, bool store, int b) {
-  LineSearch<T> ls{false, current, T(1), 0};
-  T alpha = T(1);
-  for (int j = 0; j < ls_max_iters; ++j) {
-    const T cand = rollout_lane(P, x, ks, bigks, alpha, out, store, b);
-    const T desired = ls_frac * (alpha * qutk + alpha * alpha * ktquuk * T(0.5));
-    ls.cost = cand;
-    ls.alpha = alpha;
-    ls.stages += P.N;
-    ls.accepted = (cand - current) < desired || force;
-    if (ls.accepted) break;
-    alpha = alpha * ls_step;
-  }
-  return ls;
-}
 
 // The exact loop's trip close (solve.py _trip_close) after a trip whose gate
 // left the lane `active` (or pre-converged it): the cost commit, the
@@ -758,7 +588,7 @@ __device__ __forceinline__ bool exact_trip_close(bool first, bool pre_conv, bool
   return conv || ls_failed;
 }
 
-// ---- the robust FDDP loop's stage pieces (fddp.cu, stream_fddp.cu) ----
+// ---- the robust FDDP loop's options (fddp.cu, stream_fddp.cu) ----
 
 // The FDDP loop's scalar options, in the packed order the hosts pass:
 //   ints:  max_iters ls_max_iters ddp
@@ -784,116 +614,11 @@ inline FddpKnobs<T> fddp_knobs(const long long* ip, const double* rp) {
   return k;
 }
 
-// c + (dx'Q dx + du'R du) of stage n: never inlined, so the seed sweep and
-// every probe evaluate it with the same instructions
-template <typename T>
-__device__ __noinline__ T fddp_stage_cost(const Problem<T>& P, int n, int b, const T* q,
-                                          const T* t, const T* v, const T* u) {
-  T xq, ur;
-  stage_cost_terms(P, n, b, q, t, v, u, &xq, &ur);
-  return xq + ur;
-}
-
-// The FDDP seed: scenario b's trajectory cost, stage costs summed from 0 up.
-template <typename T>
-__device__ __forceinline__ T fddp_cost_lane(const Problem<T>& P, const Traj<T>& x, int b) {
-  T cost = T(0);
-  for (int n = 0; n < P.N; ++n) {
-    T q[4], t[3], v[6], u[4];
-    load_stage(x, P.B, n, b, q, t, v, u);
-    cost = cost + fddp_stage_cost(P, n, b, q, t, v, u);
-  }
-  return cost;
-}
-
 // max that keeps a NaN, as jnp.maximum / torch.amax do
 template <typename T>
 __device__ __forceinline__ T nan_max(T a, T b) {
   if (a != a) return a;
   return (b != b || b > a) ? b : a;
-}
-
-// One gap-contracting rollout stage n of scenario b (fddp.py rollout_stage):
-// the control from the carry (q, t, v), the running cost, summed raw or
-// (with `sat`) with the frozen-saturating fold of
-// solver/fddp._saturating_stage_cost_add, the stage written to `out` when
-// `store`, then the carry stepped to f(x_n, u_n) (+) (-(1 - alpha) d_n).
-template <typename T>
-__device__ __forceinline__ T rollout_gap_stage(const Problem<T>& P, const Traj<T>& x,
-                                               const T* ks, const T* bigks, const T* d, T alpha,
-                                               bool sat, T gdj, T current, T cap,
-                                               const Traj<T>& out, bool store, int n, int b, T* q,
-                                               T* t, T* v, T c) {
-  const int B = P.B;
-  T qo[4], to[3], vo[6], uo[4], dx[12], u[4];
-  load_stage(x, B, n, b, qo, to, vo, uo);
-  state_minus(q, t, v, qo, to, vo, dx);
-  for (int a = 0; a < 4; ++a) {
-    T fb = bigks[((n * 4 + a) * 12) * B + b] * dx[0];
-    for (int j = 1; j < 12; ++j) fb += bigks[((n * 4 + a) * 12 + j) * B + b] * dx[j];
-    u[a] = (uo[a] + alpha * ks[(n * 4 + a) * B + b]) + fb;
-  }
-  const T cs = fddp_stage_cost(P, n, b, q, t, v, u);
-  if (sat) {
-    const bool frozen = (c - current) > gdj;
-    T c2 = c + cs;
-    c2 = (c2 <= cap) ? c2 : cap;
-    c = frozen ? c : c2;
-  } else {
-    c = c + cs;
-  }
-  if (store) store_stage(out, B, n, b, q, t, v, u);
-  dynamics_step(P, b, q, t, v, u);
-  T tau[12], qe[4], te[3], qn[4], tn[3];
-  const T shrink = -(T(1) - alpha);
-  for (int i = 0; i < 12; ++i) tau[i] = shrink * d[(n * 12 + i) * B + b];
-  se3_exp(tau, qe, te);
-  se3_multiply(q, t, qe, te, qn, tn);
-  for (int i = 0; i < 4; ++i) q[i] = qn[i];
-  for (int i = 0; i < 3; ++i) t[i] = tn[i];
-  for (int i = 0; i < 6; ++i) v[i] = v[i] + tau[6 + i];
-  return c;
-}
-
-// The exact quadratic model's terms at live stage n (probe 0's forward
-// sweep): w = k_n + K_n p, L1 += c_x'p + c_u'w, L2 += (p'c_xx p + w'2R w) / 2,
-// and p2 = J_x p + J_u w. ju holds j_u's nonzero rows 8:12. The caller sets
-// p <- p2 + d_n after the stage's rollout step.
-template <typename T, bool kDdp>
-__device__ __forceinline__ void fddp_model_stage(const Problem<T>& P, const Traj<T>& x,
-                                                 const T* ks, const T* bigks, const T* d, int n,
-                                                 int b, StageScratch<T>& S, const T* ju,
-                                                 const T* p, T* p2, T* l1, T* l2) {
-  const int B = P.B;
-  T lq[4], lt[3], lv[6], lu[4], c_x[12], c_u[4];
-  load_stage(x, B, n, b, lq, lt, lv, lu);
-  stage_jx_blocks(P, b, lq, lv, S.J);
-  stage_cost_diffs<T, kDdp>(P, n, b, lq, lt, lv, lu, S.X, S.qxx, c_x, c_u);
-  T wv[4];
-  for (int a = 0; a < 4; ++a) {
-    T acc = bigks[((n * 4 + a) * 12) * B + b] * p[0];
-    for (int j = 1; j < 12; ++j) acc += bigks[((n * 4 + a) * 12 + j) * B + b] * p[j];
-    wv[a] = ks[(n * 4 + a) * B + b] + acc;
-  }
-  *l1 = *l1 + dot<12>(c_x, p) + dot<4>(c_u, wv);
-  T cxxp[12], r2w[4];
-  for (int r = 0; r < 12; ++r) {
-    T acc = S.qxx[r * 12] * p[0];
-    for (int j = 1; j < 12; ++j) acc += S.qxx[r * 12 + j] * p[j];
-    cxxp[r] = acc;
-  }
-  for (int r = 0; r < 4; ++r) {
-    T acc = (T(2) * P.r(r * 4, b)) * wv[0];
-    for (int j = 1; j < 4; ++j) acc += (T(2) * P.r(r * 4 + j, b)) * wv[j];
-    r2w[r] = acc;
-  }
-  *l2 = *l2 + T(0.5) * (dot<12>(p, cxxp) + dot<4>(wv, r2w));
-  jx_vec(S.J, p, p2);
-  for (int r = 0; r < 4; ++r) {
-    T acc = ju[r * 4] * wv[0];
-    for (int a = 1; a < 4; ++a) acc += ju[r * 4 + a] * wv[a];
-    p2[8 + r] = p2[8 + r] + acc;
-  }
 }
 
 }  // namespace qilqr

@@ -1,30 +1,36 @@
-// The whole exact iLQR loop in one kernel, one thread per scenario.
+// The whole exact iLQR loop in one kernel, one team of kTeamLanes lanes per
+// scenario.
 //
 // Replaces the Pallas kernel quadrotorilqr_tpu/kernels/solve.py:
 // _solve_kernel (called through solve_fused_whole), including its trip
-// state machine _trip_gate / _ls_probe_commit / _trip_close. Each thread
-// runs its scenario's solve to the end: backward pass, then (trip 0) a
-// forced full step or (later trips) the expected-cost pre-check, a
-// backtracking line search with per-scenario alpha that keeps each probe as
-// the candidate, the merge of the candidate into the live trajectory, and the
-// achieved-cost post-check. A line search that runs out keeps the last
-// candidate and ends with status 2. A finished scenario's thread leaves the
+// state machine _trip_gate / _ls_probe_commit / _trip_close. Each team runs
+// its scenario's solve to the end: backward pass, then (trip 0) a forced
+// full step or (later trips) the expected-cost pre-check, a backtracking
+// line search with per-scenario alpha that stores each probe as the
+// candidate, and the achieved-cost post-check. The candidate merges into the
+// live trajectory inside the next trip's backward pass, whose ring fetches
+// the stages from the candidate buffer (no copy sweep), or after the loop
+// when the solve ends on it. A line search that runs out keeps the last
+// candidate and ends with status 2. A finished scenario's team leaves the
 // trip loop: its lane is frozen, which is all the TPU kernel's per-tile
 // all-done flag guarantees. Status and iterations come out as int32.
 //
-// What bounds it on an H100: the backward stage's ~400 values per thread
-// (V_xx, Q_xx, j_x blocks; see backward.cu) live in local memory, and with
-// one thread per scenario B = 4096 is about one warp per SM, so the loop is
-// latency-bound. The live, candidate and gain trajectories stay in device
-// memory at any horizon (about 3 KB per stage per 32 scenarios in float32);
-// the batch solvers send horizons past 256 stages to stream.cu, the
-// candidate-free variant, as the JAX package routes them.
-// What the design does about it: no host round trip and no launch between
-// trips (the whole solve is one launch), scenario-minor buffers for
-// coalesced loads, block-sparse j_x / j_u products, and broadcast reads of
-// shared operands. The cost sums in the per-pass rollout's order, (J + dx'Q
-// dx) + du'R du, so the two kernel routes add up each candidate alike.
-#include "quadrotor.cuh"
+// What bounds it on an H100: as stream.cu, the dependent chain of one
+// scenario's stages (a Riccati stage ~12k operations, a rollout stage
+// ~1.2k), each stage depending on the last; at B = 4096 the card holds
+// every scenario at once, so a launch lasts as long as its slowest
+// scenario's chain. The per-thread design ran that chain in one thread with
+// ~400 values of Riccati state in local memory (0.6% of the bound, PERF.md
+// section 6). What this design does about it (team.cuh, team_trip.cuh): a
+// team of lanes shares each scenario, the Riccati state lives in shared
+// memory, the 12x12 and 12x4 products are split over the team by output
+// entries, Q, R and the model parameters are read from shared memory, each
+// stage's operands arrive through a cp.async ring kRing - 1 stages ahead,
+// and the candidate is merged by the sweep that reads it. The cost sums in
+// the per-pass rollout's order, (J + dx'Q dx) + du'R du, and stream.cu runs
+// the same rollout sweep, so the two kernels add up each candidate alike.
+#define QILQR_TEAM_LANES 8  // lanes per scenario (PERF.md section 6)
+#include "team_trip.cuh"
 
 namespace qilqr {
 
@@ -35,26 +41,28 @@ struct SolveIO {
   T* cost;       // out (B,)
   int* iters;    // out (B,)
   int* status;   // out (B,)
-  T* ks;         // scratch (N, 4, B)
-  T* bigks;      // scratch (N, 4, 12, B)
+  T* gains;      // scratch (N, B, 52): k | K
   Traj<T> best;  // scratch (N, d, B): the line search's candidate
   int max_iters, ls_max_iters;
   T quu_reg, rtol, atol, ls_step, ls_frac;
 };
 
 template <typename T>
-__global__ void solve_kernel(Problem<T> P, SolveIO<T> io) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= P.B) return;
-  const int B = P.B, N = P.N;
-  copy_traj(io.x0, io.live, B, N, b);
+__global__ void __launch_bounds__(kTeamThreads) solve_kernel(Problem<T> P, SolveIO<T> io) {
+  Team<T> tm;
+  if (!team_setup(P, &tm)) return;
+  const Problem<T> Ps = smem_problem(P, tm);
+  team_copy_traj(tm, P, io.x0, io.live);
   // the loop never runs: report the initial trajectory's true cost
-  T cost = io.max_iters == 0 ? trajectory_cost_lane(P, io.live, b) : T(0);
+  T cost = io.max_iters == 0 ? team_trajectory_cost(tm, P, io.live) : T(0);
   int status = 0, iters = 0;
+  bool take = false;  // the candidate in best is the live trajectory, not merged yet
   for (int i = 0; i < io.max_iters; ++i) {
-    // ---- backward pass ----
+    // ---- backward pass, merging the last trip's candidate ----
     T qutk, ktquuk;
-    backward_lane(P, io.quu_reg, io.live, io.ks, io.bigks, b, &qutk, &ktquuk);
+    team_backward(tm, P, Ps, io.quu_reg, take ? io.best : io.live, take, io.live, io.gains,
+                  &qutk, &ktquuk);
+    take = false;
 
     // ---- trip gate (solve.py _trip_gate): pre-check on the expected cost ----
     const T current = cost;
@@ -62,25 +70,30 @@ __global__ void solve_kernel(Problem<T> P, SolveIO<T> io) {
     const bool pre_conv = i > 0 && converged(current, expected, io.rtol, io.atol);
     const bool active = !pre_conv;
 
-    // ---- line search, each probe kept as the candidate; trip 0 force-accepts ----
+    // ---- line search, each probe stored as the candidate; trip 0 force-accepts ----
     LineSearch<T> ls{false, current, T(1), 0};
     if (active) {
-      ls = exact_line_search(P, io.live, io.ks, io.bigks, qutk, ktquuk, current, i == 0,
-                             io.ls_max_iters, io.ls_step, io.ls_frac, io.best, true, b);
-      copy_traj(io.best, io.live, B, N, b);
+      ls = team_line_search(tm, P, io.live, io.best, true, io.gains, qutk, ktquuk, current,
+                            i == 0, io.ls_max_iters, io.ls_step, io.ls_frac);
+      take = true;
     }
     if (exact_trip_close(i == 0, pre_conv, active, ls, current, io.rtol, io.atol, &cost,
                          &status, &iters)) {
       break;
     }
   }
-  io.cost[b] = cost;
-  io.iters[b] = iters;
-  io.status[b] = status;
+  ring_drain();
+  // the last trip's candidate was never merged by a following sweep
+  if (take) team_copy_traj(tm, P, io.best, io.live);
+  if (tm.lane == 0) {
+    io.cost[tm.b] = cost;
+    io.iters[tm.b] = iters;
+    io.status[tm.b] = status;
+  }
 }
 
 // packed operands after the Problem block:
-//   ptrs:  q t v u  oq ot ov ou  cost iters status  ks bigks  bq bt bv bu
+//   ptrs:  q t v u  oq ot ov ou  cost iters status  gains  bq bt bv bu
 //   ints:  max_iters ls_max_iters
 //   reals: quu_reg rtol atol ls_step ls_frac
 template <typename T>
@@ -90,15 +103,15 @@ int launch_solve(const void* const* ptrs, const long long* ints, const double* r
   const void* const* p = ptrs + kProblemPtrs;
   const long long* ip = ints + kProblemInts;
   const double* rp = reals + kProblemReals;
+  auto out = [&](int i) { return const_cast<void*>(p[i]); };
   SolveIO<T> io;
   io.x0 = traj_from<T>(p);
   io.live = traj_from<T>(p + 4);
-  io.cost = static_cast<T*>(const_cast<void*>(p[8]));
-  io.iters = static_cast<int*>(const_cast<void*>(p[9]));
-  io.status = static_cast<int*>(const_cast<void*>(p[10]));
-  io.ks = static_cast<T*>(const_cast<void*>(p[11]));
-  io.bigks = static_cast<T*>(const_cast<void*>(p[12]));
-  io.best = traj_from<T>(p + 13);
+  io.cost = static_cast<T*>(out(8));
+  io.iters = static_cast<int*>(out(9));
+  io.status = static_cast<int*>(out(10));
+  io.gains = static_cast<T*>(out(11));
+  io.best = traj_from<T>(p + 12);
   io.max_iters = static_cast<int>(ip[0]);
   io.ls_max_iters = static_cast<int>(ip[1]);
   io.quu_reg = static_cast<T>(rp[0]);
@@ -106,10 +119,7 @@ int launch_solve(const void* const* ptrs, const long long* ints, const double* r
   io.atol = static_cast<T>(rp[2]);
   io.ls_step = static_cast<T>(rp[3]);
   io.ls_frac = static_cast<T>(rp[4]);
-  if (P.B == 0) return 0;
-  solve_kernel<T><<<blocks_for(P.B), kThreadsPerBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      P, io);
-  return static_cast<int>(cudaGetLastError());
+  return team_launch(solve_kernel<T>, P.B, team_block_bytes<T>(P.s_qr, P.s_par), stream, P, io);
 }
 
 }  // namespace qilqr
@@ -126,4 +136,8 @@ extern "C" int qilqr_solve_f64(const void* const* ptrs, const long long* ints,
 
 extern "C" const char* qilqr_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+extern "C" int qilqr_solve_team_info(int f64, int s_qr, int s_par, long long* out) {
+  return qilqr::team_info(f64, s_qr, s_par, out);
 }

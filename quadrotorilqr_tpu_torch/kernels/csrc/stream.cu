@@ -29,7 +29,8 @@
 // cp.async ring kRing - 1 stages ahead (the TPU kernel's `chunk` window).
 // It reports the backward passes, probe sweeps and apply sweeps each
 // scenario ran.
-#include "team.cuh"
+#define QILQR_TEAM_LANES 8  // lanes per scenario (PERF.md section 6)
+#include "team_trip.cuh"
 
 namespace qilqr {
 
@@ -48,111 +49,6 @@ struct StreamIO {
   T quu_reg, rtol, atol, ls_step, ls_frac;
 };
 
-// The reverse sweep of the team's scenario over x (backward_lane): k|K of
-// every stage into the gains scratch; the sums of Qu.k and k.Quu.k.
-template <typename T>
-__device__ __forceinline__ void team_backward(const Team<T>& tm, const Problem<T>& P,
-                                              const Problem<T>& Ps, T quu_reg, const Traj<T>& x,
-                                              T* gains, T* qutk, T* ktquuk) {
-  team_zero_value(tm);
-  T sum_qutk = T(0), sum_ktquuk = T(0);
-  ring_sweep(tm, P, RingSrc<T>{x, nullptr, nullptr}, true, [&](int n, const T* slot) {
-    T a, c;
-    team_riccati_stage<T, false>(tm, Ps, quu_reg, slot, &a, &c);
-    sum_qutk = sum_qutk + a;
-    sum_ktquuk = sum_ktquuk + c;
-    team_put_row(tm, tm.s->gains, scratch_row(gains, P.B, n, tm.b, 52), 52);
-    return true;
-  });
-  *qutk = sum_qutk;
-  *ktquuk = sum_ktquuk;
-}
-
-// Closed-loop rollout of the team's scenario with step alpha (rollout_lane):
-// per stage u_n = u_old_n + alpha k_n + K_n (x_n (-) x_old_n), the running
-// cost c + dx'Q dx + du'R du, the stage written back into x when `store`
-// (stage n is read before it is written), then the carry stepped. Never
-// inlined, and the store is a runtime flag: a cost-only probe and the sweep
-// that writes its candidate run the same instructions.
-template <typename T>
-__device__ __noinline__ T team_rollout(Team<T> tm, Problem<T> P, Traj<T> x, const T* gains,
-                                       T alpha, bool store) {
-  const Problem<T> Ps = smem_problem(P, tm);
-  const Tile tile = team_tile();
-  T q[4], t[3], v[6];
-  T cost = T(0);
-  ring_sweep(tm, P, RingSrc<T>{x, gains, nullptr}, false, [&](int n, const T* slot) {
-    T qo[4], to[3], vo[6], uo[4], dx[12], u[4];
-    read_stage(slot + kSlotLive, qo, to, vo, uo);
-    if (n == 0) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) q[i] = qo[i];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) t[i] = to[i];
-#pragma unroll
-      for (int i = 0; i < 6; ++i) v[i] = vo[i];
-    }
-    state_minus(q, t, v, qo, to, vo, dx);
-    const T* g = slot + kSlotGains;
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      T fb = g[4 + a * 12] * dx[0];
-#pragma unroll
-      for (int j = 1; j < 12; ++j) fb += g[4 + a * 12 + j] * dx[j];
-      u[a] = (uo[a] + alpha * g[a]) + fb;
-    }
-    T xq, ur;
-    team_cost_terms(tile, tm.lane, tm.cc, slot + kSlotDes, q, t, v, u, &xq, &ur);
-    cost = cost + xq + ur;
-    if (store) team_store_stage(tm, x, P.B, n, q, t, v, u);
-    dynamics_step(Ps, 0, q, t, v, u);
-    return true;
-  });
-  return cost;
-}
-
-// The cost of the team's trajectory x, summed stage by stage as the rollout
-// sums it (trajectory_cost_lane).
-template <typename T>
-__device__ __forceinline__ T team_trajectory_cost(const Team<T>& tm, const Problem<T>& P,
-                                                  const Traj<T>& x) {
-  const Tile tile = team_tile();
-  T cost = T(0);
-  ring_sweep(tm, P, RingSrc<T>{x, nullptr, nullptr}, false, [&](int n, const T* slot) {
-    T q[4], t[3], v[6], u[4], xq, ur;
-    read_stage(slot + kSlotLive, q, t, v, u);
-    team_cost_terms(tile, tm.lane, tm.cc, slot + kSlotDes, q, t, v, u, &xq, &ur);
-    cost = cost + xq + ur;
-    return true;
-  });
-  return cost;
-}
-
-// The backtracking line search (exact_line_search) with cost-only probes:
-// probe j rolls out at alpha = ls_step^j and is accepted when its cost
-// change falls below ls_frac dJ(alpha), or at once with `force`. A search
-// that runs out ends on the alpha it last tried.
-template <typename T>
-__device__ __forceinline__ LineSearch<T> team_line_search(const Team<T>& tm, const Problem<T>& P,
-                                                          const Traj<T>& x, const T* gains,
-                                                          T qutk, T ktquuk, T current, bool force,
-                                                          int ls_max_iters, T ls_step,
-                                                          T ls_frac) {
-  LineSearch<T> ls{false, current, T(1), 0};
-  T alpha = T(1);
-  for (int j = 0; j < ls_max_iters; ++j) {
-    const T cand = team_rollout(tm, P, x, gains, alpha, false);
-    const T desired = ls_frac * (alpha * qutk + alpha * alpha * ktquuk * T(0.5));
-    ls.cost = cand;
-    ls.alpha = alpha;
-    ls.stages += P.N;
-    ls.accepted = (cand - current) < desired || force;
-    if (ls.accepted) break;
-    alpha = alpha * ls_step;
-  }
-  return ls;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kTeamThreads) stream_kernel(Problem<T> P, StreamIO<T> io) {
   Team<T> tm;
@@ -166,7 +62,7 @@ __global__ void __launch_bounds__(kTeamThreads) stream_kernel(Problem<T> P, Stre
   for (int i = 0; i < io.max_iters; ++i) {
     // ---- backward pass ----
     T qutk, ktquuk;
-    team_backward(tm, P, Ps, io.quu_reg, io.live, io.gains, &qutk, &ktquuk);
+    team_backward(tm, P, Ps, io.quu_reg, io.live, false, io.live, io.gains, &qutk, &ktquuk);
     ++passes;
 
     // ---- trip gate (solve.py _trip_gate): pre-check on the expected cost ----
@@ -178,10 +74,10 @@ __global__ void __launch_bounds__(kTeamThreads) stream_kernel(Problem<T> P, Stre
     // ---- cost-only probes; trip 0 force-accepts; then the apply sweep ----
     LineSearch<T> ls{false, current, T(1), 0};
     if (active) {
-      ls = team_line_search(tm, P, io.live, io.gains, qutk, ktquuk, current, i == 0,
-                            io.ls_max_iters, io.ls_step, io.ls_frac);
+      ls = team_line_search(tm, P, io.live, io.live, false, io.gains, qutk, ktquuk, current,
+                            i == 0, io.ls_max_iters, io.ls_step, io.ls_frac);
       stages += ls.stages;
-      team_rollout(tm, P, io.live, io.gains, ls.alpha, true);
+      team_rollout(tm, P, io.live, io.live, io.gains, ls.alpha, true);
       ++applies;
     }
     if (exact_trip_close(i == 0, pre_conv, active, ls, current, io.rtol, io.atol, &cost,
@@ -245,18 +141,6 @@ extern "C" int qilqr_stream_f64(const void* const* ptrs, const long long* ints,
   return qilqr::launch_stream<double>(ptrs, ints, reals, stream);
 }
 
-// The streamed kernels' launch geometry: out = (lanes per scenario, teams per
-// block, threads per block, shared bytes per block, ring slots, shared bytes
-// of one team's state) for float64 (f64 != 0) or float32 and the operand
-// groups' B-strides.
-extern "C" int qilqr_team_info(int f64, int s_qr, int s_par, long long* out) {
-  out[0] = qilqr::kTeamLanes;
-  out[1] = qilqr::kTeamsPerBlock;
-  out[2] = qilqr::kTeamThreads;
-  out[3] = static_cast<long long>(f64 ? qilqr::team_block_bytes<double>(s_qr, s_par)
-                                      : qilqr::team_block_bytes<float>(s_qr, s_par));
-  out[4] = qilqr::kRing;
-  out[5] = static_cast<long long>(f64 ? sizeof(qilqr::TeamState<double>)
-                                      : sizeof(qilqr::TeamState<float>));
-  return 0;
+extern "C" int qilqr_stream_team_info(int f64, int s_qr, int s_par, long long* out) {
+  return qilqr::team_info(f64, s_qr, s_par, out);
 }

@@ -1,9 +1,11 @@
-// The team stage pieces of the streamed kernels (stream.cu, stream_fddp.cu):
-// one scenario served by a team of kTeamLanes lanes of one warp.
+// The team stage pieces of the whole-solve and streamed kernels (solve.cu,
+// fddp.cu, stream.cu, stream_fddp.cu): one scenario served by a team of
+// kTeamLanes lanes of one warp. team_trip.cuh builds their sweeps and line
+// searches from these pieces.
 //
-// Counterpart of the stage bodies of quadrotorilqr_tpu/kernels/stream.py
-// and stream_fddp.py, whose TPU kernels stream `chunk` stages at a time
-// through VMEM ahead of compute. Here:
+// Counterpart of the stage bodies of quadrotorilqr_tpu/kernels/solve.py,
+// fddp.py, stream.py and stream_fddp.py; the streamed TPU kernels stream
+// `chunk` stages at a time through VMEM ahead of compute. Here:
 //   * the per-scenario Riccati state (V_xx, Q_xx, X = V_xx j_x, the j_x
 //     blocks, k|K, V_xx j_u, the gain system's pieces) lives in shared
 //     memory (TeamState), not on a thread's stack;
@@ -18,16 +20,18 @@
 //     blocks, the 4x4 Cholesky solve, the line-search and trip logic) run
 //     in every lane of the team on identical inputs, through the per-thread
 //     code of quadrotor.cuh, so every branch is team-uniform;
-//   * stage operands (the live stage, k|K, the defects, the desired stage)
-//     are prefetched with cp.async into a ring of kRing slots in shared
-//     memory, kRing - 1 stages ahead of the stage being computed: the
-//     counterpart of the TPU kernels' `chunk` window.
+//   * stage operands (the live or candidate stage, k|K, the defects, the
+//     desired stage) are prefetched with cp.async into a ring of kRing slots
+//     in shared memory, kRing - 1 stages ahead of the stage being computed:
+//     the counterpart of the TPU kernels' `chunk` window.
 //
 // Layout of the kernel-private scratch: k|K as (N, B, 52) (k first, then K
 // row-major) and the defects as (N, B, 12), so that a team's row is one
-// contiguous run of 16-byte chunks. Every global element a sweep stores and
-// a later sweep reads back is stored and read by the same lane (element e
-// of a stage, or 16-byte chunk e of a row, by lane e % kTeamLanes).
+// contiguous run of 16-byte chunks; the candidate trajectory of the
+// whole-solve kernels is (N, d, B), as the live one. Every global element a
+// sweep stores and a later sweep reads back is stored and read by the same
+// lane (element e of a stage, or 16-byte chunk e of a row, by lane
+// e % kTeamLanes).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -37,12 +41,23 @@
 
 #include "quadrotor.cuh"
 
+// Lanes per scenario: each kernel's source defines QILQR_TEAM_LANES before it
+// includes this header, chosen for that kernel by measurement on the H100
+// (PERF.md section 6). The team pieces of each size live in an inline
+// namespace of their own (team4, team8, ...), so that kernels of different
+// team sizes link into one library.
+#ifndef QILQR_TEAM_LANES
+#error "define QILQR_TEAM_LANES (lanes per scenario) before including team.cuh"
+#endif
+#define QILQR_TEAM_NS_(g) team##g
+#define QILQR_TEAM_NS(g) QILQR_TEAM_NS_(g)
+
 namespace qilqr {
+inline namespace QILQR_TEAM_NS(QILQR_TEAM_LANES) {
 
 namespace cg = cooperative_groups;
 
-// Lanes per scenario, chosen by measurement on the H100 (PERF.md section 6).
-constexpr int kTeamLanes = 8;
+constexpr int kTeamLanes = QILQR_TEAM_LANES;
 static_assert(kTeamLanes == 4 || kTeamLanes == 8 || kTeamLanes == 16,
               "a team is 4, 8 or 16 lanes of one warp");
 constexpr int kTeamThreads = 32;  // one warp a block
@@ -269,6 +284,17 @@ __device__ __forceinline__ void team_copy_traj(const Team<T>& tm, const Problem<
   }
 }
 
+// stage n of x <- the trajectory stage a sweep fetched into `slot` (the
+// merge of a candidate into the live trajectory), element e by lane
+// e % kTeamLanes, the lane that fetched it
+template <typename T>
+__device__ __forceinline__ void team_merge_stage(const Team<T>& tm, const Traj<T>& x, int B, int n,
+                                                 const T* slot) {
+  for (int e = tm.lane; e < kStage; e += kTeamLanes) {
+    *traj_elem(x, B, n, e, tm.b) = slot[kSlotLive + e];
+  }
+}
+
 // values of T in one 16-byte chunk
 template <typename T>
 constexpr int kChunk = 16 / static_cast<int>(sizeof(T));
@@ -288,18 +314,18 @@ __device__ __forceinline__ void team_put_row(const Team<T>& tm, const T* src, T*
   }
 }
 
-// Which operands a sweep fetches into the ring (the live and desired
-// stages always).
+// Which operands a sweep fetches into the ring (a trajectory's stage and the
+// desired stage always).
 template <typename T>
 struct RingSrc {
-  Traj<T> x;       // the live trajectory
+  Traj<T> x;       // the live trajectory, or the candidate a sweep merges
   const T* gains;  // (N, B, 52) k|K, or null
   const T* d;      // (N, B, 12) defects, or null
 };
 
 // Issues the copies of stage n's operands into `slot`: element e of the
-// live and desired stages by lane e % kTeamLanes, 16-byte chunks of the
-// gains and defect rows likewise.
+// trajectory's and the desired stage by lane e % kTeamLanes, 16-byte chunks
+// of the gains and defect rows likewise.
 template <typename T>
 __device__ __forceinline__ void ring_fetch(const Team<T>& tm, const Problem<T>& P,
                                            const RingSrc<T>& src, int n, T* slot) {
@@ -509,7 +535,7 @@ struct StageVals {
 };
 
 // dx'Q dx + du'R du of one stage: never inlined, so the FDDP seed sweep and
-// every probe evaluate it with the same instructions (fddp_stage_cost)
+// every probe evaluate it with the same instructions (fddp.py stage_cost)
 template <typename T>
 __device__ __noinline__ T team_fddp_stage_cost(const CostConsts<T>* cc, const T* des,
                                                StageVals<T> x) {
@@ -533,8 +559,8 @@ __device__ __forceinline__ void team_jx_blocks(const Problem<T>& Ps, const T* q,
   *out = J;
 }
 
-// The exact c_xx pose-block correction (add_cxx_correction) into S.qxx, from
-// dx, S.W and z = S.qdx[0:6].
+// The exact c_xx pose-block correction (backward.py _cxx_corr_lanes) into
+// S.qxx, from dx, S.W and z = S.qdx[0:6].
 template <typename T>
 __device__ __forceinline__ void team_cxx_correction(const Team<T>& tm, const Tile& tile,
                                                     const T* dx) {
@@ -660,7 +686,8 @@ __device__ __forceinline__ void team_cost_diffs(const Team<T>& tm, const Tile& t
   }
 }
 
-// sum_i (v_x)_i f_xx[i] into S.qxx (add_vfxx), from S.v_x and S.J
+// sum_i (v_x)_i f_xx[i] into S.qxx (backward.py _vfxx_lanes), from S.v_x
+// and S.J
 template <typename T>
 __device__ __forceinline__ void team_add_vfxx(const Team<T>& tm, const Tile& tile,
                                               const Problem<T>& Ps, const T* q, const T* vel) {
@@ -874,7 +901,7 @@ __device__ __forceinline__ void team_zero_value(const Team<T>& tm) {
 }
 
 // The exact quadratic model's terms at the live stage in `slot`
-// (fddp_model_stage): w = k + K p, L1 += c_x'p + c_u'w, L2 += (p'c_xx p +
+// (fddp.py mstage): w = k + K p, L1 += c_x'p + c_u'w, L2 += (p'c_xx p +
 // w'2R w) / 2, and p2 = J_x p + J_u w.
 template <typename T, bool kDdp>
 __device__ __forceinline__ void team_model_stage(const Team<T>& tm, const Problem<T>& Ps,
@@ -932,4 +959,20 @@ inline int team_launch(Kernel kernel, int batch, size_t smem, void* stream, Args
   return static_cast<int>(cudaGetLastError());
 }
 
+// The launch geometry of this team size: out = (lanes per scenario, teams per
+// block, threads per block, shared bytes per block, ring slots, shared bytes
+// of one team's state) for float64 (f64 != 0) or float32 and the operand
+// groups' B-strides.
+inline int team_info(int f64, int s_qr, int s_par, long long* out) {
+  out[0] = kTeamLanes;
+  out[1] = kTeamsPerBlock;
+  out[2] = kTeamThreads;
+  out[3] = static_cast<long long>(f64 ? team_block_bytes<double>(s_qr, s_par)
+                                      : team_block_bytes<float>(s_qr, s_par));
+  out[4] = kRing;
+  out[5] = static_cast<long long>(f64 ? sizeof(TeamState<double>) : sizeof(TeamState<float>));
+  return 0;
+}
+
+}  // namespace team
 }  // namespace qilqr

@@ -2,9 +2,10 @@
 
 Counterpart of `quadrotorilqr_tpu/kernels/fddp.py:978` (`solve_fddp_fused`
 over the Pallas `_fddp_kernel`). `csrc/fddp.cu` runs each scenario's whole
-FDDP solve in one thread: per trip a reverse sweep that merges the previous
-trip's accepted candidate, computes the defects and runs the gap-transported
-Riccati stage (Gauss-Newton, or exact DDP curvature with `ddp=True`), then
+FDDP solve with one team of lanes of a warp per scenario (`csrc/team.cuh`):
+per trip a reverse sweep that merges the previous trip's accepted
+candidate, computes the defects and runs the gap-transported Riccati stage
+(Gauss-Newton, or exact DDP curvature with `ddp=True`), then
 the Goldstein line search with gap-contracting rollouts (probe 0 also
 carries the exact quadratic model; with no probes every trip rejects), then
 the per-lane mu schedule and status. Trajectories, gains and defects stay
@@ -102,16 +103,10 @@ def _launch(
     iters, status, defect_trips = (
         torch.empty((batch,), dtype=torch.int32, device=device) for _ in range(3)
     )
-    if streamed:
-        # one contiguous row per scenario and stage: k | K, and the defects
-        scratch = [torch.empty((n, batch, w), **kw) for w in (GAINS_WIDTH, 12)]
-    else:
-        scratch = [
-            torch.empty((n, CONTROL_DIM, batch), **kw),
-            torch.empty((n, CONTROL_DIM, 12, batch), **kw),
-            *(torch.empty((n, d, batch), **kw) for d in (4, 3, 6, CONTROL_DIM)),
-            torch.empty((n, 12, batch), **kw),
-        ]
+    # one contiguous row per scenario and stage: k | K, and the defects
+    # (csrc/team.cuh); fddp.cu also keeps the line search's candidate
+    gains, defects = (torch.empty((n, batch, w), **kw) for w in (GAINS_WIDTH, 12))
+    best = [] if streamed else [torch.empty((n, d, batch), **kw) for d in (4, 3, 6, CONTROL_DIM)]
     rows = [
         _resume_row(initial_mu, batch, dtype, device),
         _resume_row(initial_status, batch, torch.int32, device),
@@ -119,7 +114,7 @@ def _launch(
     ]
     ops = ops.extend(
         [*_traj_lanes(traj, dtype, device), *rows, *live, cost_out, iters, status, mu_out,
-         probes, *scratch, defect_trips, *applies],
+         probes, gains, *best, defects, defect_trips, *applies],
         ints=[int(cc.max_iters), int(ls.max_iters), int(bool(ddp))],
         reals=[
             options.quu_reg, cc.rtol, cc.atol, ls.step_update, fddp.alpha_jump(ls.step_update),

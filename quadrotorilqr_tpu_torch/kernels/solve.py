@@ -3,11 +3,12 @@
 Counterpart of `quadrotorilqr_tpu/kernels/solve.py:618` (`solve_fused_whole`
 over the Pallas `_solve_kernel`). `csrc/solve.cu` runs each scenario's whole
 solve (backward pass, line search, convergence checks, status and
-iterations) in one thread, keeping the live, candidate and gain
-trajectories in device memory, so any horizon fits; the batch solver sends
-horizons past 256 stages to `kernels/stream.py`, the candidate-free
-variant, as the JAX package routes them. `solve_fused_whole` launches it for
-CUDA tensors and takes `solve_whole_reference` only for CPU tensors.
+iterations) with one team of lanes of a warp per scenario (`csrc/team.cuh`),
+keeping the live, candidate and gain trajectories in device memory, so any
+horizon fits; the batch solver sends horizons past 256 stages to
+`kernels/stream.py`, the candidate-free variant, as the JAX package routes
+them. `solve_fused_whole` launches it for CUDA tensors and takes
+`solve_whole_reference` only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from ..solver import ilqr
 from ..solver.options import ILQROptions
 from . import _build
 from .backward import _check_cuda, _problem_operands, _traj_from_lanes, _traj_lanes
+from .stream import GAINS_WIDTH
 
 
 def solve_whole_reference(params, cost, traj, dt_s, options: ILQROptions):
@@ -52,14 +54,21 @@ def solve_fused_whole(
             "use solver.batched.solve_batch_fused (or solve_batch_latency, which "
             "routes there) for zero-probe runs"
         )
-    controls = traj.controls
-    device = controls.device
+    device = traj.controls.device
     if device.type == "cpu":
         return solve_whole_reference(params, cost, traj, dt_s, options)
     _check_cuda(device)
-    dtype = controls.dtype
-    batch, n = controls.shape[0], controls.shape[1]
+    out = _launch(params, cost, traj, dt_s, options)
+    solve_fused_whole.launches += 1
+    return out
+
+
+def _launch(params, cost, traj, dt_s, options):
+    dtype = traj.controls.dtype
+    device = traj.controls.device
+    batch, n = traj.controls.shape[0], traj.controls.shape[1]
     cc = options.convergence_criteria
+    ls = options.line_search_params
     ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device)
     kw = dict(dtype=dtype, device=device)
     live = [torch.empty((n, d, batch), **kw) for d in (4, 3, 6, CONTROL_DIM)]
@@ -67,15 +76,14 @@ def solve_fused_whole(
     cost_out = torch.empty((batch,), **kw)
     iters = torch.empty((batch,), dtype=torch.int32, device=device)
     status = torch.empty((batch,), dtype=torch.int32, device=device)
-    ks = torch.empty((n, CONTROL_DIM, batch), **kw)
-    big_ks = torch.empty((n, CONTROL_DIM, 12, batch), **kw)
+    # k | K of every stage, one contiguous row per scenario (csrc/team.cuh)
+    gains = torch.empty((n, batch, GAINS_WIDTH), **kw)
     ops = ops.extend(
-        [*_traj_lanes(traj, dtype, device), *live, cost_out, iters, status, ks, big_ks, *best],
+        [*_traj_lanes(traj, dtype, device), *live, cost_out, iters, status, gains, *best],
         ints=[int(cc.max_iters), int(ls.max_iters)],
         reals=[options.quu_reg, cc.rtol, cc.atol, ls.step_update, ls.desired_reduction_frac],
     )
     _build.launch("qilqr_solve", dtype, ops.ptrs, ops.ints, ops.reals, device)
-    solve_fused_whole.launches += 1
     return _traj_from_lanes(traj.times, *live), cost_out, iters, status
 
 

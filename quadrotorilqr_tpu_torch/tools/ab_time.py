@@ -16,10 +16,14 @@ warm-up, the median of 5 of:
   * the aggressive tumble (B=4096, N=50, dt 0.1, scale 1.8, f32, 40
     iterations; benchmarks/run_all.py config 6) through
     `QuadrotorILQR(solver="fddp").solve_batch` (two `fddp.cu` launches), each
-    of the two launches on its own, and the single-phase `fddp.cu` launch;
+    of the two launches on its own, the single-phase `fddp.cu` launch, and
+    the Gauss-Newton launch with one line-search probe a trip (its reverse
+    sweeps and one probe sweep a trip, without the long searches of the
+    slowest lanes), beside the most trips and probe sweeps one lane ran;
   * the same two launches on `stream_fddp.cu`;
   * the bench workload (hover to waypoint, B=4096, N=100, f32, 10
-    iterations) through `solve_batch_latency` (`solve.cu`);
+    iterations) through `solve_batch_latency` (`solve.cu`), and on
+    `stream.cu`;
   * the long-horizon paths on `long_horizon_problem` (f32, B=4096), as
     chip_smoke.py drives them: exact iLQR at N=1024 through
     `solve_batch(latency=True)` (one `stream.cu` launch; 10 iterations) and
@@ -152,6 +156,22 @@ def measure(root):
         lambda: ksf.solve_fddp_streamed(*p_args, r_trajs, r_dt, gn_opts, r_fo))
     out["stream_fddp_ddp_ms"] = time_ms(lambda: ksf.solve_fddp_streamed(
         *p_args, gn[0], r_dt, ddp_opts, r_fo, ddp=True, **rows))
+    # the Gauss-Newton launch with one probe a trip: every trip's reverse
+    # sweep and one probe sweep, without the straggler lanes' long searches
+    p1_opts = ILQROptions(LineSearchParams(0.5, 0.5, 1), ConvergenceCriteria(1e-6, 1e-6, switch))
+    out["fddp_gn_p1_ms"] = time_ms(
+        lambda: kf.solve_fddp_fused(*p_args, r_trajs, r_dt, p1_opts, r_fo))
+    # the slowest lanes' work in the two launches: most trips, most probe
+    # sweeps (stages probed / N) of one lane
+    ddp_k = kf.solve_fddp_fused(*p_args, gn[0], r_dt, ddp_opts, r_fo, ddp=True, return_probes=True,
+                                **rows)
+    gn_k = kf.solve_fddp_fused(*p_args, r_trajs, r_dt, gn_opts, r_fo, return_probes=True)
+    out["fddp_lane_max"] = {
+        "gn_trips": int(gn_k[2].max()), "gn_probes": float(gn_k[4].max()),
+        "gn_probes_mean": float(gn_k[4].mean()),
+        "ddp_trips": int((ddp_k[2] - gn[2]).max()), "ddp_probes": float(ddp_k[4].max()),
+        "ddp_probes_mean": float(ddp_k[4].mean()),
+    }
     out["fddp_api_digest"] = digest(robust.solve_batch(r_trajs))
     out["stream_fddp_ddp_digest"] = digest(ksf.solve_fddp_streamed(
         *p_args, gn[0], r_dt, ddp_opts, r_fo, ddp=True, **rows))
@@ -170,6 +190,7 @@ def measure(root):
     s_args = (api.params, api.cost, trajs, 0.02, b_opts)
     out["solve_ms"] = time_ms(lambda: solve_batch_latency(*s_args))
     out["solve_digest"] = digest(solve_batch_latency(*s_args))
+    out["stream_bench_ms"] = time_ms(lambda: kst.solve_fused_streamed(*s_args))
 
     # the long-horizon paths, as chip_smoke.py builds them
     def api_for(params, cost, trajs, opts, **kw):

@@ -7,9 +7,10 @@ Tolerances as chip_smoke.py: backward k, K atol 1e-9 and QuTk, kTQuuk rtol
 FDDP solve status and iterations equal, cost rtol 1e-8, controls atol 1e-7;
 phases resumed from the kernel's own rows bit-equal to one launch. The
 streamed kernels also against their whole-solve twins on the card: status
-and iterations equal, cost rtol 1e-12, controls atol 1e-10; and at the edges
-of their team design (csrc/team.cuh): B of 1, 37 and 300, horizons of 1, 2
-and 40 stages, shared and per-scenario operand groups.
+and iterations equal, cost rtol 1e-12, controls atol 1e-10; and the four
+team kernels (csrc/team.cuh) at the edges of their design: B of 1, 37 and
+300, horizons of 1, 2 and 40 stages, shared and per-scenario operand
+groups.
 
 This file imports no JAX, so the card machine runs it without the JAX
 package's conftest:
@@ -328,17 +329,33 @@ def test_cuda_stream_fddp_two_phases_equal_one(card_problem):
     assert_bit_equal(SolveResult(*rest), SolveResult(*one))
 
 
-# ---- the streamed kernels' team design (csrc/team.cuh) at its edges ----
+# ---- the team design (csrc/team.cuh) at its edges ----
 # B not a multiple of the teams a block holds (1, 37, 300), horizons shorter
 # than the operand ring (N = 1, 2) and longer (40), and the cost operand
-# groups shared (B-stride 0) or per scenario (B-stride 1); each held against
-# its plain version at the bars above.
+# groups shared (B-stride 0) or per scenario (B-stride 1); each kernel held
+# against its plain version at the bars above. The whole-solve kernels and
+# their streamed twins share each plain result (`plain`): the streamed plain
+# loops give the whole ones' bits (tests/test_torch_stream.py).
 
 
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+
+
+@pytest.fixture(scope="module")
+def plain():
+    """The plain results of the edge cases, computed once per case:
+    plain(key, fn) returns fn() the first time `key` is asked for."""
+    cache = {}
+
+    def get(key, fn):
+        if key not in cache:
+            cache[key] = fn()
+        return cache[key]
+
+    return get
 
 
 def edge_problem(batch, n, per_scenario):
@@ -379,20 +396,38 @@ def assert_lanes(got, ref, rtol=1e-8):
 @pytest.mark.parametrize("groups", ["shared", "per_scenario"])
 @pytest.mark.parametrize("n", [1, 2, 40])
 @pytest.mark.parametrize("batch", [1, 37, 300])
-def test_cuda_stream_team_edges(card, batch, n, groups):
+def test_cuda_stream_team_edges(card, plain, batch, n, groups):
     """stream.cu against its plain version, lane for lane, with its
     backward-pass, probe and apply counts."""
     params, cost, traj = edge_problem(batch, n, groups == "per_scenario")
     got = kst.solve_fused_streamed(params, cost, traj, DT, OPTIONS, return_probes=True)
-    ref = kst.solve_streamed_reference(params, cost, traj, DT, OPTIONS)
+    ref = plain(("exact", batch, n, groups),
+                lambda: kst.solve_streamed_reference(params, cost, traj, DT, OPTIONS))
     assert_lanes(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", ["shared", "per_scenario"])
+@pytest.mark.parametrize("n", [1, 2, 40])
+@pytest.mark.parametrize("batch", [1, 37, 300])
+def test_cuda_solve_team_edges(card, plain, batch, n, groups):
+    """solve.cu against its plain version, lane for lane, and bit-equal to
+    stream.cu: the candidate stored by each probe is the trajectory
+    stream.cu's apply sweep writes."""
+    params, cost, traj = edge_problem(batch, n, groups == "per_scenario")
+    got = ks.solve_fused_whole(params, cost, traj, DT, OPTIONS)
+    ref = plain(("exact", batch, n, groups),
+                lambda: kst.solve_streamed_reference(params, cost, traj, DT, OPTIONS))
+    assert_lanes(got, ref[:4])
+    assert_bit_equal(SolveResult(*got),
+                     SolveResult(*kst.solve_fused_streamed(params, cost, traj, DT, OPTIONS)))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["gauss_newton", "ddp", "zero_probes"])
 @pytest.mark.parametrize("groups", ["shared", "per_scenario"])
 @pytest.mark.parametrize("batch,n", [(1, 2), (37, 40), (300, 2), (300, 40)])
-def test_cuda_stream_fddp_team_edges(card, batch, n, groups, case):
+def test_cuda_stream_fddp_team_edges(card, plain, batch, n, groups, case):
     """stream_fddp.cu against its plain version: Gauss-Newton lane for lane
     with its probe, defect-trip and apply counts; exact DDP at the DDP
     engines' bar (test_cuda_fddp_ddp_matches_plain); no line-search probes
@@ -404,15 +439,26 @@ def test_cuda_stream_fddp_team_edges(card, batch, n, groups, case):
     fddp.cu, and the per-thread streamed kernel this design replaced, agree
     with plain on about half of 300 lanes too."""
     params, cost, traj = edge_problem(batch, n, groups == "per_scenario")
-    fo = kf.fddp.FDDPOptions()
-    opts = FDDP_OPTIONS if n > 2 else _with_max_iters(FDDP_OPTIONS, 1)
-    if case == "zero_probes":
-        opts = ILQROptions(LineSearchParams(0.5, 0.5, 0), ConvergenceCriteria(1e-8, 1e-8, 5))
-    ddp = case == "ddp"
+    opts, ddp = fddp_edge_options(n, case)
     got = ksf.solve_fddp_streamed(
         params, cost, traj, DT, opts, ddp=ddp, return_mu=True, return_probes=True
     )
-    ref = ksf.solve_fddp_streamed_reference(params, cost, traj, DT, opts, fo, ddp)
+    ref = plain(("fddp", batch, n, groups, case), lambda: ksf.solve_fddp_streamed_reference(
+        params, cost, traj, DT, opts, kf.fddp.FDDPOptions(), ddp))
+    assert_fddp_edge(got, ref, traj, case)
+
+
+def fddp_edge_options(n, case):
+    """(options, ddp) of an FDDP edge case. At N=2 the line-searched cases
+    run one trip (test_cuda_stream_fddp_team_edges)."""
+    if case == "zero_probes":
+        return ILQROptions(LineSearchParams(0.5, 0.5, 0), ConvergenceCriteria(1e-8, 1e-8, 5)), False
+    return (FDDP_OPTIONS if n > 2 else _with_max_iters(FDDP_OPTIONS, 1)), case == "ddp"
+
+
+def assert_fddp_edge(got, ref, traj, case):
+    """An FDDP kernel's result against the plain loop's at the bar of its
+    case; the counts compared are those both results carry."""
     if case == "gauss_newton":
         assert_lanes(got, ref)
     elif case == "zero_probes":
@@ -427,3 +473,37 @@ def test_cuda_stream_fddp_team_edges(card, batch, n, groups, case):
         if strict.any():
             du = (got[0].controls - ref[0].controls).abs().amax((1, 2))
             assert rel[strict].max() <= 1e-8 and du[strict].max() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gauss_newton", "ddp", "zero_probes", "resumed"])
+@pytest.mark.parametrize("groups", ["shared", "per_scenario"])
+@pytest.mark.parametrize("batch,n", [(1, 2), (37, 40), (300, 2), (300, 40)])
+def test_cuda_fddp_team_edges(card, plain, batch, n, groups, case):
+    """fddp.cu against its plain version at the bars of
+    test_cuda_stream_fddp_team_edges, with its probe and defect-trip counts,
+    and against stream_fddp.cu at the twin bar (status and iterations equal,
+    cost rtol 1e-12, controls atol 1e-10): the two run one reverse sweep,
+    line search and gap sweep. `resumed`: a launch of 3 trips, then one of
+    the other 7 from its mu, status and iterations, gives the bits of one
+    launch of 10."""
+    params, cost, traj = edge_problem(batch, n, groups == "per_scenario")
+    if case == "resumed":
+        one = kf.solve_fddp_fused(params, cost, traj, DT, FDDP_OPTIONS)
+        first = kf.solve_fddp_fused(
+            params, cost, traj, DT, _with_max_iters(FDDP_OPTIONS, 3), return_mu=True
+        )
+        rest = kf.solve_fddp_fused(
+            params, cost, first[0], DT, _with_max_iters(FDDP_OPTIONS, 7),
+            initial_mu=first[4], initial_status=first[3], initial_iters=first[2],
+        )
+        assert_bit_equal(SolveResult(*rest), SolveResult(*one))
+        return
+    opts, ddp = fddp_edge_options(n, case)
+    got = kf.solve_fddp_fused(
+        params, cost, traj, DT, opts, ddp=ddp, return_mu=True, return_probes=True
+    )
+    ref = plain(("fddp", batch, n, groups, case), lambda: ksf.solve_fddp_streamed_reference(
+        params, cost, traj, DT, opts, kf.fddp.FDDPOptions(), ddp))
+    assert_fddp_edge(got, ref[:7], traj, case)
+    assert_twins(got, ksf.solve_fddp_streamed(params, cost, traj, DT, opts, ddp=ddp))
