@@ -6,8 +6,10 @@
 Builds the port's CUDA kernels from `quadrotorilqr_tpu_torch/kernels/csrc`,
 holds each kernel against its plain PyTorch version on the card (float64
 lane for lane at B=300, N=40; float32 at the main paths' shapes to quality
-bounds) and each streamed kernel against its whole-solve twin, and drives
-four main paths through `QuadrotorILQR.solve_batch`:
+bounds), each streamed kernel against its whole-solve twin, the per-pass
+kernels with lanes masked out against a full launch and their route
+(float64) against the whole-solve kernel, and drives four main paths
+through `QuadrotorILQR.solve_batch`:
 
   * exact iLQR on the hover-to-waypoint bench workload (B=4096, N=100,
     tolerance 1e-6, 10 iterations, 20 line-search probes), with
@@ -74,10 +76,10 @@ PEAK_BYTES = 3.35e12
 # Floating-point operations per scenario and stage, counted by hand from the
 # CUDA device functions (kernels/csrc/*.cuh; a multiply-add is 2, a square
 # root, sine, cosine, atan2 or division 1):
-#   Riccati stage, Gauss-Newton (riccati_stage): j_x blocks 1006 + cost
+#   Riccati stage, Gauss-Newton (team_riccati_stage): j_x blocks 1006 + cost
 #     diffs 3019 + Q-expansion 5675 + Cholesky gains 460 + value update 1914;
 #   the exact-DDP additions (kDdp): c_xx correction 3064 + sum v_x f_xx 3776;
-#   rollout stage (rollout_lane): state minus 227 + controls 100 + stage cost
+#   rollout stage (team_rollout): state minus 227 + controls 100 + stage cost
 #     566 + dynamics step 309;
 #   FDDP probe stage (rollout_gap_stage): the rollout stage plus the gap
 #     shrink, Exp and compose 210;
@@ -333,6 +335,37 @@ def main() -> int:
         f"max rel cost {rel:.3e} (rtol 1e-10)")
     check(err["rollout"] <= 1e-10 and rel <= 1e-10, "f64 rollout kernel disagrees with plain")
 
+    # the per-pass kernels with every third lane masked out: the computed
+    # lanes bit-equal to the full launches'; backward's gains (views of one
+    # (N, B, 52) buffer) handed to the rollout kernel without a copy
+    act = torch.arange(300, device=dev) % 3 != 1
+    k_full = kb.backward_pass_fused(params, cost, traj, DT)
+    k_part = kb.backward_pass_fused(params, cost, traj, DT, active=act)
+    r_part = kr.rollout_cost_fused(params, cost, traj, ref[0], ref[1], alpha, DT, active=act)
+    real_launch, handed = _build.launch, []
+
+    def spy(entry, *args):
+        if entry == "qilqr_rollout":
+            handed.append(args[1][12 + 4])  # the gains pointer, after Problem and q t v u
+        return real_launch(entry, *args)
+
+    _build.launch = spy
+    try:
+        kr.rollout_cost_fused(params, cost, traj, k_full[0], k_full[1], alpha, DT)
+    finally:
+        _build.launch = real_launch
+    torch.cuda.synchronize()
+    masked = all(bool((a[act] == b[act]).all()) for a, b in zip(k_part, k_full)) and all(
+        bool((a[act] == b[act]).all())
+        for a, b in zip((r_part[0].controls, r_part[0].states.pose.quat, r_part[1]),
+                        (g_traj.controls, g_traj.states.pose.quat, g_cost))
+    )
+    no_copy = handed == [k_full[0].data_ptr()]
+    log(f"f64 per-pass kernels with {int((~act).sum())} of 300 lanes masked out: the others "
+        f"bit-equal to the full launches {masked}; backward's gains reach the rollout kernel "
+        f"without a copy {no_copy}")
+    check(masked and no_copy, "the per-pass kernels' masked lanes or gains hand-over are wrong")
+
     opts = ILQROptions(LineSearchParams(0.5, 0.5, 20), ConvergenceCriteria(1e-8, 1e-8, 6))
     got = ks.solve_fused_whole(params, cost, traj, DT, opts)
     ref = ks.solve_whole_reference(params, cost, traj, DT, opts)
@@ -346,6 +379,18 @@ def main() -> int:
         f"statuses {torch.bincount(ref[3], minlength=3).tolist()}")
     check(same_status and same_iters and rel <= 1e-8 and err["solve"] <= 1e-7,
           "f64 whole-solve kernel disagrees with plain")
+    # the per-pass route (the loop on the host, one backward or rollout
+    # launch at a time) against solve.cu at the same bars
+    loop = solve_batch_fused(params, cost, traj, DT, opts)
+    torch.cuda.synchronize()
+    same = bool((loop.status == got[3]).all() and (loop.iterations == got[2]).all())
+    rel = float(((loop.cost - got[1]).abs() / got[1].abs()).max())
+    du = max_abs(loop.trajectory.controls, got[0].controls)
+    bits = int(((loop.status == got[3]) & (loop.iterations == got[2]) & (loop.cost == got[1])
+                & (loop.trajectory.controls == got[0].controls).flatten(1).all(1)).sum())
+    log(f"f64 per-pass route vs solve.cu: status and iterations equal {same}, max rel cost "
+        f"{rel:.3e} (rtol 1e-8), max |du| {du:.3e} (atol 1e-7); bit-equal on {bits} of 300 lanes")
+    check(same and rel <= 1e-8 and du <= 1e-7, "f64 per-pass route disagrees with solve.cu")
 
     def twins(got, ref, rtol=1e-12, atol=1e-10):
         """Status and iterations equal, cost within rtol, controls within
@@ -876,9 +921,10 @@ def main() -> int:
     solve_args = (b_params, b_cost, trajs, DT, bench_opts)
     ms = {}
     ms["solve"] = time_ms(lambda: solve_batch_latency(*solve_args))
-    ms["loop"] = time_ms(lambda: solve_batch_fused(*solve_args))
+    ms["loop"] = time_ms(lambda: api.solve_batch(trajs, fused=True))
     ms["plain"] = plain_solve_ms
-    for key, label in (("solve", "whole-solve kernel"), ("loop", "per-pass kernel loop"),
+    for key, label in (("solve", "whole-solve kernel"),
+                       ("loop", "per-pass route (QuadrotorILQR.solve_batch(fused=True))"),
                        ("plain", "plain PyTorch loop")):
         log(f"{label}: {ms[key]:.3f} ms per batch solve, {batch / ms[key] * 1e3:.1f} solves/s "
             f"(B={batch}, N={horizon}, f32) {card}")
@@ -1083,11 +1129,12 @@ def main() -> int:
         for name in ("backward", "rollout", "solve", "fddp", "stream", "stream_fddp")
     ]
     # the main paths' geometry: float32, Q/R and the model parameters shared
-    for k in kernels[2:]:
+    for k in kernels:
         g = team[(k["name"], "float32", (0, 0))]
         k["team"] = {"lanes": g[0], "teams_per_block": g[1], "smem_bytes_per_block": g[3]}
     for k in kernels[:2]:
         k["call_ms"] = call_ms[k["name"]]
+        k["route_ms"] = ms["loop"]
     kernels[2]["versus_stream_ms"] = {
         str(n_): {"solve": a, "stream": b} for n_, (a, b) in route.items()
     }

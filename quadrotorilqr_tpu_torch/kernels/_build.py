@@ -37,8 +37,9 @@ ENTRIES = (
     "qilqr_backward", "qilqr_rollout", "qilqr_solve", "qilqr_fddp", "qilqr_stream",
     "qilqr_stream_fddp",
 )
-# the kernels built on csrc/team.cuh, each with a qilqr_<name>_team_info entry
-TEAM_KERNELS = ("solve", "fddp", "stream", "stream_fddp")
+# the kernels built on csrc/team.cuh (every kernel), each with a
+# qilqr_<name>_team_info entry
+TEAM_KERNELS = ("backward", "rollout", "solve", "fddp", "stream", "stream_fddp")
 
 
 class _Library:

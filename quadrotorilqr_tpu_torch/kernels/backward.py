@@ -2,16 +2,19 @@
 
 Counterpart of `quadrotorilqr_tpu/kernels/backward.py:1062`
 (`backward_pass_fused` over the Pallas `_backward_kernel`). The CUDA kernel
-(`csrc/backward.cu`) runs one thread per scenario with per-stage buffers in
-the scenario-minor layout (N, d, B); the public function keeps the JAX
-signature and batch-leading (B, N, ...) tensors.
+(`csrc/backward.cu`) runs one team of lanes of a warp per scenario
+(`csrc/team.cuh`) on the scenario-minor trajectory (N, d, B) and writes the
+gains as one (N, B, 52) k|K buffer, the layout the rollout kernel reads; the
+public function keeps the JAX signature and hands back batch-leading
+(B, N, ...) views of it (`gains_views`).
 
 `backward_pass_fused` launches the kernel for CUDA tensors and takes the
 plain version, `backward_pass_reference`, only for CPU tensors.
 
-This module also holds the operand prep shared by the three kernels
+This module also holds the operand prep shared by every kernel
 (`_prep_cost`, `_problem_operands`; JAX `_prep_cost`/`CostBatched`,
-`kernels/backward.py:767-842`).
+`kernels/backward.py:767-842`) and the gains layout (`gains_views`,
+`gains_buffer`).
 """
 
 from __future__ import annotations
@@ -26,6 +29,10 @@ from ..models.quadrotor import CONTROL_DIM, State
 from ..solver import ilqr
 from . import _build
 from .models import prep_params
+
+
+# a row of the gains buffer: k (4), then K (4 x 12) row-major
+GAINS_WIDTH = CONTROL_DIM + CONTROL_DIM * 12
 
 
 class CostBatched(typing.NamedTuple):
@@ -148,6 +155,31 @@ def _traj_from_lanes(times, q, t, v, u):
     return ilqr.Trajectory(times=times, states=State(pose=SE3(quat=q, trans=t), vel=v), controls=u)
 
 
+def gains_views(gains):
+    """(ks (B, N, 4), Ks (B, N, 4, 12)): views of a (N, B, 52) k|K buffer."""
+    ks = gains[..., :CONTROL_DIM].transpose(0, 1)
+    big_ks = gains[..., CONTROL_DIM:].unflatten(-1, (CONTROL_DIM, 12)).transpose(0, 1)
+    return ks, big_ks
+
+
+def gains_buffer(ks, big_ks, dtype, device):
+    """The (N, B, 52) k|K buffer of (B, N, 4) / (B, N, 4, 12) gains: the
+    buffer itself, without a copy, when they are `gains_views` of one (as
+    `backward_pass_fused` returns them); else the gains packed into a new
+    one."""
+    batch, n = ks.shape[:2]
+    w = GAINS_WIDTH
+    if (
+        ks.dtype == big_ks.dtype == dtype and ks.device == big_ks.device == device
+        and ks.stride() == (w, w * batch, 1) and big_ks.stride() == (w, w * batch, 12, 1)
+        and big_ks.data_ptr() == ks.data_ptr() + CONTROL_DIM * ks.element_size()
+        and ks.data_ptr() % 16 == 0  # the kernels fetch a row in 16-byte chunks
+    ):
+        return ks.as_strided((n, batch, w), (w * batch, w, 1))
+    packed = torch.cat([_on(ks, dtype, device), _on(big_ks, dtype, device).flatten(-2)], -1)
+    return packed.transpose(0, 1).contiguous()
+
+
 def _active_lanes(active, batch, device):
     if active is None:
         return None
@@ -167,26 +199,33 @@ def backward_pass_fused(params, cost, traj, dt_s, quu_reg=0.0, active=None):
     Params and cost leaves may be shared or carry a leading B. `active` (B,)
     bool marks the lanes whose outputs the caller reads (None: all); the
     kernel skips the others and leaves their outputs unset.
-    Returns (ks (B, N, 4), Ks (B, N, 4, 12), QuTk (B,), kTQuuk (B,))."""
+    Returns (ks (B, N, 4), Ks (B, N, 4, 12), QuTk (B,), kTQuuk (B,)); on the
+    card ks and Ks are views of one (N, B, 52) buffer (`gains_views`)."""
     controls = traj.controls
     device = controls.device
     if device.type == "cpu":
         return backward_pass_reference(params, cost, traj, dt_s, quu_reg)
     _check_cuda(device)
-    dtype = controls.dtype
     batch, n = controls.shape[0], controls.shape[1]
-    ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device)
-    kw = dict(dtype=dtype, device=device)
-    ks = torch.empty((n, CONTROL_DIM, batch), **kw)
-    big_ks = torch.empty((n, CONTROL_DIM, 12, batch), **kw)
-    red = torch.empty((2, batch), **kw)
+    ops = _problem_operands(params, cost, batch, n, dt_s, controls.dtype, device)
+    return _launch(ops, traj, quu_reg, active)
+
+
+def _launch(ops, traj, quu_reg, active):
+    """The kernel on CUDA tensors, with the Problem operands `ops` packed
+    by `_problem_operands`."""
+    controls = traj.controls
+    dtype, device = controls.dtype, controls.device
+    batch, n = controls.shape[0], controls.shape[1]
+    gains = torch.empty((n, batch, GAINS_WIDTH), dtype=dtype, device=device)
+    red = torch.empty((2, batch), dtype=dtype, device=device)
     ops = ops.extend(
-        [*_traj_lanes(traj, dtype, device), _active_lanes(active, batch, device), ks, big_ks, red],
+        [*_traj_lanes(traj, dtype, device), _active_lanes(active, batch, device), gains, red],
         reals=[quu_reg],
     )
     _build.launch("qilqr_backward", dtype, ops.ptrs, ops.ints, ops.reals, device)
     backward_pass_fused.launches += 1
-    return ks.movedim(-1, 0), big_ks.movedim(-1, 0), red[0], red[1]
+    return (*gains_views(gains), red[0], red[1])
 
 
 backward_pass_fused.launches = 0

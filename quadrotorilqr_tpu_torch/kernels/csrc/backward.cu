@@ -1,26 +1,29 @@
-// Per-pass backward Riccati sweep of the exact iLQR, one thread per scenario.
+// Per-pass backward Riccati sweep of the exact iLQR, one team of
+// kTeamLanes lanes per scenario.
 //
 // Replaces the Pallas kernel quadrotorilqr_tpu/kernels/backward.py:
 // _backward_kernel (called through backward_pass_fused). For every scenario
 // it walks the horizon in reverse and, per stage, builds the block-sparse
 // dynamics Jacobian and the Gauss-Newton cost diffs, expands Q, solves the
 // 4x4 Cholesky gains and updates the symmetrized value function. Outputs:
-// k (N, 4, B), K (N, 4, 12, B) and [QuTk; kTQuuk] (2, B).
+// k|K as (N, B, 52) (k first, then K row-major: the gains scratch of the
+// whole-solve kernels, which the rollout kernel fetches as it is) and
+// [QuTk; kTQuuk] (2, B).
 //
-// What bounds it on an H100: one thread holds V_xx, Q_xx, the j_x blocks
-// and their products, about 400 values (3.2 KB in float64), far past the 255
-// registers a thread may use, so most of it lives in local memory
-// (L1-cached, spilled to L2). With one thread per scenario, B = 4096 gives
-// 128 warps, about one per SM, so nothing hides that latency; the kernel
-// is latency-bound, not bandwidth- or FLOP-bound.
-// What the design does about it: the j_x and j_u products skip the
-// structural zeros (the same block sparsity as the TPU kernel), the shared
-// operands (Q, R, params, desired trajectory at B-stride 0) are read by all
-// threads of a warp from one address, and the per-stage buffers are
-// scenario-minor so a warp's loads coalesce. Splitting a scenario's 12x12
-// products over several threads is the later work that would cut the
-// per-thread state.
-#include "quadrotor.cuh"
+// What bounds it on an H100: the dependent chain of one scenario's stages.
+// A Riccati stage is ~12k operations, each stage depending on the last; at
+// B = 4096 the card holds every scenario at once, so a launch lasts as long
+// as a scenario's chain, far above the bytes and operations bound (PERF.md
+// section 6). The per-thread design ran that chain in one thread with ~400
+// values of Riccati state in local memory. What this design does about it
+// (team.cuh, team_trip.cuh): the reverse sweep of the whole-solve kernels,
+// team_backward, run once: a team of lanes shares each scenario, the
+// Riccati state lives in shared memory, the 12x12 and 12x4 products are
+// split over the team by output entries, Q, R and the model parameters
+// are read from shared memory, and each stage's operands arrive through a
+// cp.async ring kRing - 1 stages ahead.
+#define QILQR_TEAM_LANES 8  // lanes per scenario (PERF.md section 6)
+#include "team_trip.cuh"
 
 namespace qilqr {
 
@@ -28,22 +31,29 @@ template <typename T>
 struct BackwardIO {
   Traj<T> x;                    // (N, d, B) trajectory
   const unsigned char* active;  // (B,) lanes to compute, or null for all
-  T* ks;                        // out (N, 4, B)
-  T* bigks;                     // out (N, 4, 12, B)
+  T* gains;                     // out (N, B, 52): k | K
   T* red;                       // out (2, B): QuTk, kTQuuk
   T quu_reg;
 };
 
 template <typename T>
-__global__ void backward_kernel(Problem<T> P, BackwardIO<T> io) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= P.B) return;
-  if (io.active != nullptr && io.active[b] == 0) return;
-  backward_lane(P, io.quu_reg, io.x, io.ks, io.bigks, b, &io.red[b], &io.red[P.B + b]);
+__global__ void __launch_bounds__(kTeamThreads) backward_kernel(Problem<T> P, BackwardIO<T> io) {
+  Team<T> tm;
+  if (!team_setup(P, &tm)) return;
+  // an inactive lane's team leaves whole, after the block-wide setup
+  if (io.active != nullptr && io.active[tm.b] == 0) return;
+  const Problem<T> Ps = smem_problem(P, tm);
+  T qutk, ktquuk;
+  team_backward(tm, P, Ps, io.quu_reg, io.x, false, io.x, io.gains, &qutk, &ktquuk);
+  ring_drain();
+  if (tm.lane == 0) {
+    io.red[tm.b] = qutk;
+    io.red[P.B + tm.b] = ktquuk;
+  }
 }
 
 // packed operands after the Problem block:
-//   ptrs:  q t v u  active  ks bigks red
+//   ptrs:  q t v u  active  gains red
 //   reals: quu_reg
 template <typename T>
 int launch_backward(const void* const* ptrs, const long long* ints, const double* reals,
@@ -53,14 +63,11 @@ int launch_backward(const void* const* ptrs, const long long* ints, const double
   BackwardIO<T> io;
   io.x = traj_from<T>(p);
   io.active = static_cast<const unsigned char*>(p[4]);
-  io.ks = static_cast<T*>(const_cast<void*>(p[5]));
-  io.bigks = static_cast<T*>(const_cast<void*>(p[6]));
-  io.red = static_cast<T*>(const_cast<void*>(p[7]));
+  io.gains = static_cast<T*>(const_cast<void*>(p[5]));
+  io.red = static_cast<T*>(const_cast<void*>(p[6]));
   io.quu_reg = static_cast<T>(reals[kProblemReals]);
-  if (P.B == 0) return 0;
-  backward_kernel<T><<<blocks_for(P.B), kThreadsPerBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      P, io);
-  return static_cast<int>(cudaGetLastError());
+  return team_launch(backward_kernel<T>, P.B, team_block_bytes<T>(P.s_qr, P.s_par), stream, P,
+                     io);
 }
 
 }  // namespace qilqr
@@ -73,4 +80,8 @@ extern "C" int qilqr_backward_f32(const void* const* ptrs, const long long* ints
 extern "C" int qilqr_backward_f64(const void* const* ptrs, const long long* ints,
                                   const double* reals, void* stream) {
   return qilqr::launch_backward<double>(ptrs, ints, reals, stream);
+}
+
+extern "C" int qilqr_backward_team_info(int f64, int s_qr, int s_par, long long* out) {
+  return qilqr::team_info(f64, s_qr, s_par, out);
 }

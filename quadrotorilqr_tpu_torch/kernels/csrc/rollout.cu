@@ -1,5 +1,5 @@
-// Closed-loop rollout with the tracking cost in the same sweep, one thread
-// per scenario.
+// Closed-loop rollout with the tracking cost in the same sweep, one team of
+// kTeamLanes lanes per scenario.
 //
 // Replaces the Pallas kernel quadrotorilqr_tpu/kernels/rollout.py:
 // _rollout_kernel (called through rollout_cost_fused):
@@ -7,26 +7,31 @@
 //     x_{n+1} = f(x_n, u_n)                       (Lie-Euler step)
 //     J      += (x_n (-) x_d,n)' Q (.) + (u_n - u_d,n)' R (.)
 // with a per-scenario step alpha. The cost accumulates stage by stage as
-// (J + dx'Q dx) + du'R du, the TPU kernel's order.
+// (J + dx'Q dx) + du'R du, the TPU kernel's order. The gains come as the
+// backward kernel writes them, k|K (N, B, 52).
 //
-// What bounds it on an H100: per stage a thread reads 17 trajectory values
-// and 52 gain values and writes 17; the trig of two SE(3) logs and one exp
-// is the arithmetic. At one thread per scenario, B = 4096 is about one warp
-// per SM, so the sweep is bound by the latency of each warp's dependent
-// chain, not by bandwidth (~3 MB per sweep in float32 at N = 100).
-// What the design does about it: all per-stage buffers are scenario-minor
-// (N, d, B), so each warp load is one coalesced transaction; the state and
-// control of the current stage stay in registers; shared operands are
-// broadcast reads at B-stride 0.
-#include "quadrotor.cuh"
+// What bounds it on an H100: the dependent chain of one scenario's stages
+// (two SE(3) logs, an exp and the dynamics step, ~1.2k operations a stage,
+// each stage depending on the last), far above the bytes and operations
+// bound (~3 MB and 0.5 GFLOP per sweep in float32 at B = 4096, N = 100;
+// PERF.md section 6). The per-thread design ran that chain in one thread
+// reading every stage operand from device memory when it needed it. What
+// this design does about it (team.cuh, team_trip.cuh): the whole-solve
+// kernels' rollout sweep, team_rollout, run once: a team of lanes shares
+// each scenario, the stage cost's Q dx is split over the team, Q, R and the
+// model parameters are read from shared memory, and each stage's
+// trajectory, gains and desired operands arrive through a cp.async ring
+// kRing - 1 stages ahead. team_rollout is never inlined, so these probes
+// and the whole-solve kernels' probes run the same instructions.
+#define QILQR_TEAM_LANES 8  // lanes per scenario (PERF.md section 6)
+#include "team_trip.cuh"
 
 namespace qilqr {
 
 template <typename T>
 struct RolloutIO {
   Traj<T> x;                    // (N, d, B) previous trajectory
-  const T* ks;                  // (N, 4, B)
-  const T* bigks;               // (N, 4, 12, B)
+  const T* gains;               // (N, B, 52): k | K
   const T* alpha;               // (B,)
   const unsigned char* active;  // (B,) lanes to compute, or null for all
   Traj<T> out;                  // out (N, d, B)
@@ -34,15 +39,18 @@ struct RolloutIO {
 };
 
 template <typename T>
-__global__ void rollout_kernel(Problem<T> P, RolloutIO<T> io) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= P.B) return;
-  if (io.active != nullptr && io.active[b] == 0) return;
-  io.cost[b] = rollout_lane(P, io.x, io.ks, io.bigks, io.alpha[b], io.out, true, b);
+__global__ void __launch_bounds__(kTeamThreads) rollout_kernel(Problem<T> P, RolloutIO<T> io) {
+  Team<T> tm;
+  if (!team_setup(P, &tm)) return;
+  // an inactive lane's team leaves whole, after the block-wide setup
+  if (io.active != nullptr && io.active[tm.b] == 0) return;
+  const T cost = team_rollout(tm, P, io.x, io.out, io.gains, io.alpha[tm.b], true);
+  ring_drain();
+  if (tm.lane == 0) io.cost[tm.b] = cost;
 }
 
 // packed operands after the Problem block:
-//   ptrs: q t v u  ks bigks alpha active  oq ot ov ou cost
+//   ptrs: q t v u  gains alpha active  oq ot ov ou cost
 template <typename T>
 int launch_rollout(const void* const* ptrs, const long long* ints, const double* reals,
                    void* stream) {
@@ -50,16 +58,13 @@ int launch_rollout(const void* const* ptrs, const long long* ints, const double*
   const void* const* p = ptrs + kProblemPtrs;
   RolloutIO<T> io;
   io.x = traj_from<T>(p);
-  io.ks = static_cast<const T*>(p[4]);
-  io.bigks = static_cast<const T*>(p[5]);
-  io.alpha = static_cast<const T*>(p[6]);
-  io.active = static_cast<const unsigned char*>(p[7]);
-  io.out = traj_from<T>(p + 8);
-  io.cost = static_cast<T*>(const_cast<void*>(p[12]));
-  if (P.B == 0) return 0;
-  rollout_kernel<T><<<blocks_for(P.B), kThreadsPerBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      P, io);
-  return static_cast<int>(cudaGetLastError());
+  io.gains = static_cast<const T*>(p[4]);
+  io.alpha = static_cast<const T*>(p[5]);
+  io.active = static_cast<const unsigned char*>(p[6]);
+  io.out = traj_from<T>(p + 7);
+  io.cost = static_cast<T*>(const_cast<void*>(p[11]));
+  return team_launch(rollout_kernel<T>, P.B, team_block_bytes<T>(P.s_qr, P.s_par), stream, P,
+                     io);
 }
 
 }  // namespace qilqr
@@ -72,4 +77,8 @@ extern "C" int qilqr_rollout_f32(const void* const* ptrs, const long long* ints,
 extern "C" int qilqr_rollout_f64(const void* const* ptrs, const long long* ints,
                                  const double* reals, void* stream) {
   return qilqr::launch_rollout<double>(ptrs, ints, reals, stream);
+}
+
+extern "C" int qilqr_rollout_team_info(int f64, int s_qr, int s_par, long long* out) {
+  return qilqr::team_info(f64, s_qr, s_par, out);
 }

@@ -1,4 +1,4 @@
-// The team stage pieces of the whole-solve and streamed kernels (solve.cu,
+// The team stage pieces of every kernel (backward.cu, rollout.cu, solve.cu,
 // fddp.cu, stream.cu, stream_fddp.cu): one scenario served by a team of
 // kTeamLanes lanes of one warp. team_trip.cuh builds their sweeps and line
 // searches from these pieces.
@@ -13,7 +13,7 @@
 //     per launch: per block when their B-stride is 0, per team when it is 1;
 //   * the 12x12 and 12x4 products are split over the team by output
 //     entries, never by their inner sums: each lane computes whole entries,
-//     each sum in the order of the per-thread code (quadrotor.cuh). The dot
+//     each sum in one fixed order, whatever the team size. The dot
 //     products that feed a branch or a cost fold (dx'Q dx, p'c_xx p) are
 //     gathered with shuffles and folded in their original order;
 //   * the serial pieces (SE(3) log and exp, the dynamics step, the j_x
@@ -412,7 +412,8 @@ __device__ __forceinline__ void team_each_row(int lane, F&& f) {
 
 // ---- products split over the team by output entries ----
 
-// entry (r, c) of j_x^T X for a 12 x C X (jxt_mat's element, same sum order)
+// entry (r, c) of j_x^T X for a 12 x C X (backward.py _jxt_mat), the
+// nonzero blocks only
 template <int C, typename T>
 __device__ __forceinline__ T jxt_entry(const JxBlocks<T>& J, const T* X, int r, int c) {
   T val;
@@ -442,7 +443,8 @@ __device__ __forceinline__ T jxt_entry(const JxBlocks<T>& J, const T* X, int r, 
   return val;
 }
 
-// entry (r, c) of X j_x for a 12 x 12 X (mat_jx's element, same sum order)
+// entry (r, c) of X j_x for a 12 x 12 X (backward.py _mat_jx), the nonzero
+// blocks only
 template <typename T>
 __device__ __forceinline__ T matjx_entry(const JxBlocks<T>& J, const T* X, int r, int c) {
   const T* x = X + r * 12;
@@ -507,7 +509,7 @@ __device__ __forceinline__ T team_quad12(const Tile& tile, int lane, const T* A,
 // ---- the stage cost ----
 
 // (dx'Q dx, du'R du) of (q, t, v, u) against the desired stage `des`
-// (stage_cost_terms, with Q dx split over the team)
+// (rollout.py's stage cost, with Q dx split over the team)
 template <typename T>
 __device__ __forceinline__ void team_cost_terms(const Tile& tile, int lane,
                                                 const CostConsts<T>* cc, const T* des, const T* q,
@@ -614,8 +616,9 @@ __device__ __forceinline__ void team_cxx_correction(const Team<T>& tm, const Til
   tile.sync();
 }
 
-// Tracking-cost differentials of the stage in `slot` (stage_cost_diffs):
-// S.c_x, c_xx into S.qxx (S.X is scratch for Q J_d), c_u into registers.
+// Tracking-cost differentials of the stage in `slot` (backward.py
+// _stage_cost_diffs): S.c_x, c_xx into S.qxx (S.X is scratch for Q J_d),
+// c_u into registers.
 template <typename T, bool kExact>
 __device__ __forceinline__ void team_cost_diffs(const Team<T>& tm, const Tile& tile,
                                                 const T* slot, const T* q, const T* t,
@@ -778,7 +781,9 @@ __device__ __forceinline__ void team_add_vfxx(const Team<T>& tm, const Tile& til
   tile.sync();
 }
 
-// One reverse Riccati stage (riccati_stage) of the live stage in `slot`
+// One reverse Riccati stage (backward.py _riccati_stage, the exact path:
+// j_u contracted over its nonzero rows 8:12 only, the 4x4 Cholesky gains
+// plus quu_reg * I, the symmetrized value update) of the live stage in `slot`
 // against S.v_x, S.vxx, which it updates; k|K into S.gains, and the stage's
 // Qu.k and k.Quu.k. Ps is the problem with its constants in shared memory.
 template <typename T, bool kDdp>

@@ -1,8 +1,9 @@
 // The sweeps and line searches of the team kernels, built from team.cuh's
 // stage pieces and shared by the whole-solve kernels (solve.cu, fddp.cu),
-// which keep each probe's candidate in a buffer, and their streamed twins
+// which keep each probe's candidate in a buffer, their streamed twins
 // (stream.cu, stream_fddp.cu), which store nothing while probing and re-roll
-// the chosen candidate in an apply sweep.
+// the chosen candidate in an apply sweep, and the per-pass kernels
+// (backward.cu, rollout.cu), which run one reverse or one rollout sweep.
 //
 //   * exact loop (solve.py / stream.py): the reverse sweep, the closed-loop
 //     rollout sweep, the trajectory cost, the backtracking line search;
@@ -28,10 +29,10 @@ inline namespace QILQR_TEAM_NS(QILQR_TEAM_LANES) {
 
 // ---- the exact loop ----
 
-// The reverse sweep of the team's scenario (backward_lane): k|K of every
-// stage into the gains scratch; the sums of Qu.k and k.Quu.k. The stages
-// come from `src`; with `merge` each is also written into `live` (src is
-// then the last trip's candidate).
+// The reverse sweep of the team's scenario (backward.py _backward_kernel's
+// stage loop): k|K of every stage into the gains scratch; the sums of Qu.k
+// and k.Quu.k. The stages come from `src`; with `merge` each is also written
+// into `live` (src is then the last trip's candidate).
 template <typename T>
 __device__ __forceinline__ void team_backward(const Team<T>& tm, const Problem<T>& P,
                                               const Problem<T>& Ps, T quu_reg, const Traj<T>& src,
@@ -53,11 +54,12 @@ __device__ __forceinline__ void team_backward(const Team<T>& tm, const Problem<T
 }
 
 // Closed-loop rollout of the team's scenario from x with step alpha
-// (rollout_lane): per stage u_n = u_old_n + alpha k_n + K_n (x_n (-) x_old_n),
-// the running cost c + dx'Q dx + du'R du, the stage written into `out` when
-// `store` (out may be x: stage n is read before it is written), then the
-// carry stepped. Never inlined, and the store is a runtime flag: a cost-only
-// probe and a sweep that stores its candidate run the same instructions.
+// (rollout.py _rollout_kernel's stage loop): per stage
+// u_n = u_old_n + alpha k_n + K_n (x_n (-) x_old_n), the running cost
+// c + dx'Q dx + du'R du, the stage written into `out` when `store` (out may
+// be x: stage n is read before it is written), then the carry stepped.
+// Never inlined, and the store is a runtime flag: a cost-only probe and a
+// sweep that stores its candidate run the same instructions.
 template <typename T>
 __device__ __noinline__ T team_rollout(Team<T> tm, Problem<T> P, Traj<T> x, Traj<T> out,
                                        const T* gains, T alpha, bool store) {

@@ -19,8 +19,13 @@ from ..models.quadrotor import CONTROL_DIM
 from ..solver import ilqr
 from ..solver.options import ILQROptions
 from . import _build
-from .backward import _check_cuda, _problem_operands, _traj_from_lanes, _traj_lanes
-from .stream import GAINS_WIDTH
+from .backward import (
+    GAINS_WIDTH,
+    _check_cuda,
+    _problem_operands,
+    _traj_from_lanes,
+    _traj_lanes,
+)
 
 
 def solve_whole_reference(params, cost, traj, dt_s, options: ILQROptions):

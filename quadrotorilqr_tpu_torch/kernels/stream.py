@@ -28,10 +28,13 @@ from ..models.quadrotor import CONTROL_DIM
 from ..solver import ilqr
 from ..solver.options import ILQROptions
 from . import _build
-from .backward import _check_cuda, _problem_operands, _traj_from_lanes, _traj_lanes
-
-# a row of the streamed kernels' gains scratch: k (4), then K (4 x 12)
-GAINS_WIDTH = CONTROL_DIM + CONTROL_DIM * 12
+from .backward import (
+    GAINS_WIDTH,
+    _check_cuda,
+    _problem_operands,
+    _traj_from_lanes,
+    _traj_lanes,
+)
 
 
 def solve_streamed_reference(params, cost, traj, dt_s, options: ILQROptions):

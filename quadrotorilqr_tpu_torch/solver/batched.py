@@ -6,7 +6,8 @@ Counterpart of `quadrotorilqr_tpu/solver/batched.py`:
     at the batch level, with every backward pass and line-search rollout one
     kernel launch over all scenarios (`kernels/backward.py`,
     `kernels/rollout.py`); finished or accepted lanes are masked out of the
-    launches.
+    launches, and the operands that do not change over the solve are
+    prepared once (`kernels.rollout.per_pass_kernels`).
   * `solve_batch_latency` runs the whole loop in one kernel launch:
     `kernels/solve.py` up to STREAM_HORIZON stages, `kernels/stream.py`
     (no candidate trajectory) past it; a zero-probe line search, which the
@@ -29,9 +30,8 @@ from __future__ import annotations
 import dataclasses
 
 from ..costs import quadratic as qc
-from ..kernels.backward import backward_pass_fused
 from ..kernels.fddp import solve_fddp_fused
-from ..kernels.rollout import rollout_cost_fused
+from ..kernels.rollout import per_pass_kernels
 from ..kernels.solve import solve_fused_whole
 from ..kernels.stream import solve_fused_streamed
 from ..kernels.stream_fddp import solve_fddp_streamed
@@ -80,15 +80,12 @@ def solve_batch_fused(
     initial_trajs leaves are (B, N, ...)."""
     _refuse(options, continuation, model, limits)
     qc.check_supported(cost)
+    backward, rollout, trajs = per_pass_kernels(params, cost, initial_trajs, dt_s, options.quu_reg)
     return solve_loop(
-        lambda t, act: backward_pass_fused(
-            params, cost, t, dt_s, quu_reg=options.quu_reg, active=act
-        ),
-        lambda t, ks, big_ks, alpha, act: rollout_cost_fused(
-            params, cost, t, ks, big_ks, alpha, dt_s, active=act
-        ),
+        backward,
+        rollout,
         lambda t: qc.trajectory_cost(cost, t.states, t.controls),
-        initial_trajs,
+        trajs,
         options,
     )
 

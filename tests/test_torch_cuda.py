@@ -7,9 +7,12 @@ Tolerances as chip_smoke.py: backward k, K atol 1e-9 and QuTk, kTQuuk rtol
 FDDP solve status and iterations equal, cost rtol 1e-8, controls atol 1e-7;
 phases resumed from the kernel's own rows bit-equal to one launch. The
 streamed kernels also against their whole-solve twins on the card: status
-and iterations equal, cost rtol 1e-12, controls atol 1e-10; and the four
-team kernels (csrc/team.cuh) at the edges of their design: B of 1, 37 and
-300, horizons of 1, 2 and 40 stages, shared and per-scenario operand
+and iterations equal, cost rtol 1e-12, controls atol 1e-10; the per-pass
+kernels with lanes masked out (the computed lanes bit-equal to a full
+launch), handing their gains over without a copy, and their route
+(`solve_batch_fused`) against `solve.cu` at the whole solve's bars; and
+every team kernel (csrc/team.cuh) at the edges of its design: B of 1, 37
+and 300, horizons of 1, 2 and 40 stages, shared and per-scenario operand
 groups.
 
 This file imports no JAX, so the card machine runs it without the JAX
@@ -31,10 +34,13 @@ from quadrotorilqr_tpu_torch.kernels import rollout as kr
 from quadrotorilqr_tpu_torch.kernels import solve as ks
 from quadrotorilqr_tpu_torch.kernels import stream as kst
 from quadrotorilqr_tpu_torch.kernels import stream_fddp as ksf
+from quadrotorilqr_tpu_torch.kernels import _build
 from quadrotorilqr_tpu_torch.solver.batched import (
     _with_max_iters,
     solve_batch_fddp,
     solve_batch_fddp_refine,
+    solve_batch_fused,
+    solve_batch_latency,
 )
 from quadrotorilqr_tpu_torch.solver.ilqr import SolveResult
 from quadrotorilqr_tpu_torch.solver.options import (
@@ -96,6 +102,8 @@ FDDP_OPTIONS = ILQROptions(LineSearchParams(0.5, 0.5, 20), ConvergenceCriteria(1
 
 @pytest.fixture(scope="module")
 def card_problem():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
     return problem("cuda")
 
 
@@ -149,6 +157,106 @@ def test_cuda_rollout_matches_plain(card_problem):
     ):
         torch.testing.assert_close(g, r, rtol=0, atol=1e-10)
     torch.testing.assert_close(got_cost, ref_cost, rtol=1e-10, atol=0)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+def per_pass_outputs(kernel, params, cost, traj, active=None):
+    """The per-pass kernel's outputs as a list of tensors: backward's k, K,
+    QuTk, kTQuuk; rollout's trajectory leaves and cost, at per-lane alphas
+    on the plain gains."""
+    if kernel == "backward":
+        return list(kb.backward_pass_fused(params, cost, traj, DT, active=active))
+    k, big_k, _, _ = kb.backward_pass_reference(params, cost, traj, DT)
+    alpha = torch.linspace(0.1, 1.0, traj.controls.shape[0], dtype=torch.float64, device="cuda")
+    t, c = kr.rollout_cost_fused(params, cost, traj, k, big_k, alpha, DT, active=active)
+    return [t.states.pose.quat, t.states.pose.trans, t.states.vel, t.controls, c]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["backward", "rollout"])
+def test_cuda_per_pass_active_lanes_bit_equal(card_problem, kernel):
+    """A launch with lanes masked out computes the others bit for bit as a
+    launch over every lane (each team leaves or runs whole)."""
+    params, cost, traj = card_problem
+    active = torch.arange(B, device="cuda") % 3 != 1
+    full = per_pass_outputs(kernel, params, cost, traj)
+    part = per_pass_outputs(kernel, params, cost, traj, active)
+    for f, p in zip(full, part):
+        torch.testing.assert_close(p[active], f[active], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_gains_hand_over_without_copy(card_problem, monkeypatch):
+    """backward_pass_fused's ks and Ks are views of one (N, B, 52) buffer,
+    which rollout_cost_fused hands to its kernel as it is; gains from
+    elsewhere (the plain backward pass) are packed into the layout once,
+    with the same result."""
+    params, cost, traj = card_problem
+    ks, big_ks, _, _ = kb.backward_pass_fused(params, cost, traj, DT)
+    assert big_ks.data_ptr() == ks.data_ptr() + 4 * ks.element_size()
+    real, seen = _build.launch, []
+
+    def spy(entry, dtype, ptrs, ints, reals, device):
+        if entry == "qilqr_rollout":
+            seen.append(ptrs[12 + 4])  # after the Problem block and q t v u
+        return real(entry, dtype, ptrs, ints, reals, device)
+
+    monkeypatch.setattr(_build, "launch", spy)
+    alpha = torch.linspace(0.1, 1.0, B, dtype=torch.float64, device="cuda")
+    got = kr.rollout_cost_fused(params, cost, traj, ks, big_ks, alpha, DT)
+    packed = kr.rollout_cost_fused(params, cost, traj, ks.clone(), big_ks.clone(), alpha, DT)
+    assert seen[0] == ks.data_ptr() and seen[1] != ks.data_ptr()
+    torch.testing.assert_close(packed[1], got[1], rtol=0, atol=0)
+    torch.testing.assert_close(packed[0].controls, got[0].controls, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", ["shared", "per_scenario"])
+@pytest.mark.parametrize("n", [1, 2, 40])
+@pytest.mark.parametrize("batch", [1, 37])
+@pytest.mark.parametrize("kernel", ["backward", "rollout"])
+def test_cuda_per_pass_team_edges(card, kernel, batch, n, groups):
+    """The per-pass kernels at B not a multiple of the teams a block holds
+    and at horizons shorter and longer than the operand ring, against their
+    plain versions at the bars of test_cuda_backward_matches_plain and
+    test_cuda_rollout_matches_plain."""
+    params, cost, traj = edge_problem(batch, n, groups == "per_scenario")
+    got = per_pass_outputs(kernel, params, cost, traj)
+    if kernel == "backward":
+        ref = list(kb.backward_pass_reference(params, cost, traj, DT))
+        bars = [(0, 1e-9)] * 2 + [(1e-9, 0)] * 2
+    else:
+        k, big_k, _, _ = kb.backward_pass_reference(params, cost, traj, DT)
+        alpha = torch.linspace(0.1, 1.0, batch, dtype=torch.float64, device="cuda")
+        t, c = kr.rollout_cost_reference(params, cost, traj, k, big_k, alpha, DT)
+        ref = [t.states.pose.quat, t.states.pose.trans, t.states.vel, t.controls, c]
+        bars = [(0, 1e-10)] * 4 + [(1e-10, 0)]
+    for g, r, (rtol, atol) in zip(got, ref, bars):
+        torch.testing.assert_close(g, r, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_cuda_per_pass_route_matches_whole_solve(card_problem):
+    """The per-pass route (`solve_batch_fused`: one backward and one rollout
+    launch at a time, the loop on the host) against `solve.cu` through
+    `solve_batch_latency`, at the whole solve's bars against plain: status
+    and iterations equal, cost rtol 1e-8, controls atol 1e-7. The two run
+    the same reverse and rollout sweeps; the trip logic's sums may round
+    apart, so lanes need not be bit-equal (the count is printed)."""
+    params, cost, traj = card_problem
+    got = solve_batch_fused(params, cost, traj, DT, OPTIONS)
+    ref = solve_batch_latency(params, cost, traj, DT, OPTIONS)
+    assert_same_lanes(got, ref)
+    bits = (
+        (got.status == ref.status) & (got.iterations == ref.iterations) & (got.cost == ref.cost)
+        & (got.trajectory.controls == ref.trajectory.controls).flatten(1).all(1)
+    )
+    print(f"per-pass route bit-equal to solve.cu on {int(bits.sum())} of {B} lanes")
 
 
 @pytest.mark.cuda
@@ -336,12 +444,6 @@ def test_cuda_stream_fddp_two_phases_equal_one(card_problem):
 # against its plain version at the bars above. The whole-solve kernels and
 # their streamed twins share each plain result (`plain`): the streamed plain
 # loops give the whole ones' bits (tests/test_torch_stream.py).
-
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
 
 
 @pytest.fixture(scope="module")
