@@ -38,6 +38,19 @@ bench workload's class at N = 50, 100 and 256, and the per-pass kernels'
 launches alone (CUDA events around the launch, not the wrapper's operand
 preparation).
 
+The reference-parity path: BASELINE config 1 (the reference demo, float64,
+N=40, rtol = atol = 1e-12) solved on the card by `QuadrotorILQR.solve(proto)`
+(`solve_pytree` alone where protobuf is not installed: the plain loop with
+the debug record) and by `solve_batch(latency=True)` at B=1 (`solve.cu`
+recording its cost history), each against the C++ oracle
+(`native/qilqr_oracle.cc`, built with g++ into `build/oracle/` and bound
+here with ctypes);
+BASELINE config 3 (the figure eight with per-scenario weights, B=4096,
+N=200, float32) through both exact kernel routes, timed; `solve.cu`'s
+recorded launch (cost history, backward passes, probe sweeps) against its
+plain version in float64 and its time beside the launch without, and the
+per-pass route with the debug record, timed with its peak memory.
+
 Output: progress lines (with each compiled kernel's and never-inlined
 function's ptxas registers, spill stores and stack, and the team kernels'
 geometry: lanes per scenario, teams per block, shared
@@ -51,6 +64,8 @@ repository beside it, it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import importlib.util
 import json
 import os
 import statistics
@@ -141,6 +156,71 @@ def np_problem(seed, batch, n):
     return params, cost, traj
 
 
+def start_oracle_build():
+    """g++ on the C++ oracle (native/qilqr_oracle.cc: the reference loop in
+    float64 on the host), started now and waited for by `load_oracle`."""
+    out_dir = os.path.join(ROOT, "build", "oracle")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "libqilqr_oracle.so")
+    src = os.path.join(ROOT, "native", "qilqr_oracle.cc")
+    proc = subprocess.Popen(
+        ["g++", "-O3", "-march=native", "-fPIC", "-std=c++17", "-shared", "-o", path, src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    return proc, path
+
+
+def load_oracle(build):
+    """The built oracle's `qilqr_solve`, declared for ctypes."""
+    proc, path = build
+    log_text = proc.communicate()[0]
+    check(proc.returncode == 0, f"g++ failed on the C++ oracle:\n{log_text}")
+    lib = ctypes.CDLL(path)
+    d = ctypes.POINTER(ctypes.c_double)
+    lib.qilqr_solve.restype = ctypes.c_int
+    lib.qilqr_solve.argtypes = [
+        ctypes.c_double, d, ctypes.c_double, ctypes.c_double, ctypes.c_double,
+        d, d, d, d, d, d, ctypes.c_int, ctypes.c_double,
+        ctypes.c_double, ctypes.c_double, ctypes.c_int,
+        ctypes.c_double, ctypes.c_double, ctypes.c_int,
+        d, d, d, ctypes.POINTER(ctypes.c_int),
+    ]
+    return lib.qilqr_solve
+
+
+def oracle_solve(solve, params, q, r, desired, initial, dt, ls, cc):
+    """One solve of the C++ oracle on float64 numpy arrays: params is
+    (mass, inertia, arm, torque ratio, g); desired and initial are (quat,
+    trans, vel, controls) of one trajectory; ls and cc the line-search and
+    convergence triples. Returns (status, iterations, cost, controls)."""
+    import numpy as np
+
+    d = ctypes.POINTER(ctypes.c_double)
+    keep = []
+
+    def ptr(a):
+        a = np.ascontiguousarray(a, np.float64)
+        keep.append(a)
+        return a.ctypes.data_as(d)
+
+    def packed(t):
+        return np.concatenate([t[0], t[1], t[2]], -1)
+
+    n = initial[3].shape[0]
+    controls = np.zeros((n, 4))
+    states = np.zeros((n, 13))
+    cost = np.zeros(1)
+    iters = ctypes.c_int(0)
+    mass, inertia, arm, kappa, g = params
+    status = solve(
+        mass, ptr(inertia), arm, kappa, g, ptr(q), ptr(r), ptr(packed(desired)), ptr(desired[3]),
+        ptr(packed(initial)), ptr(initial[3]), n, dt, ls[0], ls[1], int(ls[2]), cc[0], cc[1],
+        int(cc[2]), states.ctypes.data_as(d), controls.ctypes.data_as(d),
+        cost.ctypes.data_as(d), ctypes.byref(iters),
+    )
+    return status, iters.value, float(cost[0]), controls
+
+
 def max_abs(a, b):
     return float((a - b).abs().max())
 
@@ -177,7 +257,9 @@ def ptxas_summary(build_log):
             return name
         parts = ["float" if args.group(1) == "f" else "double"]
         if args.group(2) is not None:
-            parts.append("ddp" if args.group(2) == "1" else "gauss-newton")
+            flags = ("record", "no record") if name.endswith("solve_kernel") else (
+                "ddp", "gauss-newton")
+            parts.append(flags[0] if args.group(2) == "1" else flags[1])
         return f"{name}<{', '.join(parts)}>"
 
     out, current = {}, None
@@ -219,6 +301,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
 
+    import numpy as np
+
     from quadrotorilqr_tpu_torch import convert
     from quadrotorilqr_tpu_torch.costs.quadratic import QuadraticTrackingCost
     from quadrotorilqr_tpu_torch.api import QuadrotorILQR
@@ -231,6 +315,7 @@ def main() -> int:
     from quadrotorilqr_tpu_torch.kernels import stream as kst
     from quadrotorilqr_tpu_torch.kernels import stream_fddp as ksf
     from quadrotorilqr_tpu_torch.parallel.batch import initial_trajectory_from_state
+    from quadrotorilqr_tpu_torch.tree import tree_map
     from quadrotorilqr_tpu_torch.solver import fddp, ilqr
     from quadrotorilqr_tpu_torch.solver.batched import (
         _with_max_iters,
@@ -260,9 +345,13 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, count {torch.cuda.device_count()}")
 
-    # ---- 2. build ----
+    # ---- 2. build (the C++ oracle's g++ beside the kernels' nvcc) ----
+    oracle_build = start_oracle_build()
     t0 = time.perf_counter()
-    lib = _build.load()
+    try:
+        lib = _build.load()
+    finally:
+        oracle = load_oracle(oracle_build)
     log(f"build: {lib.path.name} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {lib.build_seconds if lib.build_seconds is None else round(lib.build_seconds, 1)} s)")
     for name, (regs, spill, stack) in ptxas_summary(lib.build_log).items():
@@ -379,6 +468,29 @@ def main() -> int:
         f"statuses {torch.bincount(ref[3], minlength=3).tolist()}")
     check(same_status and same_iters and rel <= 1e-8 and err["solve"] <= 1e-7,
           "f64 whole-solve kernel disagrees with plain")
+    # the recorded launch (solve.cu's cost history, backward passes and
+    # probe sweeps) against the plain loop's, and against the launch without
+    rec = ks.solve_fused_whole(params, cost, traj, DT, opts, return_history=True,
+                               return_probes=True)
+    torch.cuda.synchronize()
+    same_run = bit_equal(rec, got) and all(
+        bool((a == b).all()) for a, b in ((rec[0].states.pose.quat, got[0].states.pose.quat),
+                                          (rec[0].states.pose.trans, got[0].states.pose.trans),
+                                          (rec[0].states.vel, got[0].states.vel)))
+    same_counts = bool((rec[5] == ref[5]).all() and (rec[6] == ref[6]).all())
+    same_slots = bool(((rec[4] == 0) == (ref[4] == 0)).all())
+    filled = ref[4] != 0
+    hist_rel = float(((rec[4] - ref[4]).abs() / ref[4].abs())[filled].max())
+    hist_bits = int((rec[4] == ref[4])[filled].sum())
+    last_bits = int((rec[4] == rec[1][:, None])[torch.arange(300, device=dev), rec[2].long() - 1].sum())
+    log(f"f64 solve.cu recorded launch (history, backward passes, probe sweeps): bit-equal to the "
+        f"launch without {same_run}; passes and probe sweeps equal to plain {same_counts} (sums "
+        f"{int(rec[5].sum())}, {int(rec[6].sum())}); history: the same {int(filled.sum())} slots "
+        f"filled {same_slots}, max rel diff {hist_rel:.3e} (rtol 1e-8), bit-equal to plain on "
+        f"{hist_bits} of {int(filled.sum())} slots (the final costs on {int((got[1] == ref[1]).sum())} "
+        f"of 300 lanes); each lane's last slot is its final cost on {last_bits} of 300")
+    check(same_run and same_counts and same_slots and hist_rel <= 1e-8 and last_bits == 300,
+          "solve.cu's recorded launch disagrees with plain or with the launch without history")
     # the per-pass route (the loop on the host, one backward or rollout
     # launch at a time) against solve.cu at the same bars
     loop = solve_batch_fused(params, cost, traj, DT, opts)
@@ -903,6 +1015,125 @@ def main() -> int:
     check(finite and med < 1e-3 and q99 < 1e-3,
           "f32 stream_fddp.cu outside its bounds at N=512")
 
+    # ---- 5d. BASELINE config 1 on the card against the C++ oracle, float64 ----
+    # the reference demo (quadrotor_ilqr.py): the climbing square, N=40 at
+    # dt 0.1, the demo vehicle and weights, rtol = atol = 1e-12, 100
+    # iterations, line search (0.5, 0.5, 100), solved from the desired
+    # trajectory; the reference-parity path: the plain loop with the debug
+    # record (solve(proto), which runs solve_pytree) and solve.cu recording
+    # its cost history (solve_batch(latency=True) at B=1)
+    t_c1 = time.perf_counter()
+    c1_dt, c1_ls, c1_cc = 0.1, (0.5, 0.5, 100), (1e-12, 1e-12, 100)
+    c1_desired = workloads.demo_desired_trajectory(c1_dt)
+    c1_q, c1_r = workloads.demo_weights()
+    c1_opts = ILQROptions(LineSearchParams(*c1_ls), ConvergenceCriteria(*c1_cc),
+                          populate_debug=True)
+    c1_api = QuadrotorILQR(1.0, torch.eye(3), 1.0, 0.0, 9.81, c1_q, c1_r, c1_desired, c1_dt,
+                           c1_opts, device=dev)
+    c1_np = [a.numpy() for a in (c1_desired.states.pose.quat, c1_desired.states.pose.trans,
+                                 c1_desired.states.vel, c1_desired.controls)]
+    o_status, o_iters, o_cost, o_controls = oracle_solve(
+        oracle, (1.0, torch.eye(3).double().numpy(), 1.0, 0.0, 9.81), c1_q.numpy(), c1_r.numpy(),
+        c1_np, c1_np, c1_dt, c1_ls, c1_cc,
+    )
+    log(f"config 1, C++ oracle: status {o_status}, {o_iters} iterations, cost {o_cost!r}")
+    check(o_status == 1, "the C++ oracle did not converge on config 1")
+    o_controls = torch.as_tensor(o_controls, device=dev)
+    # the plain loop runs once: through solve(proto), the reference binding's
+    # call, which runs solve_pytree (its result kept here), where protobuf
+    # is installed; through solve_pytree alone where it is not
+    with_protos = importlib.util.find_spec("google.protobuf") is not None
+    reset_counts()
+    if with_protos:
+        from quadrotorilqr_tpu_torch import io as qio
+
+        kept = []
+        solve_pytree = c1_api.solve_pytree
+        c1_api.solve_pytree = lambda t: kept.append(solve_pytree(t)) or kept[-1]
+        (traj_msg, debug_msg), c1_plain_ms = time_once(
+            lambda: c1_api.solve(qio.trajectory_to_proto(c1_desired)))
+        c1_plain = kept[0]
+    else:
+        c1_plain, c1_plain_ms = time_once(lambda: c1_api.solve_pytree(c1_desired))
+    torch.cuda.synchronize()
+    c1_plain_counts = counts()
+    c1_batch = tree_map(lambda a: a[None], c1_api.desired_traj)
+    reset_counts()
+    c1_kernel, c1_kernel_ms = time_once(lambda: c1_api.solve_batch(c1_batch, latency=True))
+    torch.cuda.synchronize()
+    c1_launches = counts()
+    log(f"config 1 launches: plain loop {c1_plain_counts}, solve_batch(latency=True) "
+        f"{c1_launches}")
+    check(not any(c1_plain_counts.values()) and c1_launches["solve"] == 1
+          and sum(c1_launches.values()) == 1,
+          f"config 1 did not run the plain loop, then solve.cu once: {c1_launches}")
+    c1_results = (("QuadrotorILQR.solve (plain loop)" if with_protos else
+                   "QuadrotorILQR.solve_pytree (plain loop)", c1_plain, c1_plain_ms),
+                  ("solve_batch(latency=True) (solve.cu)", tree_map(lambda a: a[0], c1_kernel),
+                   c1_kernel_ms))
+    for name, res, res_ms in c1_results:
+        du = max_abs(res.trajectory.controls, o_controls)
+        rel = abs(float(res.cost) - o_cost) / abs(o_cost)
+        log(f"config 1 via {name} on the card: status {int(res.status)}, {int(res.iterations)} "
+            f"iterations (oracle {o_iters}), max |du| against the oracle {du:.3e} (<= 1e-5), rel "
+            f"cost {rel:.3e} (<= 1e-8), {res_ms:.1f} ms {card}")
+        check(int(res.status) == 1 and int(res.iterations) == o_iters and du <= 1e-5
+              and rel <= 1e-8, f"config 1 via {name} disagrees with the C++ oracle")
+    hist, full = c1_kernel.debug, c1_plain.debug
+    same_valid = bool((hist.valid[0] == full.valid).all())
+    hist_rel = float(((hist.costs[0] - full.costs).abs() / full.costs.abs())[full.valid].max())
+    log(f"config 1: solve.cu's cost history against the plain loop's debug record: "
+        f"{int(full.valid.sum())} valid slots, the same slots {same_valid}, max rel cost "
+        f"{hist_rel:.3e} (rtol 1e-8); status and iterations equal "
+        f"{int(c1_plain.status) == int(c1_kernel.status[0])}")
+    check(same_valid and hist_rel <= 1e-8 and type(hist).__name__ == "CostHistory"
+          and int(c1_plain.status) == int(c1_kernel.status[0])
+          and int(c1_plain.iterations) == int(c1_kernel.iterations[0]),
+          "config 1: solve.cu's history disagrees with the plain loop's debug record")
+    if not with_protos:
+        log("config 1 through QuadrotorILQR.solve(proto): not run, google.protobuf is not "
+            "installed")
+    else:
+        got_traj = qio.trajectory_from_proto(traj_msg, device=dev)
+        du = max_abs(got_traj.controls, o_controls)
+        same = bool((got_traj.controls == c1_plain.trajectory.controls).all())
+        log(f"config 1 through QuadrotorILQR.solve(proto): {len(debug_msg.iter_debugs)} debug "
+            f"entries (one per iteration: {o_iters}), max |du| against the oracle {du:.3e}, the "
+            f"proto's controls equal to solve_pytree's {same}")
+        check(len(debug_msg.iter_debugs) == o_iters and du <= 1e-5 and same,
+              "config 1 through solve(proto) disagrees with the C++ oracle")
+    log(f"config 1 phase took {time.perf_counter() - t_c1:.1f} s")
+
+    # ---- 5e. BASELINE config 3 at full size, float32 ----
+    # the figure eight with per-scenario Q (U(0.5, 2) x the demo Q) and R,
+    # B=4096, N=200, dt 0.02, initial poses Exp(0.2 N(0, I_6)), the
+    # benchmark's vehicle and options (benchmarks/run_all.py config 3)
+    t_c3 = time.perf_counter()
+    c3_batch, c3_n = 4096, 200
+    c3_params, c3_cost, c3_trajs = workloads.figure_eight_problem(
+        np.random.default_rng(3), c3_batch, c3_n, DT, torch.float32, dev
+    )
+    c3_opts = ILQROptions(LineSearchParams(0.5, 0.5, 20), ConvergenceCriteria(1e-6, 1e-6, 10))
+    c3_api = api_for(c3_params, c3_cost, c3_trajs, c3_opts)
+    reset_counts()
+    res3_whole = c3_api.solve_batch(c3_trajs, latency=True)
+    res3_loop = c3_api.solve_batch(c3_trajs, fused=True)
+    torch.cuda.synchronize()
+    c3_launches = counts()
+    c3_agree = float((res3_whole.status == res3_loop.status).float().mean())
+    log(f"config 3 launches: {c3_launches}")
+    for name, res in (("solve.cu", res3_whole), ("the per-pass route", res3_loop)):
+        log(f"config 3 via {name} (f32, B={c3_batch}, N={c3_n}, per-scenario Q/R): converged "
+            f"{float((res.status == ilqr.STATUS_CONVERGED).float().mean()):.4f}, mean iterations "
+            f"{float(res.iterations.float().mean()):.3f}, statuses "
+            f"{torch.bincount(res.status, minlength=3).tolist()}")
+        check(finite_result(res, c3_batch, c3_n), f"config 3 via {name}: wrong shapes or non-finite")
+    log(f"config 3: the two exact routes agree on {c3_agree:.4f} of statuses (>= 0.99)")
+    check(c3_launches["solve"] == 1 and c3_launches["backward"] > 0 and c3_launches["rollout"] > 0,
+          f"config 3 did not run both exact routes: {c3_launches}")
+    check(c3_agree >= 0.99, "config 3: the two exact routes disagree")
+    log(f"config 3 phase took {time.perf_counter() - t_c3:.1f} s")
+
     # ---- 6. timing (CUDA events, 1 warm-up, median of 5) ----
     def time_ms(fn, repeats=5):
         fn()
@@ -1032,6 +1263,42 @@ def main() -> int:
         f"stream_fddp.cu on config 6's launches: Gauss-Newton {ms['stream_fddp_gn']:.3f} ms, exact "
         f"DDP {ms['stream_fddp_ddp']:.3f} ms (fddp.cu {ms['fddp_gn']:.3f}, {ms['fddp_ddp']:.3f}) "
         f"{card}")
+    # the debug routes at the bench workload: solve.cu recording its history
+    # and counts beside the launch without; the per-pass route with the
+    # debug record (every trip's trajectory kept), with its peak memory
+    ms["solve_record"] = time_ms(lambda: ks.solve_fused_whole(
+        *solve_args, return_history=True, return_probes=True))
+    debug_opts = dataclasses.replace(bench_opts, populate_debug=True)
+    reset_counts()
+    res_debug = solve_batch_fused(b_params, b_cost, trajs, DT, debug_opts)
+    torch.cuda.synchronize()
+    debug_launches = counts()
+    log(f"per-pass route with the debug record, launches: {debug_launches}; "
+        f"{int(res_debug.debug.valid.sum())} snapshots, as many as iterations "
+        f"{int(res_debug.debug.valid.sum()) == int(res_debug.iterations.sum())}; bit-equal to the "
+        f"route without {bit_equal(res_debug, res_loop)}")
+    check(debug_launches["backward"] > 0 and debug_launches["rollout"] > 0
+          and bit_equal(res_debug, res_loop), "the per-pass debug route did not run its kernels "
+          "or differs from the route without the record")
+    del res_debug
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms["loop_debug"] = time_ms(lambda: solve_batch_fused(b_params, b_cost, trajs, DT, debug_opts))
+    peak_mb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e6
+    torch.cuda.reset_peak_memory_stats()
+    time_ms(lambda: api.solve_batch(trajs, fused=True), repeats=1)
+    peak_plain_mb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e6
+    log(f"solve.cu with history and counts {ms['solve_record']:.3f} ms, without {ms['solve']:.3f} "
+        f"ms; per-pass route with the debug record {ms['loop_debug']:.3f} ms, without "
+        f"{ms['loop']:.3f} ms; peak memory above the inputs {peak_mb:.1f} MB with the record, "
+        f"{peak_plain_mb:.1f} MB without (B={batch}, N={horizon}, f32) {card}")
+    # BASELINE config 3 through both exact routes
+    ms["c3_solve"] = time_ms(lambda: c3_api.solve_batch(c3_trajs, latency=True))
+    ms["c3_loop"] = time_ms(lambda: c3_api.solve_batch(c3_trajs, fused=True))
+    log(f"config 3 (B={c3_batch}, N={c3_n}, f32, per-scenario Q/R): solve.cu {ms['c3_solve']:.3f} "
+        f"ms per batch solve, {c3_batch / ms['c3_solve'] * 1e3:.1f} solves/s; per-pass route "
+        f"{ms['c3_loop']:.3f} ms {card}")
     ms_robust = time_ms(lambda: robust.solve_batch(r_trajs))
     ms_single = time_ms(lambda: kf.solve_fddp_fused(*r_args))
     log(f"robust path (refine auto, 2 FDDP launches): {ms_robust:.3f} ms per batch solve, "
@@ -1055,7 +1322,15 @@ def main() -> int:
     f = FLOPS
     word = 4  # float32
     stage = batch * horizon
-    whole_trips = int(res_whole.iterations.sum())  # backward passes and probes: at least one each
+    # solve.cu's work as it reports it on the main path's inputs: every
+    # backward pass and every probe sweep of every lane (its recorded launch
+    # leaves the main path's bits)
+    rec = ks.solve_fused_whole(*solve_args, return_probes=True)
+    torch.cuda.synchronize()
+    check(bit_equal(rec, res_whole), "solve.cu's counting launch differs from the main path's")
+    solve_work = (int(rec[4].sum()), int(rec[5].sum()))
+    log(f"solve.cu ran (backward passes, probe sweeps) on the bench workload: {solve_work}; the "
+        f"slowest lane {int(rec[4].max())}, {int(rec[5].max())}")
 
     def stream_work(n, b_, passes, probes, applies):
         """stream.cu: every backward pass, probe sweep and apply sweep."""
@@ -1077,7 +1352,7 @@ def main() -> int:
     work = {
         "backward": (stage * f["riccati"], (17 + 52) * stage * word + 2 * batch * word),
         "rollout": (stage * f["rollout"], (17 + 52 + 17) * stage * word + 2 * batch * word),
-        "solve": (whole_trips * horizon * (f["riccati"] + f["rollout"]),
+        "solve": ((solve_work[0] * f["riccati"] + solve_work[1] * f["rollout"]) * horizon,
                   2 * 17 * stage * word + 3 * batch * word),
         "fddp": fddp_work(r_n, r_batch, [work_gn + (0,), work_ddp + (0,)], 6),
         "stream": stream_work(lh_n, lh_batch, *long_plain_work),
@@ -1138,6 +1413,9 @@ def main() -> int:
     kernels[2]["versus_stream_ms"] = {
         str(n_): {"solve": a, "stream": b} for n_, (a, b) in route.items()
     }
+    kernels[2]["record_ms"] = ms["solve_record"]
+    kernels[2]["work"] = {"backward_passes": solve_work[0], "probe_sweeps": solve_work[1]}
+    kernels[2]["config1_launches"] = c1_launches["solve"]
     for k in kernels[4:]:
         k_ms, w_ms, n_ = full[k["name"]]
         k["full_width"] = {"B": lh_batch, "N": n_, "ms": k_ms, "whole_twin_ms": w_ms,

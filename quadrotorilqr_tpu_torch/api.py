@@ -1,26 +1,38 @@
 """Public API: `QuadrotorILQR`, the counterpart of `quadrotorilqr_tpu/api.py`.
 
-Same ten-argument constructor as the JAX class (the reference binding's),
-taking the port's containers (not protos) for the desired trajectory and
-an `ILQROptions`. `solve_pytree` is the exact single solve; `solve_batch`
-routes a (B, N, ...) batch as the JAX class does: `fused=True` with
-`latency=True` to the whole-solve kernel, `fused=True` alone to the
-per-pass kernel loop, `fused=False` to the plain batched solver. With
-`solver="fddp"` (or `"fddp-ddp"`, exact curvature throughout) a float32
-batch goes to the FDDP kernel through `solve_batch_fddp(refine="auto")`,
-a float64 batch to the single-phase FDDP kernel, `fused=False` and
-`solve_pytree` to the plain FDDP loop. Past 256 stages (exact) and 231
-(FDDP) the batch solvers take the streamed kernels, as the JAX class's
-routes do: `latency=True` runs `stream.cu`, and each FDDP launch
-`stream_fddp.cu`.
+The reference binding's ten-argument constructor, taking the desired
+trajectory and the options as protos (`QuadrotorTrajectory`,
+`ILQROptions`) or as the port's containers, and its proto-in / proto-out
+`solve(traj) -> (trajectory proto, debug proto)`. `solve_pytree` is the
+exact single solve on the plain loop; `solve_batch` routes a (B, N, ...)
+batch as the JAX class does: `fused=True` with `latency=True` to the
+whole-solve kernel, `fused=True` alone to the per-pass kernel loop,
+`fused=False` to the plain batched solver. With `solver="fddp"` (or
+`"fddp-ddp"`, exact curvature throughout) a float32 batch goes to the FDDP
+kernel through `solve_batch_fddp(refine="auto")`, a float64 batch to the
+single-phase FDDP kernel, `fused=False` and `solve_pytree` to the plain FDDP
+loop. Past 256 stages (exact) and 231 (FDDP) the batch solvers take the
+streamed kernels, as the JAX class's routes do: `latency=True` runs
+`stream.cu`, and each FDDP launch `stream_fddp.cu`.
 
-One routing difference: the JAX class sends float64 batches to its XLA
+`options.populate_debug` fills `SolveResult.debug`: an IterDebug (one
+trajectory and cost per executed update) from `solve_pytree`, `fused=False`
+and the per-pass route, a CostHistory (the costs alone, recorded by the
+kernel) from `latency=True` up to 256 stages; `solve` sends the IterDebug
+out as the debug proto. The FDDP solvers have no debug record and refuse
+it.
+
+Routing differences: the JAX class sends float64 batches to its XLA
 solvers because the TPU kernels have no float64. The CUDA kernels take both
 float32 and float64, so here both dtypes go to the kernel engines (lane for
-lane the same results as the plain solvers).
+lane the same results as the plain solvers); a float64 `latency=True` batch
+with `populate_debug` therefore carries a CostHistory where the JAX class's
+carries an IterDebug.
 
 The solver runs on the CUDA card unless it is given `device="cpu"`; with no
-card it refuses to start rather than carry on on the CPU.
+card it refuses to start rather than carry on on the CPU. Only the proto
+surface needs `google.protobuf`: `quadrotorilqr_tpu_torch.io` is imported
+when a proto is passed in or `solve` is called.
 """
 
 from __future__ import annotations
@@ -35,15 +47,22 @@ from .solver.ilqr import SolveResult, Trajectory
 from .solver.options import ILQROptions
 from .tree import tree_map
 
-PROTO_TODO = (
-    "proto I/O is not ported yet (ROADMAP Queue 1 item 7, io/proto.py): "
-    "use solve_pytree with the port's Trajectory"
+FDDP_DEBUG = (
+    "the FDDP solvers have no debug record (as in the JAX package): "
+    "populate_debug needs solver='ilqr'"
 )
 SOLVER_TODO = "solver='ddp' is not ported yet (ROADMAP Queue 1 item 10, solver/ddp.py)"
 NO_CUDA = (
     "QuadrotorILQR runs on a CUDA card by default and torch.cuda.is_available() "
     "is false; pass device='cpu' to solve on the CPU"
 )
+
+
+def _io():
+    """The proto converters, imported on first use: they need protobuf."""
+    from . import io
+
+    return io
 
 
 class QuadrotorILQR:
@@ -58,9 +77,9 @@ class QuadrotorILQR:
         g_mpss: float,
         Q,
         R,
-        desired_traj: Trajectory,
+        desired_traj,
         dt_s: float,
-        options: ILQROptions,
+        options,
         dtype=torch.float64,
         device=None,
         stage_weights=None,
@@ -74,9 +93,10 @@ class QuadrotorILQR:
             from .costs.quadratic import STAGE_WEIGHTS_TODO
 
             raise NotImplementedError(STAGE_WEIGHTS_TODO)
-        if not isinstance(desired_traj, Trajectory) or not isinstance(options, ILQROptions):
-            raise NotImplementedError(PROTO_TODO)
-        ilqr.check_supported(options)
+        if not isinstance(options, ILQROptions):
+            options = _io().options_from_proto(options)
+        if options.populate_debug and solver != "ilqr":
+            raise NotImplementedError(FDDP_DEBUG)
         self.solver = solver
         self.dtype = dtype
         if device is None:
@@ -84,6 +104,8 @@ class QuadrotorILQR:
                 raise RuntimeError(NO_CUDA)
             device = "cuda"
         self.device = torch.device(device)
+        if not isinstance(desired_traj, Trajectory):
+            desired_traj = _io().trajectory_from_proto(desired_traj, dtype, self.device)
         as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=self.device)
         self.params = QuadrotorParams.create(
             mass_kg=mass_kg,
@@ -106,12 +128,21 @@ class QuadrotorILQR:
         return tree_map(lambda a: a.to(dtype=self.dtype, device=self.device), traj)
 
     def solve(self, initial_traj):
-        """The reference binding's proto-in / proto-out solve."""
-        raise NotImplementedError(PROTO_TODO)
+        """The reference binding's solve: a QuadrotorTrajectory proto (or the
+        port's Trajectory) in, (optimized trajectory proto, debug proto)
+        out; the debug proto has one entry per executed update with
+        `options.populate_debug`, none otherwise."""
+        io = _io()
+        if not isinstance(initial_traj, Trajectory):
+            initial_traj = io.trajectory_from_proto(initial_traj, self.dtype, self.device)
+        result = self.solve_pytree(initial_traj)
+        return io.trajectory_to_proto(result.trajectory), io.debug_to_proto(result.debug)
 
     def solve_pytree(self, initial_traj: Trajectory) -> SolveResult:
         """Solve of one (N, ...) trajectory (or a (B, N, ...) batch) on the
-        plain solver: the exact loop, or plain FDDP for the fddp solvers."""
+        plain solver: the exact loop, or plain FDDP for the fddp solvers, on
+        the solver's device. There is no single-solve kernel route, as the
+        JAX class keeps its single solve on XLA."""
         if initial_traj.horizon != self.desired_traj.horizon:
             raise IndexError(
                 f"initial trajectory length {initial_traj.horizon} != desired "

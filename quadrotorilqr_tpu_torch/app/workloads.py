@@ -1,13 +1,17 @@
-"""Canonical workloads: the hover-to-waypoint benchmark problem, the
-long-horizon problem, the aggressive tumble and the reference demo's
-parameters and weights (`quadrotorilqr_tpu/app/workloads.py`).
+"""Canonical workloads: the reference demo's desired trajectory, vehicle
+and weights (BASELINE config 1), the hover-to-waypoint benchmark problem,
+the figure eight (BASELINE config 3), the long-horizon problem and the
+aggressive tumble (`quadrotorilqr_tpu/app/workloads.py`).
 
-Random draws come from an explicit `torch.Generator`; they do not reproduce
-`jax.random`'s numbers for the same seed.
+The deterministic trajectories are built in float64 numpy, as the JAX
+package builds them, then cast. Random draws come from an explicit
+`torch.Generator`; they do not reproduce `jax.random`'s numbers for the
+same seed.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..costs.quadratic import QuadraticTrackingCost
@@ -15,6 +19,122 @@ from ..lie import se3
 from ..models.quadrotor import QuadrotorParams, State
 from ..parallel.batch import initial_trajectory_from_state
 from ..solver.ilqr import Trajectory
+
+
+def euler_xyz_to_quat(roll, pitch, yaw):
+    """Extrinsic x-y-z Euler angles -> quaternion wxyz as a float64 numpy
+    array (scipy's "xyz" order, the reference driver's)."""
+    roll, pitch, yaw = (np.asarray(a, np.float64) for a in (roll, pitch, yaw))
+    hr, hp, hy = roll / 2, pitch / 2, yaw / 2
+    zero = np.zeros_like
+    qx = np.stack([np.cos(hr), np.sin(hr), zero(hr), zero(hr)], -1)
+    qy = np.stack([np.cos(hp), zero(hp), np.sin(hp), zero(hp)], -1)
+    qz = np.stack([np.cos(hy), zero(hy), zero(hy), np.sin(hy)], -1)
+
+    def mul(a, b):
+        aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+        bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+        return np.stack(
+            [
+                aw * bw - ax * bx - ay * by - az * bz,
+                aw * bx + ax * bw + ay * bz - az * by,
+                aw * by - ax * bz + ay * bw + az * bx,
+                aw * bz + ax * by - ay * bx + az * bw,
+            ],
+            -1,
+        )
+
+    return mul(qz, mul(qy, qx))  # extrinsic xyz == Rz @ Ry @ Rx
+
+
+def _trajectory(times, quat, trans, controls, dtype, device) -> Trajectory:
+    """A Trajectory with zero body velocities from float64 numpy arrays."""
+    as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    return Trajectory(
+        times=as_t(times),
+        states=State(
+            pose=se3.SE3(quat=as_t(quat), trans=as_t(trans)),
+            vel=torch.zeros((len(times), 6), dtype=dtype, device=device),
+        ),
+        controls=as_t(controls),
+    )
+
+
+def demo_desired_trajectory(
+    dt_s=0.1, horizon_s=4.0, vel_mps=10.0, dtype=torch.float64, device=None
+) -> Trajectory:
+    """The reference's "climbing square" (BASELINE config 1): four legs of
+    a square in xy, z climbing 0 -> 10, roll sweeping 0 -> pi, zero velocity
+    and control targets; N = 40 at the default dt 0.1."""
+    times = np.arange(0.0, horizon_s, dt_s)
+    quarter = horizon_s / 4.0
+    rows = []
+    for t in times:
+        if t < quarter:
+            rows.append((vel_mps * t, 0.0, 0.0, 0.0))
+        elif t < 2 * quarter:
+            rows.append((vel_mps * quarter, vel_mps * (t - quarter), 10.0 / 3.0, np.pi / 3.0))
+        elif t < 3 * quarter:
+            rows.append(
+                (vel_mps * (3 * quarter - t), vel_mps * quarter, 20.0 / 3.0, 2 * np.pi / 3.0)
+            )
+        else:
+            rows.append((0.0, vel_mps * (4 * quarter - t), 10.0, np.pi))
+    xyz_roll = np.asarray(rows, np.float64)
+    n = len(times)
+    quat = euler_xyz_to_quat(xyz_roll[:, 3], np.zeros(n), np.zeros(n))
+    return _trajectory(times, quat, xyz_roll[:, :3], np.zeros((n, 4)), dtype, device)
+
+
+def figure_eight(n=200, dt_s=0.02, radius=2.0, dtype=torch.float32, device=None) -> Trajectory:
+    """The figure-eight (lemniscate) tracking target of BASELINE config 3,
+    level attitude, hover thrust."""
+    t = np.arange(n) * dt_s
+    omega = 2 * np.pi / (n * dt_s)
+    trans = np.stack(
+        [
+            radius * np.sin(omega * t),
+            radius * np.sin(omega * t) * np.cos(omega * t),
+            1.0 + 0.2 * np.sin(2 * omega * t),
+        ],
+        -1,
+    )
+    quat = np.zeros((n, 4))
+    quat[:, 0] = 1.0
+    return _trajectory(t, quat, trans, np.full((n, 4), 9.81 / 4.0), dtype, device)
+
+
+def figure_eight_problem(
+    rng: np.random.Generator, batch, n=200, dt_s=0.02, dtype=torch.float32, device=None
+):
+    """BASELINE config 3 as the JAX package's benchmark builds it
+    (`benchmarks/run_all.py` config3_figure_eight): the figure eight, the
+    demo weights with Q scaled per scenario by U(0.5, 2) and R per scenario,
+    initial poses Exp(0.2 N(0, I_6)) at rest, a 1 kg vehicle with unit
+    inertia, 0.2 m arms and torque ratio 0.016. The draws come from the
+    numpy generator `rng`.
+
+    Returns (params, cost, initial trajectories with (batch, n, ...) leaves)."""
+    desired = figure_eight(n, dt_s, dtype=dtype, device=device)
+    q, r = demo_weights(dtype, device)
+    scale = torch.as_tensor(rng.uniform(0.5, 2.0, size=batch), dtype=dtype, device=device)
+    tau = torch.as_tensor(0.2 * rng.normal(size=(batch, 6)), dtype=dtype, device=device)
+    cost = QuadraticTrackingCost(
+        Q=scale[:, None, None] * q,
+        R=r.expand(batch, 4, 4).clone(),
+        desired_states=desired.states,
+        desired_controls=desired.controls,
+    )
+    params = QuadrotorParams.create(
+        mass_kg=1.0,
+        inertia=torch.eye(3, dtype=dtype),
+        arm_length_m=0.2,
+        torque_to_thrust_ratio_m=0.016,
+        g_mpss=9.81,
+        device=device,
+    )
+    x0 = State(pose=se3.exp(tau), vel=torch.zeros((batch, 6), dtype=dtype, device=device))
+    return params, cost, initial_trajectory_from_state(x0, desired)
 
 
 def demo_params(dtype=torch.float64, device=None) -> QuadrotorParams:

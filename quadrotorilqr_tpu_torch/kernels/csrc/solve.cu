@@ -29,6 +29,16 @@
 // and the candidate is merged by the sweep that reads it. The cost sums in
 // the per-pass rollout's order, (J + dx'Q dx) + du'R du, and stream.cu runs
 // the same rollout sweep, so the two kernels add up each candidate alike.
+//
+// Debug outputs (solve.py's record_history ohist rows and oprob counts):
+// the instantiation with kRecord writes, from lane 0 of the team after each
+// trip's close, the trip's history row (the committed cost of a lane that
+// executed an update on it, 0 after a pre-converged gate; the host zeroes
+// the rows of trips a lane never ran) and at the end the backward passes and
+// probe sweeps the lane ran. The launcher picks it only when one of those
+// outputs is asked for, so a launch without them runs the instantiation that
+// records nothing; the sweeps are the same never-inlined or shared functions
+// in both, so the recorded launch leaves the same trajectory.
 #define QILQR_TEAM_LANES 8  // lanes per scenario (PERF.md section 6)
 #include "team_trip.cuh"
 
@@ -43,11 +53,14 @@ struct SolveIO {
   int* status;   // out (B,)
   T* gains;      // scratch (N, B, 52): k | K
   Traj<T> best;  // scratch (N, d, B): the line search's candidate
+  T* hist;       // out (max_iters, B) or null: the per-trip cost history
+  int* passes;   // out (B,) or null: backward passes run
+  int* probes;   // out (B,) or null: probe sweeps run
   int max_iters, ls_max_iters;
   T quu_reg, rtol, atol, ls_step, ls_frac;
 };
 
-template <typename T>
+template <typename T, bool kRecord>
 __global__ void __launch_bounds__(kTeamThreads) solve_kernel(Problem<T> P, SolveIO<T> io) {
   Team<T> tm;
   if (!team_setup(P, &tm)) return;
@@ -55,7 +68,7 @@ __global__ void __launch_bounds__(kTeamThreads) solve_kernel(Problem<T> P, Solve
   team_copy_traj(tm, P, io.x0, io.live);
   // the loop never runs: report the initial trajectory's true cost
   T cost = io.max_iters == 0 ? team_trajectory_cost(tm, P, io.live) : T(0);
-  int status = 0, iters = 0;
+  int status = 0, iters = 0, passes = 0, stages = 0;
   bool take = false;  // the candidate in best is the live trajectory, not merged yet
   for (int i = 0; i < io.max_iters; ++i) {
     // ---- backward pass, merging the last trip's candidate ----
@@ -63,6 +76,7 @@ __global__ void __launch_bounds__(kTeamThreads) solve_kernel(Problem<T> P, Solve
     team_backward(tm, P, Ps, io.quu_reg, take ? io.best : io.live, take, io.live, io.gains,
                   &qutk, &ktquuk);
     take = false;
+    if constexpr (kRecord) ++passes;
 
     // ---- trip gate (solve.py _trip_gate): pre-check on the expected cost ----
     const T current = cost;
@@ -76,11 +90,16 @@ __global__ void __launch_bounds__(kTeamThreads) solve_kernel(Problem<T> P, Solve
       ls = team_line_search(tm, P, io.live, io.best, true, io.gains, qutk, ktquuk, current,
                             i == 0, io.ls_max_iters, io.ls_step, io.ls_frac);
       take = true;
+      if constexpr (kRecord) stages += ls.stages;
     }
-    if (exact_trip_close(i == 0, pre_conv, active, ls, current, io.rtol, io.atol, &cost,
-                         &status, &iters)) {
-      break;
+    const bool done = exact_trip_close(i == 0, pre_conv, active, ls, current, io.rtol, io.atol,
+                                       &cost, &status, &iters);
+    if constexpr (kRecord) {
+      if (io.hist != nullptr && tm.lane == 0) {
+        io.hist[static_cast<long long>(i) * P.B + tm.b] = active ? cost : T(0);
+      }
     }
+    if (done) break;
   }
   ring_drain();
   // the last trip's candidate was never merged by a following sweep
@@ -89,11 +108,16 @@ __global__ void __launch_bounds__(kTeamThreads) solve_kernel(Problem<T> P, Solve
     io.cost[tm.b] = cost;
     io.iters[tm.b] = iters;
     io.status[tm.b] = status;
+    if constexpr (kRecord) {
+      if (io.passes != nullptr) io.passes[tm.b] = passes;
+      if (io.probes != nullptr) io.probes[tm.b] = stages / P.N;
+    }
   }
 }
 
 // packed operands after the Problem block:
-//   ptrs:  q t v u  oq ot ov ou  cost iters status  gains  bq bt bv bu
+//   ptrs:  q t v u  oq ot ov ou  cost iters status  gains  bq bt bv bu  hist passes probes
+//          (the last three null unless asked for)
 //   ints:  max_iters ls_max_iters
 //   reals: quu_reg rtol atol ls_step ls_frac
 template <typename T>
@@ -112,6 +136,9 @@ int launch_solve(const void* const* ptrs, const long long* ints, const double* r
   io.status = static_cast<int*>(out(10));
   io.gains = static_cast<T*>(out(11));
   io.best = traj_from<T>(p + 12);
+  io.hist = static_cast<T*>(out(16));
+  io.passes = static_cast<int*>(out(17));
+  io.probes = static_cast<int*>(out(18));
   io.max_iters = static_cast<int>(ip[0]);
   io.ls_max_iters = static_cast<int>(ip[1]);
   io.quu_reg = static_cast<T>(rp[0]);
@@ -119,7 +146,11 @@ int launch_solve(const void* const* ptrs, const long long* ints, const double* r
   io.atol = static_cast<T>(rp[2]);
   io.ls_step = static_cast<T>(rp[3]);
   io.ls_frac = static_cast<T>(rp[4]);
-  return team_launch(solve_kernel<T>, P.B, team_block_bytes<T>(P.s_qr, P.s_par), stream, P, io);
+  const size_t bytes = team_block_bytes<T>(P.s_qr, P.s_par);
+  if (io.hist != nullptr || io.passes != nullptr || io.probes != nullptr) {
+    return team_launch(solve_kernel<T, true>, P.B, bytes, stream, P, io);
+  }
+  return team_launch(solve_kernel<T, false>, P.B, bytes, stream, P, io);
 }
 
 }  // namespace qilqr

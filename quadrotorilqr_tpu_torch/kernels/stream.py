@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import torch
 
-from ..costs import quadratic as qc
 from ..models.quadrotor import CONTROL_DIM
 from ..solver import ilqr
 from ..solver.options import ILQROptions
@@ -35,6 +34,7 @@ from .backward import (
     _traj_from_lanes,
     _traj_lanes,
 )
+from .solve import counted_plain_solve
 
 
 def solve_streamed_reference(params, cost, traj, dt_s, options: ILQROptions):
@@ -44,29 +44,8 @@ def solve_streamed_reference(params, cost, traj, dt_s, options: ILQROptions):
     int32, backward passes int32, probe sweeps int32, apply sweeps int32),
     each (B,) after the trajectory, the counts per lane as the kernel counts
     them."""
-    batch = traj.controls.shape[0]
-    counts = [torch.zeros(batch, dtype=torch.int32, device=traj.controls.device) for _ in range(3)]
-
-    def tally(i, lanes):
-        counts[i] += 1 if lanes is None else lanes.to(torch.int32)
-
-    def backward(t, act):
-        tally(0, act)
-        return ilqr.backward_pass(params, cost, t, dt_s, options.quu_reg)
-
-    def probe(t, ks, big_ks, alpha, act):
-        tally(1, act)
-        return ilqr.rollout_cost(params, cost, t, ks, big_ks, alpha, dt_s)
-
-    def apply(t, ks, big_ks, alpha, act):
-        tally(2, act)
-        return ilqr.forward_sim(params, t, ks, big_ks, alpha, dt_s)
-
-    result = ilqr.solve_loop(
-        backward, probe, lambda t: qc.trajectory_cost(cost, t.states, t.controls), traj, options,
-        apply=apply,
-    )
-    return (result.trajectory, result.cost, result.iterations, result.status, *counts)
+    r, counts = counted_plain_solve(params, cost, traj, dt_s, options, streamed=True)
+    return (r.trajectory, r.cost, r.iterations, r.status, *counts)
 
 
 def solve_fused_streamed(
@@ -77,7 +56,7 @@ def solve_fused_streamed(
     for lane `solve_fused_whole`. Returns (Trajectory, cost (B,), iterations
     (B,) int32, status (B,) int32), and with `return_probes` the backward
     passes, probe sweeps and apply sweeps each lane ran ((B,) int32 each)."""
-    ilqr.check_supported(options, model)
+    ilqr.check_supported(model)
     if continuation:
         raise NotImplementedError(ilqr.CONTINUATION_TODO)
     if limits is not None:

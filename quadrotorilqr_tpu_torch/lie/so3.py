@@ -21,10 +21,11 @@ def _safe(theta_sq, small):
 
 
 def cross(a, b):
-    """(..., 3) x (..., 3) -> (..., 3)."""
-    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
-    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
-    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], -1)
+    """(..., 3) x (..., 3) -> (..., 3): entry i is a_{i+1} b_{i+2} -
+    a_{i+2} b_{i+1} (indices mod 3), the products and differences of the
+    component-wise formula, read from each vector written twice."""
+    aa, bb = torch.cat([a, a], -1), torch.cat([b, b], -1)
+    return aa[..., 1:4] * bb[..., 2:5] - aa[..., 2:5] * bb[..., 1:4]
 
 
 def hat(v):
@@ -47,19 +48,35 @@ def quat_identity(batch_shape=(), dtype=torch.float32, device=None):
     return q
 
 
+_QUAT_SIGNS = {}
+
+
+def _quat_signs(like):
+    """The signs of the x, y and z terms of each Hamilton-product entry,
+    one tensor per dtype and device."""
+    key = (like.dtype, like.device)
+    if key not in _QUAT_SIGNS:
+        _QUAT_SIGNS[key] = torch.tensor(
+            [[-1.0, 1.0, -1.0, 1.0], [-1.0, 1.0, 1.0, -1.0], [-1.0, -1.0, 1.0, 1.0]],
+            dtype=like.dtype, device=like.device,
+        )
+    return _QUAT_SIGNS[key]
+
+
 def quat_multiply(a, b):
-    """Hamilton product of wxyz quaternions."""
-    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
-    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
-    return torch.stack(
-        [
-            aw * bw - ax * bx - ay * by - az * bz,
-            aw * bx + ax * bw + ay * bz - az * by,
-            aw * by - ax * bz + ay * bw + az * bx,
-            aw * bz + ax * by - ay * bx + az * bw,
-        ],
-        -1,
-    )
+    """Hamilton product of wxyz quaternions:
+        w = aw bw - ax bx - ay by - az bz
+        x = aw bx + ax bw + ay bz - az by
+        y = aw by - ax bz + ay bw + az bx
+        z = aw bz + ax by - ay bx + az bw
+    summed left to right, as written, on all four entries at once (b's
+    entries permuted by flips; a sign times a product is exact)."""
+    s = _quat_signs(b)
+    pairs = b.unflatten(-1, (2, 2))
+    r = a[..., 0:1] * b
+    r = r + a[..., 1:2] * pairs.flip(-1).flatten(-2) * s[0]  # bx bw bz by
+    r = r + a[..., 2:3] * pairs.flip(-2).flatten(-2) * s[1]  # by bz bw bx
+    return r + a[..., 3:4] * b.flip(-1) * s[2]  # bz by bx bw
 
 
 def quat_conjugate(q):

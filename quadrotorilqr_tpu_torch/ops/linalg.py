@@ -59,10 +59,8 @@ def _solve_upper_t(l, y):
 
 def chol_solve_small(a, b):
     """Solve a @ x = b for SPD a (..., n, n) and b (..., n, k); batch dims
-    broadcast."""
-    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
-    a = a.expand(batch + a.shape[-2:])
-    b = b.expand(batch + b.shape[-2:])
+    broadcast (a shared `a` is factored once, not once per batch entry:
+    the same values either way)."""
     l = cholesky_small(a)
     return _solve_upper_t(l, _solve_lower(l, b))
 

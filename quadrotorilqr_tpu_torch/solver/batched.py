@@ -11,7 +11,8 @@ Counterpart of `quadrotorilqr_tpu/solver/batched.py`:
   * `solve_batch_latency` runs the whole loop in one kernel launch:
     `kernels/solve.py` up to STREAM_HORIZON stages, `kernels/stream.py`
     (no candidate trajectory) past it; a zero-probe line search, which the
-    whole-solve kernels cannot express, goes to the batch loop.
+    whole-solve kernels cannot express, goes to the batch loop, and so
+    does a debug record past STREAM_HORIZON stages.
   * `solve_batch_fddp` runs the robust FDDP loop in one kernel launch:
     `kernels/fddp.py` up to STREAM_HORIZON_FDDP stages,
     `kernels/stream_fddp.py` past it; with `refine` it goes to
@@ -29,6 +30,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from ..costs import quadratic as qc
 from ..kernels.fddp import solve_fddp_fused
 from ..kernels.rollout import per_pass_kernels
@@ -39,6 +42,7 @@ from . import fddp
 from .ilqr import (
     CONTINUATION_TODO,
     LIMITS_TODO,
+    CostHistory,
     SolveResult,
     Trajectory,
     check_supported,
@@ -58,8 +62,8 @@ STREAM_HORIZON = 256
 STREAM_HORIZON_FDDP = 231
 
 
-def _refuse(options, continuation, model, limits):
-    check_supported(options, model)
+def _refuse(continuation, model, limits):
+    check_supported(model)
     if continuation:
         raise NotImplementedError(CONTINUATION_TODO)
     if limits is not None:
@@ -78,7 +82,7 @@ def solve_batch_fused(
 ) -> SolveResult:
     """Batched iLQR, one backward and one rollout launch at a time;
     initial_trajs leaves are (B, N, ...)."""
-    _refuse(options, continuation, model, limits)
+    _refuse(continuation, model, limits)
     qc.check_supported(cost)
     backward, rollout, trajs = per_pass_kernels(params, cost, initial_trajs, dt_s, options.quu_reg)
     return solve_loop(
@@ -102,11 +106,28 @@ def solve_batch_latency(
 ) -> SolveResult:
     """Batched iLQR with the whole loop in one kernel launch (the streamed
     kernel past STREAM_HORIZON stages); lane for lane the same result as
-    `solve_batch_fused`."""
-    _refuse(options, continuation, model, limits)
-    if options.line_search_params.max_iters < 1:
-        return solve_batch_fused(params, cost, initial_trajs, dt_s, options)
+    `solve_batch_fused`.
+
+    With `options.populate_debug` the whole-solve kernel records the
+    per-trip cost history, and `debug` is a CostHistory: the costs and
+    valid buffers of the batch loop's IterDebug, without the trajectory
+    snapshots. Past STREAM_HORIZON stages (the streamed kernel records no
+    history) and for zero-probe line searches the request goes to
+    `solve_batch_fused`, whose `debug` is the full IterDebug, as the JAX
+    package routes it."""
+    _refuse(continuation, model, limits)
     streamed = initial_trajs.controls.shape[1] > STREAM_HORIZON
+    if options.line_search_params.max_iters < 1 or (options.populate_debug and streamed):
+        return solve_batch_fused(params, cost, initial_trajs, dt_s, options)
+    if options.populate_debug:
+        traj, cost_v, iterations, status, hist = solve_fused_whole(
+            params, cost, initial_trajs, dt_s, options, return_history=True
+        )
+        # a lane's executed updates are its first trips, so valid is
+        # arange < iterations (the batch loop's valid buffer)
+        slots = torch.arange(hist.shape[1], device=hist.device)
+        debug = CostHistory(costs=hist, valid=slots[None, :] < iterations[:, None])
+        return SolveResult(traj, cost_v, iterations, status, debug)
     engine = solve_fused_streamed if streamed else solve_fused_whole
     traj, cost_v, iterations, status = engine(params, cost, initial_trajs, dt_s, options)
     return SolveResult(trajectory=traj, cost=cost_v, iterations=iterations, status=status)

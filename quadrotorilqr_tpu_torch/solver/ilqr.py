@@ -6,12 +6,14 @@ cost diffs) and then runs the Riccati recursion stage by stage; the forward
 rollout is a loop over stages. `solve_loop` is the per-lane outer loop of the
 reference semantics (trip 0 takes a full step; later trips pre-check the
 expected cost, backtrack with a per-lane step, post-check the achieved cost;
-finished lanes freeze). `solve` runs it on the plain pieces in this module;
-`solver/batched.py` runs the same loop on the CUDA kernels.
+finished lanes freeze), with the per-iteration debug record of
+`options.populate_debug`. `solve` runs it on the plain pieces in this
+module; `solver/batched.py` runs the same loop on the CUDA kernels.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -34,14 +36,10 @@ ASSOCIATIVE_TODO = (
     "(ROADMAP Queue 1 item 15, solver/parallel_riccati.py)"
 )
 MODEL_TODO = "only the quadrotor model is ported (ROADMAP Queue 1 item 11, model families)"
-HISTORY_TODO = (
-    "populate_debug history is not ported yet (ROADMAP Queue 1 item 6, history)"
-)
 LIMITS_TODO = "control limits are not ported yet (ROADMAP Queue 1 item 10, box limits)"
 CONTINUATION_TODO = (
     "continuation is not ported yet (ROADMAP Queue 1 item 13, MPC warm start)"
 )
-PROBES_TODO = "return_probes is not ported yet (ROADMAP Queue 1 item 16, profiling)"
 
 
 @dataclass
@@ -59,7 +57,23 @@ class Trajectory:
 
 
 @dataclass
+class IterDebug:
+    """Per-iteration debug record (ilqr_debug.hh) as fixed-size buffers
+    indexed by trip: slot i holds the trajectory and cost that trip i
+    committed, for the lanes that executed an update on it (zeros
+    elsewhere); `valid[..., i]` marks those slots."""
+
+    trajectories: Trajectory  # leaves (..., max_iters, N, d)
+    costs: torch.Tensor  # (..., max_iters)
+    valid: torch.Tensor  # (..., max_iters) bool
+
+
+@dataclass
 class CostHistory:
+    """The cost and valid buffers of IterDebug without the trajectory
+    snapshots: what the whole-solve kernel records
+    (`solver.batched.solve_batch_latency`)."""
+
     costs: torch.Tensor  # (..., max_iters)
     valid: torch.Tensor  # (..., max_iters) bool
 
@@ -70,10 +84,10 @@ class SolveResult:
     cost: torch.Tensor  # (...)
     iterations: torch.Tensor  # (...) int32: executed updates
     status: torch.Tensor  # (...) int32: STATUS_*
-    debug: CostHistory | None = None
+    debug: IterDebug | CostHistory | None = None
 
 
-def check_supported(options: ILQROptions, model=None, ddp=False, associative=False):
+def check_supported(model=None, ddp=False, associative=False):
     """Refuse every option outside the ported slice, naming its ROADMAP item."""
     if ddp:
         raise NotImplementedError(DDP_TODO)
@@ -81,8 +95,6 @@ def check_supported(options: ILQROptions, model=None, ddp=False, associative=Fal
         raise NotImplementedError(ASSOCIATIVE_TODO)
     if model is not None and model is not qm:
         raise NotImplementedError(MODEL_TODO)
-    if options.populate_debug:
-        raise NotImplementedError(HISTORY_TODO)
 
 
 def quadratize(params: QuadrotorParams, cost, traj: Trajectory, dt_s):
@@ -204,8 +216,64 @@ def _where_lanes(mask, a, b):
     )
 
 
+def backtrack(rollout, traj, current, ks, big_ks, qutk, ktquuk, active, ls, store=True):
+    """The per-lane backtracking line search (ilqr.hh:174-194) over a
+    (B, N, ...) batch: probe j rolls the `active` lanes still pending out at
+    alpha = step_update^j and accepts a lane whose cost change falls below
+    desired_reduction_frac dJ(alpha). `rollout(traj, ks, Ks, alpha, pending)`
+    -> (Trajectory, cost).
+
+    Returns (candidate, its cost, accepted, the alpha each lane last tried).
+    A lane whose search runs out keeps its last (smallest-step) candidate,
+    as the reference does before it throws. With `store=False` only the
+    costs are kept (the candidate is the input trajectory)."""
+    batch = current.shape[0]
+    alpha = torch.ones(batch, dtype=current.dtype, device=current.device)
+    tried = alpha
+    accepted = torch.zeros_like(active)
+    best, best_cost = traj, current
+    for _ in range(ls.max_iters):
+        pending = active & ~accepted
+        if not bool(pending.any()):
+            break
+        cand, cand_cost = rollout(traj, ks, big_ks, alpha, pending)
+        desired = ls.desired_reduction_frac * expected_cost_reduction(qutk, ktquuk, alpha)
+        ok = (cand_cost - current) < desired
+        if store:
+            best = _where_lanes(pending, cand, best)
+        tried = torch.where(pending, alpha, tried)
+        best_cost = torch.where(pending, cand_cost, best_cost)
+        accepted = accepted | (pending & ok)
+        alpha = torch.where(accepted | ~active, alpha, alpha * ls.step_update)
+    return best, best_cost, accepted, tried
+
+
+def line_search(
+    params, cost, traj: Trajectory, current_cost, ks, big_ks, qutk, ktquuk, dt_s,
+    options: ILQROptions, model=None,
+):
+    """Backtracking line search on the plain pieces for one (N, ...)
+    trajectory or a (B, N, ...) batch, every lane searching.
+
+    Returns (new trajectory, new cost, ok); ok False is the reference's
+    exhausted search, and the trajectory is then the last candidate."""
+    check_supported(model)
+    single = traj.controls.ndim == 2
+    lift = (lambda a: a[None]) if single else (lambda a: a)
+    current = lift(torch.as_tensor(current_cost, dtype=traj.controls.dtype))
+    new_traj, new_cost, ok, _ = backtrack(
+        lambda t, k, big_k, alpha, act: rollout_cost(params, cost, t, k, big_k, alpha, dt_s),
+        tree_map(lift, traj), current, lift(ks), lift(big_ks), lift(qutk), lift(ktquuk),
+        torch.ones_like(current, dtype=torch.bool), options.line_search_params,
+    )
+    if single:
+        return tree_map(lambda a: a[0], new_traj), new_cost[0], ok[0]
+    return new_traj, new_cost, ok
+
+
 def solve_loop(
-    backward, rollout, traj_cost, initial_traj: Trajectory, options: ILQROptions, apply=None
+    backward, rollout, traj_cost, initial_traj: Trajectory, options: ILQROptions, apply=None,
+    history=False,
 ):
     """The reference outer loop over a (B, N, ...) batch, lane by lane.
 
@@ -220,16 +288,38 @@ def solve_loop(
     at the alpha it last tried (the accepted one, or the last probed when the
     search ran out). Rollouts being deterministic, the result is the same.
 
+    `options.populate_debug` records an IterDebug in `debug` (the JAX batch
+    loop's buffers: one slot per trip, the committed trajectory and cost of
+    the lanes that executed an update on it, zeros for the others,
+    batch-leading); otherwise `history` records a CostHistory.
+
     The loop dispatches thousands of small ops per trip, so it runs in
     inference mode (as `solver.fddp.fddp_loop`) and hands back ordinary
-    tensors.
+    tensors: the debug buffers are made before it (the loop writes into
+    them in place), so only the solution is copied out.
     """
+    debug = _debug_buffers(initial_traj, options, history)
     with torch.inference_mode():
-        result = _solve_loop(backward, rollout, traj_cost, initial_traj, options, apply)
-    return tree_map(lambda a: a.clone(), result)
+        result = _solve_loop(backward, rollout, traj_cost, initial_traj, options, apply, debug)
+    solution = tree_map(lambda a: a.clone(), dataclasses.replace(result, debug=None))
+    return dataclasses.replace(solution, debug=debug)
 
 
-def _solve_loop(backward, rollout, traj_cost, initial_traj, options, apply):
+def _debug_buffers(initial_traj, options, history):
+    """Zeroed (B, max_iters, ...) buffers of the debug record asked for."""
+    if not (options.populate_debug or history):
+        return None
+    controls = initial_traj.controls
+    shape = (controls.shape[0], int(options.convergence_criteria.max_iters))
+    costs = torch.zeros(shape, dtype=controls.dtype, device=controls.device)
+    valid = torch.zeros(shape, dtype=torch.bool, device=controls.device)
+    if not options.populate_debug:
+        return CostHistory(costs, valid)
+    snapshots = tree_map(lambda leaf: leaf.new_zeros(shape + leaf.shape[1:]), initial_traj)
+    return IterDebug(snapshots, costs, valid)
+
+
+def _solve_loop(backward, rollout, traj_cost, initial_traj, options, apply, debug):
     ls = options.line_search_params
     max_iters = int(options.convergence_criteria.max_iters)
     controls = initial_traj.controls
@@ -243,28 +333,6 @@ def _solve_loop(backward, rollout, traj_cost, initial_traj, options, apply):
     status = torch.full((batch,), STATUS_MAX_ITERS, dtype=torch.int32, device=controls.device)
     iterations = torch.zeros(batch, dtype=torch.int32, device=controls.device)
 
-    def line_search(traj, current, ks, big_ks, qutk, ktquuk, active):
-        alpha = torch.ones(batch, **kw)
-        tried = alpha
-        accepted = torch.zeros_like(active)
-        best, best_cost = traj, current
-        for _ in range(ls.max_iters):
-            pending = active & ~accepted
-            if not bool(pending.any()):
-                break
-            cand, cand_cost = rollout(traj, ks, big_ks, alpha, pending)
-            desired = ls.desired_reduction_frac * expected_cost_reduction(qutk, ktquuk, alpha)
-            ok = (cand_cost - current) < desired
-            if apply is None:
-                best = _where_lanes(pending, cand, best)
-            tried = torch.where(pending, alpha, tried)
-            best_cost = torch.where(pending, cand_cost, best_cost)
-            accepted = accepted | (pending & ok)
-            alpha = torch.where(accepted | ~active, alpha, alpha * ls.step_update)
-        if apply is not None:
-            best = apply(traj, ks, big_ks, tried, active)
-        return best, best_cost, accepted
-
     for i in range(max_iters):
         if bool(done.all()):
             break
@@ -274,13 +342,15 @@ def _solve_loop(backward, rollout, traj_cost, initial_traj, options, apply):
         pre_conv = (i > 0) & is_converged(current, expected, options) & ~done
         active = ~(done | pre_conv)
         if i == 0:
-            ones = torch.ones(batch, **kw)
-            cand, cand_cost = rollout(traj, ks, big_ks, ones, None)
-            if apply is not None:
-                cand = apply(traj, ks, big_ks, ones, active)
+            tried = torch.ones(batch, **kw)
+            cand, cand_cost = rollout(traj, ks, big_ks, tried, None)
             ls_ok = torch.ones_like(active)
         else:
-            cand, cand_cost, ls_ok = line_search(traj, current, ks, big_ks, qutk, ktquuk, active)
+            cand, cand_cost, ls_ok, tried = backtrack(
+                rollout, traj, current, ks, big_ks, qutk, ktquuk, active, ls, apply is None
+            )
+        if apply is not None:
+            cand = apply(traj, ks, big_ks, tried, active)
         post_conv = (i > 0) & is_converged(current, cand_cost, options) & active & ls_ok
         ls_failed = active & ~ls_ok
         traj = _where_lanes(active, cand, traj)
@@ -292,7 +362,21 @@ def _solve_loop(backward, rollout, traj_cost, initial_traj, options, apply):
         ).to(torch.int32)
         done = done | pre_conv | post_conv | ls_failed
         iterations = iterations + active.to(torch.int32)
-    return SolveResult(trajectory=traj, cost=new_cost, iterations=iterations, status=status)
+        if debug is not None:
+            # one slot per executed update (ilqr.hh:78-80)
+            debug.costs[:, i] = torch.where(active, new_cost, 0.0)
+            debug.valid[:, i] = active
+            if isinstance(debug, IterDebug):
+                tree_map(
+                    lambda buf, leaf: buf[:, i].copy_(
+                        _where_lanes(active, leaf, torch.zeros_like(leaf))
+                    ),
+                    debug.trajectories,
+                    traj,
+                )
+    return SolveResult(
+        trajectory=traj, cost=new_cost, iterations=iterations, status=status, debug=debug
+    )
 
 
 def solve(
@@ -308,7 +392,7 @@ def solve(
     """Exact iLQR on the plain pieces of this module. `initial_traj` leaves
     are (B, N, ...) or one unbatched (N, ...) trajectory; params and cost
     leaves are shared or carry the same leading B."""
-    check_supported(options, model, ddp, associative)
+    check_supported(model, ddp, associative)
     qc.check_supported(cost)
     single = initial_traj.controls.ndim == 2
     traj = tree_map(lambda a: a[None], initial_traj) if single else initial_traj
@@ -320,3 +404,52 @@ def solve(
         options,
     )
     return tree_map(lambda a: a[0], result) if single else result
+
+
+# ---- trajectory helpers (trajectory.hh: a point, equality, printing) ----
+
+
+def trajectory_point(traj: Trajectory, i):
+    """(time, State, control) at stage i: the reference's TrajectoryPoint."""
+    state = tree_map(lambda leaf: leaf[..., i, :], traj.states)
+    return traj.times[..., i], state, traj.controls[..., i, :]
+
+
+def _leaves(obj, path=()):
+    """[(path of field names, tensor)] of a container, depth first."""
+    if dataclasses.is_dataclass(obj):
+        return [leaf for f in dataclasses.fields(obj)
+                for leaf in _leaves(getattr(obj, f.name), path + (f.name,))]
+    return [(path, obj)]
+
+
+def trajectory_equal(a: Trajectory, b: Trajectory, atol: float = 0.0) -> bool:
+    """Elementwise equality of two trajectories (atol > 0: within atol)."""
+    leaves_a, leaves_b = _leaves(a), _leaves(b)
+    if [p for p, _ in leaves_a] != [p for p, _ in leaves_b]:
+        return False
+    for (_, la), (_, lb) in zip(leaves_a, leaves_b):
+        if la.shape != lb.shape:
+            return False
+        la, lb = la.detach().cpu(), lb.detach().cpu().to(la.dtype)
+        if not (torch.equal(la, lb) if atol == 0.0 else torch.allclose(la, lb, rtol=0.0, atol=atol)):
+            return False
+    return True
+
+
+def format_trajectory(traj: Trajectory, max_points: int = 5) -> str:
+    """A readable summary of the first `max_points` stages."""
+    n = traj.horizon
+    lines = [f"Trajectory(horizon={n}, batch={tuple(traj.controls.shape[:-2])})"]
+    show = min(n, max_points)
+    as_np = lambda a: a.detach().cpu().numpy()
+    times, controls = as_np(traj.times), as_np(traj.controls)
+    trans, quat = as_np(traj.states.pose.trans), as_np(traj.states.pose.quat)
+    for i in range(show):
+        lines.append(
+            f"  [{i}] t={times[..., i]} trans={trans[..., i, :]} "
+            f"quat={quat[..., i, :]} u={controls[..., i, :]}"
+        )
+    if n > show:
+        lines.append(f"  ... ({n - show} more)")
+    return "\n".join(lines)

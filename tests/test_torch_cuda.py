@@ -13,7 +13,10 @@ launch), handing their gains over without a copy, and their route
 (`solve_batch_fused`) against `solve.cu` at the whole solve's bars; and
 every team kernel (csrc/team.cuh) at the edges of its design: B of 1, 37
 and 300, horizons of 1, 2 and 40 stages, shared and per-scenario operand
-groups.
+groups. The debug record: `solve.cu`'s recorded launch (cost history,
+backward passes and probe sweeps) against its plain version, bit-equal to
+the launch without history, and `populate_debug` on the per-pass and
+whole-solve routes against the plain loop's.
 
 This file imports no JAX, so the card machine runs it without the JAX
 package's conftest:
@@ -609,3 +612,73 @@ def test_cuda_fddp_team_edges(card, plain, batch, n, groups, case):
         params, cost, traj, DT, opts, kf.fddp.FDDPOptions(), ddp))
     assert_fddp_edge(got, ref[:7], traj, case)
     assert_twins(got, ksf.solve_fddp_streamed(params, cost, traj, DT, opts, ddp=ddp))
+
+
+# ---- the debug record on the card ----
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n,groups", [(37, 40, "shared"), (300, 40, "per_scenario")])
+def test_cuda_solve_history_and_probes_match_plain(card, plain, batch, n, groups):
+    """solve.cu's recorded launch (`return_history`, `return_probes`)
+    against its plain version: the solution lane for lane, the history's
+    zero slots equal and its costs at the cost's rtol (1e-8), the backward
+    passes and probe sweeps equal, and the counts equal to stream.cu's."""
+    params, cost, traj = edge_problem(batch, n, groups == "per_scenario")
+    got = ks.solve_fused_whole(params, cost, traj, DT, OPTIONS, return_history=True,
+                               return_probes=True)
+    ref = plain(("whole", batch, n, groups),
+                lambda: ks.solve_whole_reference(params, cost, traj, DT, OPTIONS))
+    assert_lanes(got[:4], ref[:4])
+    assert got[4].shape == (batch, int(OPTIONS.convergence_criteria.max_iters))
+    torch.testing.assert_close(got[4] == 0, ref[4] == 0, rtol=0, atol=0)
+    torch.testing.assert_close(got[4], ref[4], rtol=1e-8, atol=0)
+    for g, r in zip(got[5:], ref[5:]):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    streamed = kst.solve_fused_streamed(params, cost, traj, DT, OPTIONS, return_probes=True)
+    for g, r in zip(got[5:], streamed[4:6]):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_solve_history_launch_bit_equal(card_problem):
+    """The recorded launch leaves the bits of the launch without history,
+    and each lane's last valid history slot is its final cost."""
+    params, cost, traj = card_problem
+    plain_launch = ks.solve_fused_whole(params, cost, traj, DT, OPTIONS)
+    got = ks.solve_fused_whole(params, cost, traj, DT, OPTIONS, return_history=True,
+                               return_probes=True)
+    assert_bit_equal(SolveResult(*got[:4]), SolveResult(*plain_launch))
+    for g, r in ((got[0].states.pose.quat, plain_launch[0].states.pose.quat),
+                 (got[0].states.pose.trans, plain_launch[0].states.pose.trans),
+                 (got[0].states.vel, plain_launch[0].states.vel)):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    iters = got[2].long()
+    lanes = torch.nonzero(iters > 0).flatten()
+    last = got[4][lanes, iters[lanes] - 1]
+    torch.testing.assert_close(last, got[1][lanes], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_debug_routes_match_plain(card_problem):
+    """`populate_debug` on the per-pass route (`backward.cu`, `rollout.cu`:
+    the IterDebug) against the plain loop's IterDebug (valid slots equal,
+    costs rtol 1e-8, snapshots' controls atol 1e-7), and on the whole-solve
+    route (`solve.cu`: a CostHistory) against the same buffers."""
+    from quadrotorilqr_tpu_torch.solver import ilqr
+
+    params, cost, traj = card_problem
+    opts = ILQROptions(OPTIONS.line_search_params, OPTIONS.convergence_criteria,
+                       populate_debug=True)
+    got = solve_batch_fused(params, cost, traj, DT, opts)
+    latency = solve_batch_latency(params, cost, traj, DT, opts)
+    ref = ilqr.solve(params, cost, traj, DT, opts)
+    assert_same_lanes(got, ref)
+    assert type(got.debug).__name__ == "IterDebug"
+    assert type(latency.debug).__name__ == "CostHistory"
+    for debug in (got.debug, latency.debug):
+        torch.testing.assert_close(debug.valid, ref.debug.valid, rtol=0, atol=0)
+        torch.testing.assert_close(debug.costs, ref.debug.costs, rtol=1e-8, atol=0)
+    torch.testing.assert_close(got.debug.trajectories.controls, ref.debug.trajectories.controls,
+                               rtol=0, atol=1e-7)
+    assert int(ref.debug.valid.sum()) == int(ref.iterations.sum())

@@ -187,12 +187,31 @@ def test_rollout_plain_matches_jax_kernel(random_problem, jax_backward):
 
 
 def test_whole_solve_plain_matches_jax_kernel():
+    """With the cost history and the probe counts: the history per slot at
+    the cost's rtol; the JAX kernel counts the probe sweeps of its 128-lane
+    tile (a sweep runs while any lane of the tile still searches), the port
+    each lane's, so the tile's count is the sum over trips of the most
+    probes a lane ran on that trip: at least the largest per-lane total and
+    at most the sum of them, and equal to the largest total when one lane
+    is the slowest searcher on every trip it runs (the count of sweeps is
+    printed beside it)."""
     jobjs = jax_objects(np_problem(2, 128, 6, random_states=False))
     params, cost, traj = port_objects(jobjs)
     j_opts, p_opts = options_pair()
-    ref = j_solve(*jobjs, DT, j_opts, interpret=True)
-    got = P_solve.solve_fused_whole(params, cost, traj, DT, p_opts)
-    assert_same_solution(got, ref)
+    ref = j_solve(*jobjs, DT, j_opts, interpret=True, return_history=True, return_probes=True)
+    got = P_solve.solve_fused_whole(params, cost, traj, DT, p_opts, return_history=True,
+                                    return_probes=True)
+    assert_same_solution(got[:4], ref[:4])
+    np.testing.assert_allclose(got[4].numpy(), np.asarray(ref[4]), rtol=1e-8)
+    np.testing.assert_array_equal(got[4].numpy() == 0, np.asarray(ref[4]) == 0)
+    passes, probes = got[5].numpy(), got[6].numpy()
+    tile = float(np.asarray(ref[5])[0])
+    print(f"JAX tile probe sweeps {tile}, port per-lane max {probes.max()}, sum {probes.sum()}")
+    assert probes.max() <= tile <= probes.sum()
+    # a lane runs one backward pass a trip and at least one probe an update
+    iters, status = got[2].numpy(), got[3].numpy()
+    assert (passes >= iters).all() and (passes <= iters + 1).all() and (probes >= iters).all()
+    assert int(np.asarray(ref[5]).min()) == int(np.asarray(ref[5]).max())
 
 
 def test_whole_solve_refuses_zero_probe_line_search():
@@ -212,7 +231,15 @@ def test_whole_solve_refuses_zero_probe_line_search():
     ids=["continuation", "limits", "history", "probes"],
 )
 def test_whole_solve_refuses_options_outside_the_slice(kwargs):
+    """continuation and limits are refused, naming their ROADMAP items;
+    the history and the probe counts are ported and come back after the
+    solution, (B, max_iters) and two (B,) int32 counts."""
     _, p_opts = options_pair()
     params, cost, traj = port_objects(jax_objects(np_problem(3, 2, 3, True)))
+    if "return_history" in kwargs or "return_probes" in kwargs:
+        got = P_solve.solve_fused_whole(params, cost, traj, DT, p_opts, **kwargs)
+        extra = [tuple(a.shape) for a in got[4:]]
+        assert extra == ([(2, 6)] if "return_history" in kwargs else [(2,), (2,)])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         P_solve.solve_fused_whole(params, cost, traj, DT, p_opts, **kwargs)

@@ -229,6 +229,32 @@ def test_demo_workload_matches_jax():
         close(getattr(p_params, name), getattr(j_params, name), tol=0)
     for p_w, j_w in zip(p_wl.demo_weights(), j_wl.demo_weights()):
         close(p_w, j_w, tol=0)
+    # BASELINE config 1's desired trajectory and config 3's figure eight
+    rpy = np.random.default_rng(4).uniform(-3, 3, size=(3, 5))
+    np.testing.assert_array_equal(p_wl.euler_xyz_to_quat(*rpy), j_wl.euler_xyz_to_quat(*rpy))
+    for p_t, j_t in (
+        (p_wl.demo_desired_trajectory(), j_wl.demo_desired_trajectory()),
+        (p_wl.figure_eight(dtype=torch.float64), j_wl.figure_eight(dtype=jnp.float64)),
+        (p_wl.figure_eight(16, 0.05, 1.5, torch.float32), j_wl.figure_eight(16, 0.05, 1.5)),
+    ):
+        assert p_t.controls.dtype == torch.float32 or p_t.horizon != 16
+        for p_a, j_a in ((p_t.times, j_t.times), (p_t.states.pose.quat, j_t.states.pose.quat),
+                         (p_t.states.pose.trans, j_t.states.pose.trans),
+                         (p_t.states.vel, j_t.states.vel), (p_t.controls, j_t.controls)):
+            assert p_a.shape == j_a.shape
+            close(p_a, j_a, tol=0)
+    assert p_wl.demo_desired_trajectory().horizon == 40
+    # config 3's problem: the figure eight, per-scenario Q in [0.5, 2] x
+    # the demo Q, per-scenario R, initial poses at stage 0 only
+    params, cost, trajs = p_wl.figure_eight_problem(np.random.default_rng(3), 5, n=9)
+    q, r = p_wl.demo_weights(torch.float32)
+    scale = cost.Q[:, 0, 0] / q[0, 0]
+    assert cost.Q.shape == (5, 12, 12) and cost.R.shape == (5, 4, 4)
+    assert bool(((scale >= 0.5) & (scale <= 2.0)).all())
+    torch.testing.assert_close(cost.Q, scale[:, None, None] * q, rtol=1e-6, atol=0)
+    assert trajs.controls.shape == (5, 9, 4) and params.arm_length_m.item() == np.float32(0.2)
+    torch.testing.assert_close(trajs.states.pose.trans[:, 1:],
+                               cost.desired_states.pose.trans[1:].expand(5, 8, 3))
 
 
 def test_hover_workload_and_initial_trajectory_match_jax():

@@ -3,11 +3,16 @@
 The port's `solver.batched.solve_batch_latency` / `solve_batch_fused` (on CPU
 tensors the kernel wrappers run their plain versions) against the JAX
 engines in interpret mode, at B=8 (JAX pads to 128 lanes) and N=8, with
-shared and per-scenario params; the port's `QuadrotorILQR` against the JAX
-class; and the port's import hygiene. Tolerances as tests/test_solve_fused.py:
-status and iterations equal, cost rtol 1e-8, controls and translations 1e-7.
+shared and per-scenario params, `solve_batch_latency` with the debug
+record (its CostHistory); the port's `QuadrotorILQR` against the JAX class,
+with `populate_debug` on every route (the IterDebug buffers, or a
+CostHistory's costs and valid slots, against the JAX class's IterDebug);
+and the port's import hygiene, also without protobuf. Tolerances as
+tests/test_solve_fused.py: status and iterations equal, cost rtol 1e-8,
+controls and translations 1e-7; debug costs rtol 1e-8, valid slots equal.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -42,13 +47,35 @@ def as_tuple(result):
     return (result.trajectory, result.cost, result.iterations, result.status)
 
 
+def debug_opts():
+    """options_pair with populate_debug, for the JAX package and the port."""
+    return tuple(dataclasses.replace(o, populate_debug=True) for o in options_pair())
+
+
+def assert_same_debug(port, ref):
+    """A port debug record (IterDebug or CostHistory) against a JAX one
+    whose buffers it carries: valid slots equal, costs rtol 1e-8, and an
+    IterDebug's snapshots (controls, translations) within 1e-7."""
+    np.testing.assert_array_equal(port.valid.numpy(), np.asarray(ref.valid))
+    np.testing.assert_allclose(port.costs.numpy(), np.asarray(ref.costs), rtol=1e-8)
+    if hasattr(port, "trajectories"):
+        for got, want in ((port.trajectories.controls, ref.trajectories.controls),
+                          (port.trajectories.states.pose.trans, ref.trajectories.states.pose.trans)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-7)
+
+
 @pytest.mark.parametrize("per_scenario_params", [False, True], ids=["shared", "per_scenario"])
 def test_solve_batch_latency_matches_jax(per_scenario_params):
+    """With the debug record: both record the whole-solve kernel's cost
+    history (a CostHistory), the port's from the kernel's plain version."""
     jobjs = jax_objects(np_problem(20, B, N, False, per_scenario_params))
-    j_opts, p_opts = options_pair()
+    j_opts, p_opts = debug_opts()
     ref = j_solve_batch_latency(*jobjs, DT, j_opts, interpret=True)
     got = p_batched.solve_batch_latency(*port_objects(jobjs), DT, p_opts)
     assert_same_solution(as_tuple(got), as_tuple(ref))
+    assert type(got.debug).__name__ == type(ref.debug).__name__ == "CostHistory"
+    assert_same_debug(got.debug, ref.debug)
+    assert int(got.debug.valid.sum()) == int(got.iterations.sum()) > B
 
 
 def test_solve_batch_fused_matches_jax():
@@ -90,7 +117,7 @@ def _api_pair(seed):
         ),
         controls=desired["controls"],
     )
-    j_opts, p_opts = options_pair()
+    j_opts, p_opts = debug_opts()
     args = (p["mass_kg"], p["inertia"], p["arm_length_m"], p["torque_to_thrust_ratio_m"],
             p["g_mpss"], d["Q"], d["R"])
     j_api = JQuadrotorILQR(*args, jax.tree.map(jax.numpy.asarray, j_desired), DT, j_opts)
@@ -110,11 +137,17 @@ def api_pair():
     "route", [dict(), dict(latency=True), dict(fused=False)], ids=["fused", "latency", "plain"]
 )
 def test_api_solve_batch_matches_jax(api_pair, route):
+    """Every route with `populate_debug` against the JAX class's float64
+    batch (vmapped single solves, an IterDebug): the batch loops carry the
+    IterDebug buffers, the whole-solve route its costs and valid slots."""
     p_api, j_trajs, ref, _ = api_pair
     got = p_api.solve_batch(
         convert.trajectory_from_numpy(jax.tree.map(np.asarray, j_trajs)), **route
     )
     assert_same_solution(as_tuple(got), as_tuple(ref))
+    expected = "CostHistory" if route.get("latency") else "IterDebug"
+    assert type(got.debug).__name__ == expected
+    assert_same_debug(got.debug, ref.debug)
 
 
 def test_streamed_reference_matches_jax(api_pair):
@@ -133,6 +166,7 @@ def test_api_solve_pytree_matches_jax(api_pair):
     ref = j_api.solve_pytree(one)
     got = p_api.solve_pytree(convert.trajectory_from_numpy(jax.tree.map(np.asarray, one)))
     assert_same_solution(as_tuple(got), as_tuple(ref))
+    assert_same_debug(got.debug, ref.debug)
 
 
 @pytest.mark.parametrize(
@@ -160,10 +194,44 @@ def test_api_defaults_to_cuda_and_refuses_without_it(api_pair, monkeypatch):
 
 
 def test_port_imports_no_jax():
+    """No module of the port imports JAX or the JAX package. With protobuf
+    hidden first, everything outside `io/` imports, `solve_pytree` and
+    `solve_batch` run (with the debug record), and only the proto surface
+    raises ImportError; then, with protobuf back, `io/` imports too."""
     code = (
-        "import sys, pkgutil, importlib, quadrotorilqr_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['google.protobuf'] = None\n"
+        "import torch, quadrotorilqr_tpu_torch as p\n"
+        "io = p.__name__ + '.io'\n"
+        "modules = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for name in modules:\n"
+        "    if not name.startswith(io):\n"
+        "        importlib.import_module(name)\n"
+        "from quadrotorilqr_tpu_torch.api import QuadrotorILQR\n"
+        "from quadrotorilqr_tpu_torch.app import workloads as w\n"
+        "from quadrotorilqr_tpu_torch.lie import se3\n"
+        "from quadrotorilqr_tpu_torch.models.quadrotor import State\n"
+        "from quadrotorilqr_tpu_torch.solver.options import ILQROptions, ConvergenceCriteria\n"
+        "d = w.demo_desired_trajectory(1.0)\n"
+        "q, r = w.demo_weights()\n"
+        "opts = ILQROptions(convergence_criteria=ConvergenceCriteria(max_iters=2), "
+        "populate_debug=True)\n"
+        "api = QuadrotorILQR(1.0, torch.eye(3), 1.0, 0.0, 9.81, q, r, d, 1.0, opts, device='cpu')\n"
+        "assert int(api.solve_pytree(d).debug.valid.sum()) == 2\n"
+        "x0 = State(se3.exp(0.1 * torch.ones(3, 6, dtype=torch.float64)), "
+        "torch.zeros(3, 6, dtype=torch.float64))\n"
+        "batch = w.initial_trajectory_from_state(x0, d)\n"
+        "assert api.solve_batch(batch, latency=True).debug.costs.shape == (3, 2)\n"
+        "try:\n"
+        "    api.solve(d)\n"
+        "except ImportError:\n"
+        "    pass\n"
+        "else:\n"
+        "    raise AssertionError('solve ran without protobuf')\n"
+        "assert io not in sys.modules\n"
+        "del sys.modules['google.protobuf']\n"
+        "for name in modules:\n"
+        "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'quadrotorilqr_tpu')]\n"
         "assert not bad, bad\n"
     )
