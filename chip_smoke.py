@@ -51,6 +51,18 @@ recorded launch (cost history, backward passes, probe sweeps) against its
 plain version in float64 and its time beside the launch without, and the
 per-pass route with the debug record, timed with its peak memory.
 
+BASELINE config 4, receding-horizon MPC (phase 6b): the box and weights
+variants of backward.cu, rollout.cu and solve.cu (control limits, stage
+weights) against their plain versions in float64 at B=300, N=40 with
+shared, per-scenario and wide bounds, their per-pass route against
+solve.cu, unit weights against none; then `app.mpc.run_mpc` on config 4
+(fleets 1, 32 and 128, H=50, dt 0.01, 100 ticks, f32) on both exact
+routes: ms a tick, the chunk slope, mean iterations, host syncs a tick and
+the host-driven `mpc_step` loop's per-tick p50, p99 and max; and at fleet
+128 with rotor limits (0, 2.9) and the terminal weight 20, the slice's main
+path, counted, with its quality checks and its first ticks against the
+plain route; the variants' kernels timed at config 4's shapes.
+
 Output: progress lines (with each compiled kernel's and never-inlined
 function's ptxas registers, spill stores and stack, and the team kernels'
 geometry: lanes per scenario, teams per block, shared
@@ -72,6 +84,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -107,7 +120,22 @@ PEAK_BYTES = 3.35e12
 FLOPS = dict(
     riccati=12074, ddp_extra=6840, rollout=1202, gap_rollout=1412, model=696,
     defect=560, transport=288, stage_cost=566,
+    box_extra=3592, weights_extra=188, rollout_box_extra=8, rollout_weights_extra=1,
 )
+# The box and weights variants (kBox, kW; counted from team.cuh the same way):
+#   box: the box-QP gains (boxqp_gains: the clipped Newton step 78, four
+#     projected-Newton iterations of 226, the feedback solve 566, the bounds
+#     less the control 8) replace the Cholesky gains (460): +1096; the
+#     general-gain value update (v_x 288, Q_xx 3456, with Quu K 336, the
+#     symmetrization 288, Quu k 28 and the two dots 14: 4410) replaces the
+#     simplified one (1914): +2496; 3592 in all;
+#   weights: w times c_x (12), c_xx (144), 2R in c_u (16) and in Q_uu (16);
+#   rollout: the clamp, 8 comparisons; the weight, 1 multiply a stage.
+# BASELINE config 4 (benchmarks/mpc_device_loop.py): warm-started 50-step
+# solves at 100 Hz, 100 ticks, fleets 1, 32 and 128; its constrained variant
+# adds rotor limits (0, 2.9) N and the terminal weight 20.
+MPC_FLEETS, MPC_TICKS, MPC_CHUNK, MPC_DT, MPC_HORIZON = (1, 32, 128), 100, 25, 0.01, 50
+MPC_PLAIN_TICKS = 5
 
 
 def log(msg):
@@ -252,14 +280,21 @@ def ptxas_summary(build_log):
             parts.append(mangled[i:i + int(m.group())])
             i += int(m.group())
         name = "::".join(parts[1:] if parts[:1] == ["qilqr"] else parts)
-        args = re.match(r"I([fd])(?:Lb([01])E)?", mangled[i:])
+        args = re.match(r"I([fd])((?:Lb[01]E)*)", mangled[i:])
         if not args:
             return name
         parts = ["float" if args.group(1) == "f" else "double"]
-        if args.group(2) is not None:
-            flags = ("record", "no record") if name.endswith("solve_kernel") else (
-                "ddp", "gauss-newton")
-            parts.append(flags[0] if args.group(2) == "1" else flags[1])
+        bits = re.findall(r"Lb([01])E", args.group(2))
+        # the bool template flags after the type, by function: solve_kernel
+        # <T, kRecord, kBox, kW>, backward_kernel / rollout_kernel /
+        # team_rollout <T, kBox, kW>, the FDDP pieces <T, kDdp>
+        if name.endswith("solve_kernel"):
+            names = (("record", "no record"), ("box", "no box"), ("weights", "no weights"))
+        elif name.endswith(("backward_kernel", "rollout_kernel", "team_rollout")):
+            names = (("box", "no box"), ("weights", "no weights"))
+        else:
+            names = (("ddp", "gauss-newton"),)
+        parts += [on if bit == "1" else off for bit, (on, off) in zip(bits, names)]
         return f"{name}<{', '.join(parts)}>"
 
     out, current = {}, None
@@ -282,6 +317,385 @@ def ptxas_summary(build_log):
         if m and current is not None:
             out[current][0] = int(m.group(1))
     return {k: tuple(v) for k, v in out.items()}
+
+
+def mpc_phase(env):
+    """Phase 6b: the box and weights variants of backward.cu, rollout.cu and
+    solve.cu against their plain versions (float64, B=300, N=40: `env.f64`),
+    then BASELINE config 4 through `app.mpc.run_mpc` and `mpc_step`: as
+    published at fleets 1, 32 and 128 on both exact routes, and at fleet 128
+    with rotor limits and the terminal weight (the slice's main path,
+    counted), with its quality checks and the first ticks against the plain
+    route. `env` carries the run's device, helpers and problems. Returns
+    {kernel: fields of its variant's JSON entry and its work}."""
+    import numpy as np
+    import torch
+
+    from quadrotorilqr_tpu_torch.app import mpc, workloads
+    from quadrotorilqr_tpu_torch.costs.quadratic import QuadraticTrackingCost
+    from quadrotorilqr_tpu_torch.kernels import backward as kb
+    from quadrotorilqr_tpu_torch.kernels import rollout as kr
+    from quadrotorilqr_tpu_torch.kernels import solve as ks
+    from quadrotorilqr_tpu_torch.solver import constrained
+    from quadrotorilqr_tpu_torch.solver.batched import solve_batch_fused
+
+    e = env
+    dev, card = e.dev, e.card
+    f64 = torch.float64
+    t_phase = time.perf_counter()
+
+    # ---- the variants against their plain versions, float64, B=300, N=40 ----
+    params, cost, traj, opts = e.f64
+    batch, n = traj.controls.shape[:2]
+    rng = np.random.default_rng(9)
+    w_n = torch.ones(n, dtype=f64, device=dev)
+    w_n[-1] = 20.0
+    hover = 9.81 / 4
+    per_lane = (torch.as_tensor(hover - rng.uniform(0.2, 0.6, size=(batch, 4)), device=dev),
+                torch.as_tensor(hover + rng.uniform(0.2, 0.6, size=(batch, 4)), device=dev))
+    cases = (
+        ("shared bounds (0, 2.9) and (N,) weights [1, ..., 1, 20]", (0.0, 2.9), w_n),
+        ("per-scenario (B, 4) bounds and (B, N) weights", per_lane,
+         torch.as_tensor(rng.uniform(0.5, 2.0, size=(batch, n)), device=dev)),
+        ("wide bounds (-1e6, 1e6) and unit weights", (-1e6, 1e6), torch.ones(n, dtype=f64, device=dev)),
+    )
+    err = dict(backward=0.0, rollout=0.0, solve=0.0)
+    alpha = torch.linspace(0.1, 1.0, batch, dtype=f64, device=dev)
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs()).max())
+
+    def in_box(u, limits):
+        lo, hi = constrained.prep_limits(limits, batch, f64, dev)
+        lo, hi = (b[:, None] if b.ndim == 2 else b for b in (lo, hi))
+        return bool(((u >= lo) & (u <= hi)).all()), int(((u == lo) | (u == hi)).sum())
+
+    for name, limits, w in cases:
+        c = dataclasses.replace(cost, stage_weights=w)
+        got = kb.backward_pass_fused(params, c, traj, DT, limits=limits)
+        ref = kb.backward_pass_reference(params, c, traj, DT, 0.0, limits)
+        g_t, g_c = kr.rollout_cost_fused(params, c, traj, ref[0], ref[1], alpha, DT, limits=limits)
+        r_t, r_c = kr.rollout_cost_reference(params, c, traj, ref[0], ref[1], alpha, DT, limits)
+        g_s = ks.solve_fused_whole(params, c, traj, DT, opts, limits=limits)
+        r_s = ks.solve_whole_reference(params, c, traj, DT, opts, limits)
+        loop = solve_batch_fused(params, c, traj, DT, opts, limits=limits)
+        torch.cuda.synchronize()
+        eb, rb = max(max_abs(got[0], ref[0]), max_abs(got[1], ref[1])), max(
+            rel(g, r) for g, r in zip(got[2:], ref[2:]))
+        er = max(max_abs(getattr(g_t.states.pose, k), getattr(r_t.states.pose, k))
+                 for k in ("quat", "trans"))
+        er = max(er, max_abs(g_t.states.vel, r_t.states.vel), max_abs(g_t.controls, r_t.controls))
+        rr = rel(g_c, r_c)
+        same = bool((g_s[3] == r_s[3]).all() and (g_s[2] == r_s[2]).all())
+        rs, du = rel(g_s[1], r_s[1]), max_abs(g_s[0].controls, r_s[0].controls)
+        loop_same = bool((loop.status == g_s[3]).all() and (loop.iterations == g_s[2]).all())
+        loop_rel, loop_du = rel(loop.cost, g_s[1]), max_abs(loop.trajectory.controls, g_s[0].controls)
+        loop_bits = int(((loop.status == g_s[3]) & (loop.iterations == g_s[2]) & (loop.cost == g_s[1])
+                         & (loop.trajectory.controls == g_s[0].controls).flatten(1).all(1)).sum())
+        boxed = [in_box(u, limits) for u in (g_t.controls, g_s[0].controls, loop.trajectory.controls)]
+        e.log(f"f64 variants, {name}: backward.cu max |dk|,|dK| {eb:.3e} (atol 1e-9), rel QuTk, "
+              f"kTQuuk {rb:.3e} (rtol 1e-9); rollout.cu max |dtraj| {er:.3e} (atol 1e-10), rel cost "
+              f"{rr:.3e} (rtol 1e-10); solve.cu vs plain: status and iterations equal {same}, rel "
+              f"cost {rs:.3e} (rtol 1e-8), max |du| {du:.3e} (atol 1e-7); the per-pass route vs "
+              f"solve.cu: equal {loop_same} ({loop_rel:.3e}, {loop_du:.3e}), bit-equal on "
+              f"{loop_bits} of {batch} lanes; every control in its box (rollout, solve.cu, per-pass) "
+              f"{[b[0] for b in boxed]}, controls on a bound {[b[1] for b in boxed]}; statuses "
+              f"{torch.bincount(r_s[3], minlength=3).tolist()}")
+        e.check(eb <= 1e-9 and rb <= 1e-9 and er <= 1e-10 and rr <= 1e-10 and same and rs <= 1e-8
+                and du <= 1e-7 and loop_same and loop_rel <= 1e-8 and loop_du <= 1e-7
+                and all(b[0] for b in boxed), f"f64 variants ({name}) disagree with plain")
+        err = dict(backward=max(err["backward"], eb), rollout=max(err["rollout"], er),
+                   solve=max(err["solve"], du))
+    # unit weights against none: the same gains, controls and decisions (the
+    # cost sums w (dx'Q dx + du'R du) against dx'Q dx + du'R du)
+    ones = dataclasses.replace(cost, stage_weights=torch.ones(n, dtype=f64, device=dev))
+    for limits in (None, (0.0, 2.9)):
+        base = ks.solve_fused_whole(params, cost, traj, DT, opts, limits=limits)
+        unit = ks.solve_fused_whole(params, ones, traj, DT, opts, limits=limits)
+        torch.cuda.synchronize()
+        bits = all(bool((a == b).all()) for a, b in (
+            (unit[2], base[2]), (unit[3], base[3]), (unit[0].controls, base[0].controls),
+            (unit[0].states.pose.quat, base[0].states.pose.quat),
+            (unit[0].states.pose.trans, base[0].states.pose.trans),
+            (unit[0].states.vel, base[0].states.vel)))
+        e.log(f"f64 solve.cu with unit weights against none (limits {limits}): trajectory, status "
+              f"and iterations bit-equal {bits}; costs bit-equal on {int((unit[1] == base[1]).sum())} "
+              f"of {batch} lanes, max rel {rel(unit[1], base[1]):.3e} (<= 1e-14)")
+        e.check(bits and rel(unit[1], base[1]) <= 1e-14, "unit weights differ from no weights")
+
+    # ---- BASELINE config 4 through run_mpc and mpc_step, float32 ----
+    def problem(fleet, device=dev):
+        return workloads.mpc_hover_problem(np.random.default_rng(4), fleet, MPC_HORIZON, MPC_TICKS,
+                                           MPC_DT, torch.float32, device)
+
+    def run(pb, ticks, latency, limits=False, weights=None):
+        weights = limits if weights is None else weights
+        return mpc.run_mpc(
+            pb.params, pb.q, pb.r, pb.desired, pb.x0, ticks, MPC_HORIZON, MPC_DT, pb.options,
+            latency_kernel=latency, stage_weights=pb.stage_weights if weights else None,
+            limits=pb.limits if limits else None, plant_params=pb.plant,
+        )
+
+    def host_syncs(fn):
+        """Synchronizing CUDA operations during fn (torch's sync debug mode)."""
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    def host_loop(pb, latency, limits):
+        """mpc_step driven from the host, u0 read back every tick, the plant
+        the controller's model (as benchmarks/run_all.py:396-421 steps it):
+        the per-tick ms of ticks 1 to MPC_TICKS - 1 (p50, p99, max)."""
+        x, warm = pb.x0, mpc.mpc_warm_start(pb.desired, pb.x0, MPC_HORIZON)
+        kw = dict(latency_kernel=latency,
+                  stage_weights=pb.stage_weights if limits else None,
+                  limits=pb.limits if limits else None)
+        ticks = []
+        for k in range(MPC_TICKS):
+            t0 = time.perf_counter()
+            x, warm, u0 = mpc.mpc_step(pb.params, pb.q, pb.r, pb.desired, x, warm, k, MPC_HORIZON,
+                                       MPC_DT, pb.options, **kw)
+            u0.cpu()
+            if k:
+                ticks.append((time.perf_counter() - t0) * 1e3)
+        return tuple(float(v) for v in (np.percentile(ticks, 50), np.percentile(ticks, 99),
+                                        max(ticks)))
+
+    def measure(pb, latency, limits):
+        """ms a tick (events around the MPC_TICKS run over MPC_TICKS), the
+        chunk slope (against the MPC_CHUNK run), mean iterations a tick,
+        host syncs a tick, the host loop's per-tick p50, p99, max; median
+        of 3 after a warm-up."""
+        run(pb, MPC_CHUNK, latency, limits)
+        torch.cuda.synchronize()
+        full, chunk = [], []
+        for _ in range(3):
+            res, ms_full = e.time_once(lambda: run(pb, MPC_TICKS, latency, limits))
+            full.append(ms_full)
+            chunk.append(e.time_once(lambda: run(pb, MPC_CHUNK, latency, limits))[1])
+        t_full, t_chunk = statistics.median(full), statistics.median(chunk)
+        syncs = host_syncs(lambda: run(pb, MPC_CHUNK, latency, limits)) / MPC_CHUNK
+        return dict(ms_tick=t_full / MPC_TICKS,
+                    slope=(t_full - t_chunk) / (MPC_TICKS - MPC_CHUNK),
+                    iters=float(res["iterations"].float().mean()), syncs=syncs,
+                    host=host_loop(pb, latency, limits), out=res)
+
+    def report(what, fleet, route, m):
+        p50, p99, mx = m["host"]
+        e.log(f"config 4 {what}, fleet {fleet}, {route}: {m['ms_tick']:.4f} ms a tick over "
+              f"{MPC_TICKS} ticks, chunk slope {m['slope']:.4f} ms a tick ({MPC_CHUNK} against "
+              f"{MPC_TICKS} ticks), {m['iters']:.3f} mean iterations a tick, {m['syncs']:.2f} host "
+              f"syncs a tick; host-driven mpc_step per tick p50 {p50:.4f}, p99 {p99:.4f}, max "
+              f"{mx:.4f} ms (H={MPC_HORIZON}, dt {MPC_DT}, f32) {card}")
+
+    routes = ((True, "solve.cu (latency_kernel=True)"), (False, "the per-pass route"))
+    published = {}
+    for fleet in MPC_FLEETS:
+        pb = problem(fleet)
+        for latency, route in routes:
+            m = measure(pb, latency, False)
+            published[(fleet, latency)] = m
+            report("as published", fleet, route, m)
+            u = m["out"]["u"]
+            e.check(bool(torch.isfinite(u).all()) and u.shape == (fleet, MPC_TICKS, 4),
+                    f"config 4 at fleet {fleet} on {route}: wrong or non-finite controls")
+
+    # the constrained variant at fleet 128: the slice's main path, counted
+    pb = problem(MPC_FLEETS[-1])
+    e.reset_counts()
+    main = {latency: run(pb, MPC_TICKS, latency, True) for latency, _ in routes}
+    torch.cuda.synchronize()
+    launches = e.counts()
+    e.log(f"config 4 with limits and terminal weights (fleet {MPC_FLEETS[-1]}, {MPC_TICKS} ticks, "
+          f"both routes), launches: {launches}")
+    e.check(all(launches[k] > 0 for k in ("backward", "rollout", "solve")),
+            f"a kernel of the MPC path never ran: {launches}")
+    hi = torch.tensor(pb.limits[1], dtype=torch.float32, device=dev)
+    x0_err = float(pb.x0.pose.trans.norm(dim=-1).mean())
+    unweighted = {latency: run(pb, MPC_TICKS, latency, True, False) for latency, _ in routes}
+    cpu_pb = problem(MPC_FLEETS[-1], "cpu")
+    plain = run(cpu_pb, MPC_PLAIN_TICKS, True, True)
+    for latency, route in routes:
+        out = main[latency]
+        u = out["u"]
+        final_err = float(out["x_final"].pose.trans.norm(dim=-1).mean())
+        base_err = float(unweighted[latency]["x_final"].pose.trans.norm(dim=-1).mean())
+        bound_ticks = int((u == hi).any(-1).any(0).sum())
+        st, c = out["status"][:, :MPC_PLAIN_TICKS].cpu(), out["cost"][:, :MPC_PLAIN_TICKS].cpu()
+        agree = float((st == plain["status"]).float().mean())
+        rc = (c - plain["cost"]).abs() / plain["cost"].abs()
+        med, q99 = float(rc.median()), float(torch.quantile(rc.flatten().double(), 0.99))
+        # per lane, the largest control difference over the ticks, against
+        # the largest control: the 99th percentile over lanes
+        du = (out["u"][:, :MPC_PLAIN_TICKS].cpu() - plain["u"]).abs().flatten(1).amax(1)
+        du_q99 = float(torch.quantile(du.double(), 0.99)) / float(plain["u"].abs().max())
+        e.log(f"config 4 with limits and terminal weights via {route}: controls in "
+              f"[{float(u.min()):.4f}, {float(u.max()):.4f}] (within [0, 2.9]), the upper bound binds "
+              f"on {bound_ticks} of {MPC_TICKS} ticks; mean final position error {final_err:.4f} m "
+              f"against {x0_err:.4f} m at the start (< 0.8x), {base_err:.4f} m with limits and no "
+              f"weights (weighted < 1.5x); statuses {torch.bincount(out['status'].flatten(), minlength=3).tolist()}; "
+              f"first {MPC_PLAIN_TICKS} ticks against the plain route: status agreement {agree:.4f} "
+              f"(>= 0.99), median rel cost diff {med:.3e} (< 1e-3), 99th percentile {q99:.3e} "
+              f"(<= 1e-3), lanes' max |du| / max |u| 99th percentile {du_q99:.3e} (<= 1e-3)")
+        e.check(float(u.min()) >= 0.0 and float(u.max()) <= float(hi) and bound_ticks > 0
+                and final_err < 0.8 * x0_err and final_err < 1.5 * base_err and agree >= 0.99
+                and med < 1e-3 and q99 <= 1e-3 and du_q99 <= 1e-3,
+                f"config 4 with limits and terminal weights via {route} fails its checks")
+    # the per-pass route runs the Riccati stage and the rollout of
+    # solve.cu's sweeps (team.cuh, team_trip.cuh): bit-equal, as in float64
+    routes_bits = all(bool((main[True][k] == main[False][k]).all())
+                      for k in ("u", "status", "iterations", "cost"))
+    e.log(f"config 4 with limits and terminal weights: the two routes' controls, statuses, "
+          f"iterations and costs bit-equal {routes_bits} (required)")
+    e.check(routes_bits, "config 4 with limits and terminal weights: the per-pass route differs "
+            "from solve.cu")
+    constrained_m = {}
+    for latency, route in routes:
+        constrained_m[latency] = measure(pb, latency, True)
+        report("with limits and terminal weights", MPC_FLEETS[-1], route, constrained_m[latency])
+
+    # ---- the variants' kernels at config 4's shapes (f32, B=128, N=50):
+    # each against its plain version on the inputs of the first tick ----
+    win = mpc._window(pb.desired, 0, MPC_HORIZON)
+    plain_cost = QuadraticTrackingCost(Q=pb.q, R=pb.r, desired_states=win.states,
+                                       desired_controls=win.controls)
+    v_cost = dataclasses.replace(plain_cost, stage_weights=pb.stage_weights)
+    warm = mpc.mpc_warm_start(pb.desired, pb.x0, MPC_HORIZON)
+    b4 = warm.controls.shape[0]
+    ones4 = torch.ones(b4, dtype=torch.float32, device=dev)
+    lo4, hi4 = constrained.prep_limits(pb.limits, b4, torch.float32, dev)
+    lo4, hi4 = (b[:, None] if b.ndim == 2 else b for b in (lo4, hi4))
+    # the kernels see the trajectory after trip 0's full step (the warm
+    # start sits on the target past stage 0, where k is exactly 0)
+    k0 = kb.backward_pass_reference(pb.params, v_cost, warm, MPC_DT, 0.0, pb.limits)
+    t1, _ = kr.rollout_cost_reference(pb.params, v_cost, warm, k0[0], k0[1], ones4, MPC_DT,
+                                      pb.limits)
+    k1 = kb.backward_pass_fused(pb.params, v_cost, t1, MPC_DT, limits=pb.limits)
+    k1_ref = kb.backward_pass_reference(pb.params, v_cost, t1, MPC_DT, 0.0, pb.limits)
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(a).all()) for a in k1)
+    eb32 = max(max_abs(g, r) for g, r in zip(k1[:2], k1_ref[:2]))
+    scaled = max(max_abs(g, r) / float(r.abs().max()) for g, r in zip(k1[:2], k1_ref[:2]))
+    clamped = int(((k1_ref[0] + t1.controls <= lo4) | (k1_ref[0] + t1.controls >= hi4)).sum())
+    e.log(f"f32 backward.cu with limits and weights (B={b4}, N={MPC_HORIZON}): finite {finite}, "
+          f"max |dk|,|dK| {eb32:.3e}, over max |ref| {scaled:.3e} (bound 1e-3); plain steps at a "
+          f"bound {clamped}")
+    e.check(finite and scaled <= 1e-3, "f32 backward.cu with limits and weights outside its bound")
+    g_t, g_c = kr.rollout_cost_fused(pb.params, v_cost, t1, k1_ref[0], k1_ref[1], ones4, MPC_DT,
+                                     limits=pb.limits)
+    r_t, r_c = kr.rollout_cost_reference(pb.params, v_cost, t1, k1_ref[0], k1_ref[1], ones4, MPC_DT,
+                                         pb.limits)
+    torch.cuda.synchronize()
+    g_leaves = (g_t.states.pose.quat, g_t.states.pose.trans, g_t.states.vel, g_t.controls)
+    r_leaves = (r_t.states.pose.quat, r_t.states.pose.trans, r_t.states.vel, r_t.controls)
+    finite = all(bool(torch.isfinite(a).all()) for a in g_leaves + (g_c,))
+    er32 = max(max_abs(g, r) for g, r in zip(g_leaves, r_leaves))
+    dtraj = max(max_abs(g, r) / float(r.abs().max()) for g, r in zip(g_leaves, r_leaves))
+    dc = float(((g_c - r_c).abs() / r_c.abs()).max())
+    boxed = bool(((g_t.controls >= lo4) & (g_t.controls <= hi4)).all())
+    on_bound = int(((g_t.controls == lo4) | (g_t.controls == hi4)).sum())
+    e.log(f"f32 rollout.cu with limits and weights: finite {finite}, max |dtraj| {er32:.3e}, "
+          f"over max |ref| (quat, trans, vel, u) {dtraj:.3e} (bound 1e-3), max rel cost {dc:.3e} "
+          f"(bound 1e-3); every control in its box {boxed}, {on_bound} on a bound")
+    e.check(finite and dtraj <= 1e-3 and dc <= 1e-3 and boxed,
+            "f32 rollout.cu with limits and weights outside its bound")
+    solve_args = (pb.params, v_cost, warm, MPC_DT, pb.options)
+    g_s = ks.solve_fused_whole(*solve_args, limits=pb.limits)
+    # the plain loop runs once: it is timed here
+    r_s, plain_solve_ms = e.time_once(lambda: ks.solve_whole_reference(*solve_args, pb.limits))
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(g_s[1]).all() and torch.isfinite(g_s[0].controls).all())
+    agree = float((g_s[3] == r_s[3]).float().mean())
+    rc = ((g_s[1] - r_s[1]).abs() / r_s[1].abs()).double()
+    du_lane = (g_s[0].controls - r_s[0].controls).abs().flatten(1).amax(1).double()
+    du_scale = float(r_s[0].controls.abs().max())
+    es32 = float(du_lane.max())
+    med, q99 = float(rc.median()), float(torch.quantile(rc, 0.99))
+    du_q99 = float(torch.quantile(du_lane, 0.99)) / du_scale
+    boxed = bool(((g_s[0].controls >= lo4) & (g_s[0].controls <= hi4)).all())
+    e.log(f"f32 solve.cu with limits and weights vs plain on config 4's first window: finite "
+          f"{finite}, status agreement {agree:.4f} (>= 0.99), rel cost diff median {med:.3e} "
+          f"(< 1e-3), 99th percentile {q99:.3e} (<= 1e-3), max {float(rc.max()):.3e}; lanes' max "
+          f"|du| / max |u| 99th percentile {du_q99:.3e} (<= 1e-3), max |du| {es32:.3e}; every "
+          f"control in its box {boxed}")
+    e.check(finite and agree >= 0.99 and med < 1e-3 and q99 <= 1e-3 and du_q99 <= 1e-3 and boxed,
+            "f32 solve.cu with limits and weights outside its bounds")
+    err32 = dict(backward=eb32, rollout=er32, solve=es32)
+    variant = {}
+
+    def bwd(c, limits, tr):
+        return lambda: kb.backward_pass_fused(pb.params if tr is t1 else e.bench[0], c, tr,
+                                              MPC_DT if tr is t1 else DT, limits=limits)
+
+    variant["backward"] = dict(
+        ms=e.launch_ms(bwd(v_cost, pb.limits, t1), "qilqr_backward"),
+        plain_ms=e.time_ms(lambda: kb.backward_pass_reference(pb.params, v_cost, t1, MPC_DT, 0.0,
+                                                              pb.limits)),
+        unconstrained_ms=e.launch_ms(bwd(plain_cost, None, t1), "qilqr_backward"),
+    )
+    variant["rollout"] = dict(
+        ms=e.launch_ms(lambda: kr.rollout_cost_fused(pb.params, v_cost, t1, k1[0], k1[1], ones4,
+                                                     MPC_DT, limits=pb.limits), "qilqr_rollout"),
+        plain_ms=e.time_ms(lambda: kr.rollout_cost_reference(pb.params, v_cost, t1, k1[0], k1[1],
+                                                             ones4, MPC_DT, pb.limits)),
+        unconstrained_ms=e.launch_ms(lambda: kr.rollout_cost_fused(
+            pb.params, plain_cost, t1, k1[0], k1[1], ones4, MPC_DT), "qilqr_rollout"),
+    )
+    variant["solve"] = dict(
+        ms=e.time_ms(lambda: ks.solve_fused_whole(*solve_args, limits=pb.limits)),
+        plain_ms=plain_solve_ms,
+        unconstrained_ms=e.time_ms(lambda: ks.solve_fused_whole(pb.params, plain_cost, warm, MPC_DT,
+                                                                pb.options)),
+    )
+    counted = ks.solve_fused_whole(*solve_args, limits=pb.limits, return_probes=True)
+    torch.cuda.synchronize()
+    # at the bench workload's shapes (B=4096, N=100): the Riccati stage's
+    # cost with and without the variants
+    b_params, b_cost, b_traj = e.bench
+    bn = b_traj.controls.shape[1]
+    bw = torch.ones(bn, dtype=torch.float32, device=dev)
+    bw[-1] = 20.0
+    b_vcost = dataclasses.replace(b_cost, stage_weights=bw)
+    bench_bwd = (e.launch_ms(bwd(b_vcost, (0.0, 2.9), b_traj), "qilqr_backward"),
+                 e.launch_ms(bwd(b_cost, None, b_traj), "qilqr_backward"))
+    for name in ("backward", "rollout", "solve"):
+        v = variant[name]
+        e.log(f"{name}.cu with limits and weights at config 4's shapes (B={b4}, N={MPC_HORIZON}, f32): "
+              f"{v['ms']:.4f} ms, without either {v['unconstrained_ms']:.4f} ms "
+              f"(x{v['ms'] / v['unconstrained_ms']:.3f}); plain {v['plain_ms']:.3f} ms {card}")
+    e.log(f"backward.cu with limits and weights at the bench workload's shapes (B="
+          f"{b_traj.controls.shape[0]}, N={bn}, f32): {bench_bwd[0]:.4f} ms, without either "
+          f"{bench_bwd[1]:.4f} ms (x{bench_bwd[0] / bench_bwd[1]:.3f}) {card}")
+    f, word, stage = FLOPS, 4, b4 * MPC_HORIZON
+    riccati = f["riccati"] + f["box_extra"] + f["weights_extra"]
+    rollout = f["rollout"] + f["rollout_box_extra"] + f["rollout_weights_extra"]
+    extra_bytes = (8 + MPC_HORIZON) * word  # shared bounds and weights
+    work = {
+        "backward": (stage * riccati, (17 + 52) * stage * word + 2 * b4 * word + extra_bytes),
+        "rollout": (stage * rollout, (17 + 52 + 17) * stage * word + 2 * b4 * word + extra_bytes),
+        "solve": ((int(counted[4].sum()) * riccati + int(counted[5].sum()) * rollout) * MPC_HORIZON,
+                  2 * 17 * stage * word + 3 * b4 * word + extra_bytes),
+    }
+    e.log(f"solve.cu with limits and weights ran (backward passes, probe sweeps) "
+          f"{(int(counted[4].sum()), int(counted[5].sum()))} on config 4's first window")
+    e.log(f"config 4 phase took {time.perf_counter() - t_phase:.1f} s")
+    return {
+        name: dict(variant[name], launches=launches[name], max_abs_err=err32[name],
+                   f64_max_abs_err=err[name], f64_shape=(batch, n), work=work[name],
+                   shape=(b4, MPC_HORIZON))
+        for name in ("backward", "rollout", "solve")
+    } | {"_mpc": dict(
+        published={f"{fl}/{'solve' if lat else 'per_pass'}": {k: v for k, v in m.items() if k != "out"}
+                   for (fl, lat), m in published.items()},
+        constrained={("solve" if lat else "per_pass"): {k: v for k, v in m.items() if k != "out"}
+                     for lat, m in constrained_m.items()},
+        bench_backward_ms=bench_bwd,
+    )}
 
 
 T0 = time.perf_counter()
@@ -1318,6 +1732,14 @@ def main() -> int:
             f"{lh_batch / k_ms * 1e3:.1f} solves/s; {twin} {w_ms:.3f} ms (B={lh_batch}, N={n_}, "
             f"f32) {card}")
 
+    # ---- 6b. BASELINE config 4 and the box and weights variants ----
+    variants = mpc_phase(SimpleNamespace(
+        dev=dev, card=card, log=log, check=check, f64=(params, cost, traj, opts),
+        bench=(b_params, b_cost, trajs1), time_once=time_once, time_ms=time_ms,
+        launch_ms=launch_ms, reset_counts=reset_counts, counts=counts,
+    ))
+    mpc_numbers = variants.pop("_mpc")
+
     # ---- 7. bounds: the work this run's inputs needed ----
     f = FLOPS
     word = 4  # float32
@@ -1376,6 +1798,14 @@ def main() -> int:
         log(f"{name} bound at full width (N={full[name][2]}): {flops / 1e9:.3f} GFLOP, "
             f"{nbytes / 1e6:.1f} MB -> {full_bounds[name][0]:.4f} ms ({full_bounds[name][1]}); "
             f"measured {full[name][0]:.3f} ms")
+    # the box and weights variants at config 4's shapes (phase 6b's work)
+    variant_bounds = {name: bound(*v["work"]) for name, v in variants.items()}
+    for name, v in variants.items():
+        (flops, nbytes), (b_ms, b_by) = v["work"], variant_bounds[name]
+        log(f"{name} with limits and weights bound (B={v['shape'][0]}, N={v['shape'][1]}): "
+            f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB -> {b_ms:.5f} ms ({b_by}); measured "
+            f"{v['ms']:.4f} ms")
+    log(f"config 4 numbers: {json.dumps(mpc_numbers)}")
 
     pkg = "quadrotorilqr_tpu_torch/kernels/csrc"
     replaces = {
@@ -1420,6 +1850,23 @@ def main() -> int:
         k_ms, w_ms, n_ = full[k["name"]]
         k["full_width"] = {"B": lh_batch, "N": n_, "ms": k_ms, "whole_twin_ms": w_ms,
                            "bound_ms": full_bounds[k["name"]][0]}
+    # the box and weights instantiations of the first three, on config 4's
+    # main path (the MPC loop with rotor limits and the terminal weight):
+    # launches there; error (float32) and times at its shapes, beside the
+    # float64 error at B=300, N=40
+    kernels += [
+        {
+            "name": f"{name}_box_weights", "route": "cuda", "source": f"{pkg}/{name}.cu",
+            "replaces": replaces[name], "launches": v["launches"], "max_abs_err": v["max_abs_err"],
+            "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": variant_bounds[name][0],
+            "bound_by": variant_bounds[name][1], "library_ms": None,
+            "variant": "box and weights (kBox, kW)",
+            "shape": {"B": v["shape"][0], "N": v["shape"][1]},
+            "without_variants_ms": v["unconstrained_ms"],
+            "f64_max_abs_err": v["f64_max_abs_err"], "f64_shape": {"B": v["f64_shape"][0], "N": v["f64_shape"][1]},
+        }
+        for name, v in variants.items()
+    ]
     log(f"chip_smoke took {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -15,6 +15,14 @@ loop. Past 256 stages (exact) and 231 (FDDP) the batch solvers take the
 streamed kernels, as the JAX class's routes do: `latency=True` runs
 `stream.cu`, and each FDDP launch `stream_fddp.cu`.
 
+`stage_weights` ((N,) per-stage cost multipliers, e.g. terminal emphasis
+[1, ..., 1, w_T]) weight the full stage cost on every exact route: the
+plain loop, the per-pass kernels and the whole-solve kernel run their
+weights variants up to 256 stages; `latency=True` past 256 stages (the
+streamed kernel) and the FDDP solvers do not take them yet and raise
+(ROADMAP Queue 2 items E and F). Control limits are not an argument of the
+class, as in the JAX package: they go to `solver.batched` and `app.mpc`.
+
 `options.populate_debug` fills `SolveResult.debug`: an IterDebug (one
 trajectory and cost per executed update) from `solve_pytree`, `fused=False`
 and the per-pass route, a CostHistory (the costs alone, recorded by the
@@ -89,10 +97,8 @@ class QuadrotorILQR:
             raise ValueError(f"unknown solver {solver!r}")
         if solver == "ddp":
             raise NotImplementedError(SOLVER_TODO)
-        if stage_weights is not None:
-            from .costs.quadratic import STAGE_WEIGHTS_TODO
-
-            raise NotImplementedError(STAGE_WEIGHTS_TODO)
+        if stage_weights is not None and solver != "ilqr":
+            raise NotImplementedError(ilqr.FDDP_VARIANTS_TODO)
         if not isinstance(options, ILQROptions):
             options = _io().options_from_proto(options)
         if options.populate_debug and solver != "ilqr":
@@ -120,6 +126,7 @@ class QuadrotorILQR:
             R=as_t(R),
             desired_states=self.desired_traj.states,
             desired_controls=self.desired_traj.controls,
+            stage_weights=None if stage_weights is None else as_t(stage_weights),
         )
         self.dt_s = float(dt_s)
         self.options = options

@@ -1,7 +1,8 @@
 """Canonical workloads: the reference demo's desired trajectory, vehicle
 and weights (BASELINE config 1), the hover-to-waypoint benchmark problem,
-the figure eight (BASELINE config 3), the long-horizon problem and the
-aggressive tumble (`quadrotorilqr_tpu/app/workloads.py`).
+the figure eight (BASELINE config 3), the MPC hover-regulation problem
+(BASELINE config 4), the long-horizon problem and the aggressive tumble
+(`quadrotorilqr_tpu/app/workloads.py`).
 
 The deterministic trajectories are built in float64 numpy, as the JAX
 package builds them, then cast. Random draws come from an explicit
@@ -11,6 +12,8 @@ same seed.
 
 from __future__ import annotations
 
+import typing
+
 import numpy as np
 import torch
 
@@ -19,6 +22,7 @@ from ..lie import se3
 from ..models.quadrotor import QuadrotorParams, State
 from ..parallel.batch import initial_trajectory_from_state
 from ..solver.ilqr import Trajectory
+from ..solver.options import ConvergenceCriteria, ILQROptions, LineSearchParams
 
 
 def euler_xyz_to_quat(roll, pitch, yaw):
@@ -247,3 +251,83 @@ def aggressive_tumble(
         controls=torch.full((n, 4), 9.81 / 4.0, dtype=dtype, device=device),
     )
     return params, q, r, init_states, desired
+
+
+class MpcProblem(typing.NamedTuple):
+    """BASELINE config 4 (`mpc_hover_problem`): what `app.mpc.run_mpc`
+    takes, and the constrained variant's limits and terminal weights."""
+
+    params: QuadrotorParams  # the controller's model
+    plant: QuadrotorParams  # the plant: mass and inertia + mismatch
+    q: torch.Tensor
+    r: torch.Tensor
+    desired: Trajectory  # unbatched, ticks + horizon + 8 stages
+    x0: State  # (fleet, ...)
+    options: ILQROptions
+    limits: tuple  # (0.0, 2.9) N per rotor
+    stage_weights: torch.Tensor  # (horizon,): [1, ..., 1, 20]
+
+
+def mpc_hover_problem(
+    rng: np.random.Generator, fleet, horizon=50, ticks=100, dt_s=0.01, dtype=torch.float32,
+    device=None, mismatch=0.05,
+) -> MpcProblem:
+    """BASELINE config 4, warm-started 50-step solves at a 100 Hz control
+    rate, as the JAX package's benchmark builds it
+    (`benchmarks/mpc_device_loop.py:72-105`): hover regulation at the
+    origin from start poses Exp(tau), tau translation 0.25 N(0, I_3) and no
+    rotation, at rest; the controller's model 1 kg, unit inertia, 0.2 m
+    arms, torque ratio 0.016; the plant's mass and inertia `mismatch` (5%)
+    heavier; hover targets at the plant's hover thrust; the demo weights;
+    3 iterations a tick, tolerance 1e-5, line search (0.5, 0.5, 8). The
+    constrained variant adds rotor limits (0.0, 2.9) N (the hover thrust is
+    ~2.58 N, so the upper bound binds while braking) and the terminal weight
+    w_T = 20 (tests/test_mpc.py:118-140). The draws come from the numpy
+    generator `rng`. On the CUDA card by default; without one it raises
+    unless a device is given.
+
+    Returns an MpcProblem."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "mpc_hover_problem builds on the CUDA card by default and "
+                "torch.cuda.is_available() is false; pass device='cpu'"
+            )
+        device = "cuda"
+    as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    tau = np.zeros((fleet, 6))
+    tau[:, 0:3] = 0.25 * rng.normal(size=(fleet, 3))
+
+    def vehicle(scale):
+        return QuadrotorParams.create(
+            mass_kg=1.0 * scale,
+            inertia=scale * torch.eye(3, dtype=dtype),
+            arm_length_m=0.2,
+            torque_to_thrust_ratio_m=0.016,
+            g_mpss=9.81,
+            device=device,
+        )
+
+    n_full = ticks + horizon + 8
+    desired = Trajectory(
+        times=torch.arange(n_full, dtype=dtype, device=device) * dt_s,
+        states=State(
+            pose=se3.identity((n_full,), dtype, device),
+            vel=torch.zeros((n_full, 6), dtype=dtype, device=device),
+        ),
+        controls=torch.full((n_full, 4), (1.0 + mismatch) * 9.81 / 4.0, dtype=dtype, device=device),
+    )
+    q, r = demo_weights(dtype, device)
+    weights = torch.ones(horizon, dtype=dtype, device=device)
+    weights[-1] = 20.0
+    return MpcProblem(
+        params=vehicle(1.0),
+        plant=vehicle(1.0 + mismatch),
+        q=q,
+        r=r,
+        desired=desired,
+        x0=State(pose=se3.exp(as_t(tau)), vel=torch.zeros((fleet, 6), dtype=dtype, device=device)),
+        options=ILQROptions(LineSearchParams(0.5, 0.5, 8), ConvergenceCriteria(1e-5, 1e-5, 3)),
+        limits=(0.0, 2.9),
+        stage_weights=weights,
+    )

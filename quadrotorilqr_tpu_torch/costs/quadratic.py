@@ -9,7 +9,10 @@ Counterpart of `quadrotorilqr_tpu/costs/quadratic.py`:
 
 with J_dx = d(x (-) x_d)/dx (Gauss-Newton: the curvature of (-) is dropped).
 
-Stage weights are not ported yet (ROADMAP Queue 1 item 5, "stage_weights").
+`stage_weights` ((N,) shared or (B, N) per scenario) multiply the full stage
+cost: J, C.x, C.xx, C.u and C.uu of stage n scale by w_n, and a weighted
+trajectory cost sums w_n (dx'Q dx + du'R du) stage by stage (the kernels'
+order; without weights the sum keeps its unweighted order).
 """
 
 from __future__ import annotations
@@ -21,9 +24,6 @@ import torch
 from ..models import quadrotor as qm
 from ..models.quadrotor import State
 
-STAGE_WEIGHTS_TODO = (
-    "stage_weights are not ported yet (ROADMAP Queue 1 item 5, stage_weights)"
-)
 
 
 @dataclass
@@ -38,9 +38,11 @@ class QuadraticTrackingCost:
     stage_weights: torch.Tensor | None = None
 
 
-def check_supported(cost: QuadraticTrackingCost):
+def refuse_weights(cost: QuadraticTrackingCost, todo: str):
+    """Raise NotImplementedError(todo) for a weighted cost: the solvers whose
+    kernels take no stage weight yet name their ROADMAP item this way."""
     if cost.stage_weights is not None:
-        raise NotImplementedError(STAGE_WEIGHTS_TODO)
+        raise NotImplementedError(todo)
 
 
 def cost_batched_flags(cost: QuadraticTrackingCost):
@@ -82,9 +84,12 @@ def stage_cost_with_diffs(cost: QuadraticTrackingCost, x: State, u, x_d: State, 
     j = (dx * q_dx).sum(-1) + (du * r_du).sum(-1)
     c_x = 2.0 * (j_dx.transpose(-1, -2) @ q_dx[..., None])[..., 0]
     c_xx = 2.0 * (j_dx.transpose(-1, -2) @ q @ j_dx)
-    c_u = 2.0 * r_du
-    c_uu = 2.0 * r
-    return j, c_x, c_u, c_xx, c_uu
+    if cost.stage_weights is None:
+        return j, c_x, 2.0 * r_du, c_xx, 2.0 * r
+    # the kernels' order: w scales 2R before it meets du
+    w = cost.stage_weights
+    r2w = w[..., None, None] * (2.0 * r)
+    return j * w, c_x * w[..., None], _matvec(r2w, du), c_xx * w[..., None, None], r2w
 
 
 def per_stage_terms(cost: QuadraticTrackingCost, states: State, controls):
@@ -96,20 +101,27 @@ def per_stage_terms(cost: QuadraticTrackingCost, states: State, controls):
 
 
 def per_stage_costs(cost: QuadraticTrackingCost, states: State, controls):
-    """Per-stage cost (..., N), dx'Q dx + du'R du: the summands the FDDP line
-    search folds stage by stage (solver/fddp.py), never with a pairwise sum."""
-    check_supported(cost)
+    """Per-stage cost (..., N), w (dx'Q dx + du'R du) (w = 1 without
+    weights): the summands the FDDP line search folds stage by stage
+    (solver/fddp.py), never with a pairwise sum."""
     xq, ur = per_stage_terms(cost, states, controls)
-    return xq + ur
+    if cost.stage_weights is None:
+        return xq + ur
+    return cost.stage_weights * (xq + ur)
 
 
 def trajectory_cost(cost: QuadraticTrackingCost, states: State, controls):
     """Total cost of a stacked trajectory, accumulated stage by stage in the
     kernels' order `cost + dx'Q dx + du'R du`. A pairwise `sum` over N would
-    round differently in float32 and move line-search accept boundaries."""
-    check_supported(cost)
+    round differently in float32 and move line-search accept boundaries.
+    With weights each stage adds w_n (dx'Q dx + du'R du), the kernels' order
+    (and the JAX kernels')."""
     xq, ur = per_stage_terms(cost, states, controls)
     total = torch.zeros_like(xq[..., 0])
+    w = cost.stage_weights
     for n in range(xq.shape[-1]):
-        total = total + xq[..., n] + ur[..., n]
+        if w is None:
+            total = total + xq[..., n] + ur[..., n]
+        else:
+            total = total + w[..., n] * (xq[..., n] + ur[..., n])
     return total

@@ -11,10 +11,17 @@ public function keeps the JAX signature and hands back batch-leading
 `backward_pass_fused` launches the kernel for CUDA tensors and takes the
 plain version, `backward_pass_reference`, only for CPU tensors.
 
+With control limits (`limits=(lo, hi)`) or stage weights on the cost the
+kernel runs its box or weights variant (JAX `use_box`, `use_weights`): the
+box-QP gains of `solver/constrained.py` and the weighted cost terms; the
+plain version is then `constrained.backward_pass_box` or the weighted
+`ilqr.backward_pass`.
+
 This module also holds the operand prep shared by every kernel
 (`_prep_cost`, `_problem_operands`; JAX `_prep_cost`/`CostBatched`,
-`kernels/backward.py:767-842`) and the gains layout (`gains_views`,
-`gains_buffer`).
+`kernels/backward.py:767-842`), the variants' operands (`_variant_operands`;
+JAX `_prep_limits`, `kernels/backward.py:1039-1060`) and the gains layout
+(`gains_views`, `gains_buffer`).
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import torch
 from ..costs import quadratic as qc
 from ..lie.se3 import SE3
 from ..models.quadrotor import CONTROL_DIM, State
-from ..solver import ilqr
+from ..solver import constrained, ilqr
 from . import _build
 from .models import prep_params
 
@@ -93,28 +100,66 @@ def _prep_cost(cost, batch, dtype, device):
 
 
 class Operands(typing.NamedTuple):
-    """Packed kernel arguments; `tensors` keeps the device buffers alive."""
+    """Packed kernel arguments; `tensors` keeps the device buffers alive.
+    `variant` holds the box and weights variants' (tensors, ptrs, ints),
+    which go after the kernel's own operands."""
 
     tensors: list
     ptrs: list
     ints: list
     reals: list
+    variant: tuple = ((), (), ())
 
     def extend(self, tensors=(), ints=(), reals=()):
-        """Append kernel-specific operands (None for a null pointer)."""
+        """Append kernel-specific operands (None for a null pointer), then
+        the variant operands."""
+        v_tensors, v_ptrs, v_ints = self.variant
         return Operands(
-            self.tensors + [t for t in tensors if t is not None],
-            self.ptrs + [0 if t is None else t.data_ptr() for t in tensors],
-            self.ints + list(ints),
+            self.tensors + [t for t in tensors if t is not None] + list(v_tensors),
+            self.ptrs + [0 if t is None else t.data_ptr() for t in tensors] + list(v_ptrs),
+            self.ints + list(ints) + list(v_ints),
             self.reals + [float(r) for r in reals],
         )
 
 
-def _problem_operands(params, cost, batch, n, dt_s, dtype, device) -> Operands:
+def _variant_operands(cost, limits, batch, n, dtype, device):
+    """The box and weights variants' operands in csrc/team.cuh's packed
+    order (`variant_from`): (tensors, ptrs lo hi w, ints s_box s_w). The
+    bounds are (4,) shared or (4, B) per scenario (`constrained.prep_limits`
+    broadcasts mixed shapes up), the weights (N,) shared or (N, B); a
+    pointer is 0 where its variant is off."""
+    lo = hi = w = None
+    s_box = s_w = 0
+    if limits is not None:
+        lo, hi = constrained.prep_limits(limits, batch, dtype, device)
+        s_box = int(lo.ndim == 2)
+        if s_box:
+            lo, hi = lo.t().contiguous(), hi.t().contiguous()
+    if cost.stage_weights is not None:
+        w = _on(cost.stage_weights, dtype, device)
+        s_w = int(w.ndim == 2)
+        if tuple(w.shape) != ((batch, n) if s_w else (n,)):
+            raise ValueError(f"stage weights of shape {tuple(w.shape)}: expected ({n},) or ({batch}, {n})")
+        w = w.t().contiguous() if s_w else w.contiguous()
+    tensors = [lo, hi, w]
+    return (
+        [t for t in tensors if t is not None],
+        [0 if t is None else t.data_ptr() for t in tensors],
+        [s_box, s_w],
+    )
+
+
+def _problem_operands(
+    params, cost, batch, n, dt_s, dtype, device, limits=None, variants=False
+) -> Operands:
     """The operands every kernel reads, in csrc/quadrotor.cuh's order:
     ptrs dq dtr dv du Q R g minv ju iinv_ma inertia inertia_inv;
-    ints B N s_des s_qr s_par; reals dt."""
-    qc.check_supported(cost)
+    ints B N s_des s_qr s_par; reals dt. With `variants` (the kernels that
+    have box and weights variants: backward, rollout, solve) also the
+    variants' operands for `limits` and the cost's stage weights; the other
+    kernels refuse both before they get here."""
+    if not variants and (limits is not None or cost.stage_weights is not None):
+        raise NotImplementedError("this kernel has no box or weights variant")
     if n * CONTROL_DIM * 12 * batch >= 2**31:
         raise ValueError(f"B={batch} x N={n} overflows the kernels' 32-bit buffer offsets")
     *cost_ops, cb = _prep_cost(cost, batch, dtype, device)
@@ -132,6 +177,7 @@ def _problem_operands(params, cost, batch, n, dt_s, dtype, device) -> Operands:
         [t.data_ptr() for t in tensors],
         [batch, n, int(cb.des), int(cb.qr), int(params_batched)],
         [float(dt_s)],
+        _variant_operands(cost, limits, batch, n, dtype, device) if variants else ((), (), ()),
     )
 
 
@@ -188,26 +234,34 @@ def _active_lanes(active, batch, device):
     return active.to(torch.bool).contiguous()
 
 
-def backward_pass_reference(params, cost, traj, dt_s, quu_reg=0.0):
-    """Plain PyTorch version: the batched `solver.ilqr.backward_pass`."""
-    return ilqr.backward_pass(params, cost, traj, dt_s, quu_reg)
+def backward_pass_reference(params, cost, traj, dt_s, quu_reg=0.0, limits=None):
+    """Plain PyTorch version: the batched `solver.ilqr.backward_pass`, or
+    with limits `solver.constrained.backward_pass_box` (the stage weights
+    ride the cost in both)."""
+    if limits is None:
+        return ilqr.backward_pass(params, cost, traj, dt_s, quu_reg)
+    controls = traj.controls
+    box = constrained.prep_limits(limits, controls.shape[0], controls.dtype, controls.device)
+    return constrained.backward_pass_box(params, cost, traj, dt_s, box, quu_reg)
 
 
-def backward_pass_fused(params, cost, traj, dt_s, quu_reg=0.0, active=None):
+def backward_pass_fused(params, cost, traj, dt_s, quu_reg=0.0, active=None, limits=None):
     """Batched backward pass over (B, N, ...) trajectories.
 
     Params and cost leaves may be shared or carry a leading B. `active` (B,)
     bool marks the lanes whose outputs the caller reads (None: all); the
-    kernel skips the others and leaves their outputs unset.
+    kernel skips the others and leaves their outputs unset. `limits=(lo,
+    hi)` (scalars, (4,) or (B, 4) each) takes the box-QP gains; stage
+    weights come with the cost.
     Returns (ks (B, N, 4), Ks (B, N, 4, 12), QuTk (B,), kTQuuk (B,)); on the
     card ks and Ks are views of one (N, B, 52) buffer (`gains_views`)."""
     controls = traj.controls
     device = controls.device
     if device.type == "cpu":
-        return backward_pass_reference(params, cost, traj, dt_s, quu_reg)
+        return backward_pass_reference(params, cost, traj, dt_s, quu_reg, limits)
     _check_cuda(device)
     batch, n = controls.shape[0], controls.shape[1]
-    ops = _problem_operands(params, cost, batch, n, dt_s, controls.dtype, device)
+    ops = _problem_operands(params, cost, batch, n, dt_s, controls.dtype, device, limits, True)
     return _launch(ops, traj, quu_reg, active)
 
 

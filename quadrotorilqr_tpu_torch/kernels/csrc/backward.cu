@@ -22,6 +22,11 @@
 // split over the team by output entries, Q, R and the model parameters
 // are read from shared memory, and each stage's operands arrive through a
 // cp.async ring kRing - 1 stages ahead.
+//
+// The box and weights variants (_backward_kernel's use_box, use_weights) are
+// instantiations of their own (kBox, kW), picked when the bounds or the
+// weights are passed: team_backward's box-QP gains and weighted cost terms;
+// without either the kernel is the exact path above.
 #define QILQR_TEAM_LANES 8  // lanes per scenario (PERF.md section 6)
 #include "team_trip.cuh"
 
@@ -34,9 +39,10 @@ struct BackwardIO {
   T* gains;                     // out (N, B, 52): k | K
   T* red;                       // out (2, B): QuTk, kTQuuk
   T quu_reg;
+  VariantOps<T> var;            // bounds and weights of the variants
 };
 
-template <typename T>
+template <typename T, bool kBox, bool kW>
 __global__ void __launch_bounds__(kTeamThreads) backward_kernel(Problem<T> P, BackwardIO<T> io) {
   Team<T> tm;
   if (!team_setup(P, &tm)) return;
@@ -44,7 +50,8 @@ __global__ void __launch_bounds__(kTeamThreads) backward_kernel(Problem<T> P, Ba
   if (io.active != nullptr && io.active[tm.b] == 0) return;
   const Problem<T> Ps = smem_problem(P, tm);
   T qutk, ktquuk;
-  team_backward(tm, P, Ps, io.quu_reg, io.x, false, io.x, io.gains, &qutk, &ktquuk);
+  team_backward<T, kBox, kW>(tm, P, Ps, io.quu_reg, io.x, false, io.x, io.gains, &qutk, &ktquuk,
+                             io.var);
   ring_drain();
   if (tm.lane == 0) {
     io.red[tm.b] = qutk;
@@ -53,7 +60,8 @@ __global__ void __launch_bounds__(kTeamThreads) backward_kernel(Problem<T> P, Ba
 }
 
 // packed operands after the Problem block:
-//   ptrs:  q t v u  active  gains red
+//   ptrs:  q t v u  active  gains red  lo hi w
+//   ints:  s_box s_w
 //   reals: quu_reg
 template <typename T>
 int launch_backward(const void* const* ptrs, const long long* ints, const double* reals,
@@ -66,8 +74,12 @@ int launch_backward(const void* const* ptrs, const long long* ints, const double
   io.gains = static_cast<T*>(const_cast<void*>(p[5]));
   io.red = static_cast<T*>(const_cast<void*>(p[6]));
   io.quu_reg = static_cast<T>(reals[kProblemReals]);
-  return team_launch(backward_kernel<T>, P.B, team_block_bytes<T>(P.s_qr, P.s_par), stream, P,
-                     io);
+  io.var = variant_from<T>(p + 7, ints + kProblemInts);
+  const size_t bytes = team_block_bytes<T>(P.s_qr, P.s_par);
+  return with_variant(io.var, [&](auto box, auto w) {
+    return team_launch(backward_kernel<T, decltype(box)::value, decltype(w)::value>, P.B, bytes,
+                       stream, P, io);
+  });
 }
 
 }  // namespace qilqr

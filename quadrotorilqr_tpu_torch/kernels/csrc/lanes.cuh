@@ -122,6 +122,53 @@ __device__ __forceinline__ void chol_solve(const T* a, const T* b, T* x) {
   }
 }
 
+// chol_solve with each pivot's reciprocal (computed once, as the factor's
+// 1 / l_jj) multiplied in where chol_solve divides by l_jj: the box-QP's
+// solves (team.cuh boxqp_gains, solver/constrained.py), 5 of them a stage,
+// whose divisions cost more than the rest of the box-QP on the H100 (PERF.md
+// section 6).
+template <int NN, int KK, typename T>
+__device__ __forceinline__ void chol_solve_rcp(const T* a, const T* b, T* x) {
+  T l[NN][NN], inv[NN];
+#pragma unroll
+  for (int j = 0; j < NN; ++j) {
+    T s = a[j * NN + j];
+#pragma unroll
+    for (int kk = 0; kk < j; ++kk) s = s - l[j][kk] * l[j][kk];
+    T d = f_sqrt(s);
+    l[j][j] = d;
+    inv[j] = T(1) / d;
+#pragma unroll
+    for (int i = j + 1; i < NN; ++i) {
+      T si = a[i * NN + j];
+#pragma unroll
+      for (int kk = 0; kk < j; ++kk) si = si - l[i][kk] * l[j][kk];
+      l[i][j] = si * inv[j];
+    }
+  }
+  T y[NN][KK];
+#pragma unroll
+  for (int i = 0; i < NN; ++i) {
+#pragma unroll
+    for (int c = 0; c < KK; ++c) {
+      T s = b[i * KK + c];
+#pragma unroll
+      for (int j = 0; j < i; ++j) s = s - l[i][j] * y[j][c];
+      y[i][c] = s * inv[i];
+    }
+  }
+#pragma unroll
+  for (int i = NN - 1; i >= 0; --i) {
+#pragma unroll
+    for (int c = 0; c < KK; ++c) {
+      T s = y[i][c];
+#pragma unroll
+      for (int j = i + 1; j < NN; ++j) s = s - l[j][i] * x[j * KK + c];
+      x[i * KK + c] = s * inv[i];
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // quaternions (w, x, y, z)
 // ---------------------------------------------------------------------------

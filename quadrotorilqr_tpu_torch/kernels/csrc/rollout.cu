@@ -23,6 +23,11 @@
 // trajectory, gains and desired operands arrive through a cp.async ring
 // kRing - 1 stages ahead. team_rollout is never inlined, so these probes
 // and the whole-solve kernels' probes run the same instructions.
+//
+// The box and weights variants (_rollout_kernel's use_box, use_weights):
+// team_rollout's (kBox, kW) instantiations, picked when the bounds or the
+// weights are passed: u_n clamped into [lo, hi], the cost summed as
+// J + w_n (dx'Q dx + du'R du).
 #define QILQR_TEAM_LANES 8  // lanes per scenario (PERF.md section 6)
 #include "team_trip.cuh"
 
@@ -36,21 +41,24 @@ struct RolloutIO {
   const unsigned char* active;  // (B,) lanes to compute, or null for all
   Traj<T> out;                  // out (N, d, B)
   T* cost;                      // out (B,)
+  VariantOps<T> var;            // bounds and weights of the variants
 };
 
-template <typename T>
+template <typename T, bool kBox, bool kW>
 __global__ void __launch_bounds__(kTeamThreads) rollout_kernel(Problem<T> P, RolloutIO<T> io) {
   Team<T> tm;
   if (!team_setup(P, &tm)) return;
   // an inactive lane's team leaves whole, after the block-wide setup
   if (io.active != nullptr && io.active[tm.b] == 0) return;
-  const T cost = team_rollout(tm, P, io.x, io.out, io.gains, io.alpha[tm.b], true);
+  const T cost =
+      team_rollout<T, kBox, kW>(tm, P, io.x, io.out, io.gains, io.alpha[tm.b], true, io.var);
   ring_drain();
   if (tm.lane == 0) io.cost[tm.b] = cost;
 }
 
 // packed operands after the Problem block:
-//   ptrs: q t v u  gains alpha active  oq ot ov ou cost
+//   ptrs: q t v u  gains alpha active  oq ot ov ou cost  lo hi w
+//   ints: s_box s_w
 template <typename T>
 int launch_rollout(const void* const* ptrs, const long long* ints, const double* reals,
                    void* stream) {
@@ -63,8 +71,12 @@ int launch_rollout(const void* const* ptrs, const long long* ints, const double*
   io.active = static_cast<const unsigned char*>(p[6]);
   io.out = traj_from<T>(p + 7);
   io.cost = static_cast<T*>(const_cast<void*>(p[11]));
-  return team_launch(rollout_kernel<T>, P.B, team_block_bytes<T>(P.s_qr, P.s_par), stream, P,
-                     io);
+  io.var = variant_from<T>(p + 12, ints + kProblemInts);
+  const size_t bytes = team_block_bytes<T>(P.s_qr, P.s_par);
+  return with_variant(io.var, [&](auto box, auto w) {
+    return team_launch(rollout_kernel<T, decltype(box)::value, decltype(w)::value>, P.B, bytes,
+                       stream, P, io);
+  });
 }
 
 }  // namespace qilqr

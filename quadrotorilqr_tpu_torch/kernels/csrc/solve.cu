@@ -39,6 +39,11 @@
 // outputs is asked for, so a launch without them runs the instantiation that
 // records nothing; the sweeps are the same never-inlined or shared functions
 // in both, so the recorded launch leaves the same trajectory.
+//
+// The box and weights variants (solve.py's use_box, use_weights) are the
+// instantiations (kBox, kW), each with and without the record, picked when
+// the bounds or the weights are passed: team_backward's and team_rollout's
+// variants, the seed cost weighted. The trip logic is the same.
 #define QILQR_TEAM_LANES 8  // lanes per scenario (PERF.md section 6)
 #include "team_trip.cuh"
 
@@ -58,23 +63,24 @@ struct SolveIO {
   int* probes;   // out (B,) or null: probe sweeps run
   int max_iters, ls_max_iters;
   T quu_reg, rtol, atol, ls_step, ls_frac;
+  VariantOps<T> var;  // bounds and weights of the variants
 };
 
-template <typename T, bool kRecord>
+template <typename T, bool kRecord, bool kBox, bool kW>
 __global__ void __launch_bounds__(kTeamThreads) solve_kernel(Problem<T> P, SolveIO<T> io) {
   Team<T> tm;
   if (!team_setup(P, &tm)) return;
   const Problem<T> Ps = smem_problem(P, tm);
   team_copy_traj(tm, P, io.x0, io.live);
   // the loop never runs: report the initial trajectory's true cost
-  T cost = io.max_iters == 0 ? team_trajectory_cost(tm, P, io.live) : T(0);
+  T cost = io.max_iters == 0 ? team_trajectory_cost<T, kW>(tm, P, io.live, io.var) : T(0);
   int status = 0, iters = 0, passes = 0, stages = 0;
   bool take = false;  // the candidate in best is the live trajectory, not merged yet
   for (int i = 0; i < io.max_iters; ++i) {
     // ---- backward pass, merging the last trip's candidate ----
     T qutk, ktquuk;
-    team_backward(tm, P, Ps, io.quu_reg, take ? io.best : io.live, take, io.live, io.gains,
-                  &qutk, &ktquuk);
+    team_backward<T, kBox, kW>(tm, P, Ps, io.quu_reg, take ? io.best : io.live, take, io.live,
+                               io.gains, &qutk, &ktquuk, io.var);
     take = false;
     if constexpr (kRecord) ++passes;
 
@@ -87,8 +93,9 @@ __global__ void __launch_bounds__(kTeamThreads) solve_kernel(Problem<T> P, Solve
     // ---- line search, each probe stored as the candidate; trip 0 force-accepts ----
     LineSearch<T> ls{false, current, T(1), 0};
     if (active) {
-      ls = team_line_search(tm, P, io.live, io.best, true, io.gains, qutk, ktquuk, current,
-                            i == 0, io.ls_max_iters, io.ls_step, io.ls_frac);
+      ls = team_line_search<T, kBox, kW>(tm, P, io.live, io.best, true, io.gains, qutk, ktquuk,
+                                         current, i == 0, io.ls_max_iters, io.ls_step,
+                                         io.ls_frac, io.var);
       take = true;
       if constexpr (kRecord) stages += ls.stages;
     }
@@ -117,8 +124,8 @@ __global__ void __launch_bounds__(kTeamThreads) solve_kernel(Problem<T> P, Solve
 
 // packed operands after the Problem block:
 //   ptrs:  q t v u  oq ot ov ou  cost iters status  gains  bq bt bv bu  hist passes probes
-//          (the last three null unless asked for)
-//   ints:  max_iters ls_max_iters
+//          (those three null unless asked for)  lo hi w
+//   ints:  max_iters ls_max_iters  s_box s_w
 //   reals: quu_reg rtol atol ls_step ls_frac
 template <typename T>
 int launch_solve(const void* const* ptrs, const long long* ints, const double* reals,
@@ -146,11 +153,14 @@ int launch_solve(const void* const* ptrs, const long long* ints, const double* r
   io.atol = static_cast<T>(rp[2]);
   io.ls_step = static_cast<T>(rp[3]);
   io.ls_frac = static_cast<T>(rp[4]);
+  io.var = variant_from<T>(p + 19, ip + 2);
   const size_t bytes = team_block_bytes<T>(P.s_qr, P.s_par);
-  if (io.hist != nullptr || io.passes != nullptr || io.probes != nullptr) {
-    return team_launch(solve_kernel<T, true>, P.B, bytes, stream, P, io);
-  }
-  return team_launch(solve_kernel<T, false>, P.B, bytes, stream, P, io);
+  const bool record = io.hist != nullptr || io.passes != nullptr || io.probes != nullptr;
+  return with_variant(io.var, [&](auto box, auto w) {
+    constexpr bool kBox = decltype(box)::value, kW = decltype(w)::value;
+    return record ? team_launch(solve_kernel<T, true, kBox, kW>, P.B, bytes, stream, P, io)
+                  : team_launch(solve_kernel<T, false, kBox, kW>, P.B, bytes, stream, P, io);
+  });
 }
 
 }  // namespace qilqr

@@ -39,6 +39,8 @@
 
 #include <stddef.h>
 
+#include <type_traits>
+
 #include "quadrotor.cuh"
 
 // Lanes per scenario: each kernel's source defines QILQR_TEAM_LANES before it
@@ -64,8 +66,13 @@ constexpr int kTeamThreads = 32;  // one warp a block
 constexpr int kTeamsPerBlock = kTeamThreads / kTeamLanes;
 // ring slots: the stage being computed and kRing - 1 stages in flight
 constexpr int kRing = 4;
-// a slot: k|K, the defects, the live stage (q t v u), the desired stage
-constexpr int kSlotGains = 0, kSlotD = 52, kSlotLive = 64, kSlotDes = 81, kSlot = 100;
+// a slot: k|K, the defects, the live stage (q t v u), the desired stage, the
+// stage weight (weights variant)
+constexpr int kSlotGains = 0, kSlotD = 52, kSlotLive = 64, kSlotDes = 81, kSlotW = 98,
+              kSlot = 100;
+// projected-Newton iterations of the box-QP gain solve (box variant;
+// solver/constrained.py _PN_ITERS)
+constexpr int kPnIters = 4;
 constexpr int kStage = 17;  // q(4) t(3) v(6) u(4)
 
 using Tile = cg::thread_block_tile<kTeamLanes>;
@@ -109,6 +116,35 @@ inline size_t team_block_bytes(int s_qr, int s_par) {
   const size_t team = sizeof(TeamState<T>) + (s_qr ? sizeof(CostConsts<T>) : 0) +
                       (s_par ? sizeof(ParConsts<T>) : 0);
   return blk + kTeamsPerBlock * team;
+}
+
+// The operands of the box and weights variants (backward.py
+// _backward_kernel's use_box / use_weights, rollout.py's, solve.py's): the
+// control bounds lo, hi (4, B or 1) and the stage weights w (N, B or 1),
+// each null when its variant is off, with their B-strides. A kernel picks
+// the instantiation (kBox, kW) from which are set; the instantiation without
+// either never reads them.
+template <typename T>
+struct VariantOps {
+  const T* lo = nullptr;
+  const T* hi = nullptr;
+  const T* w = nullptr;
+  int s_box = 0, s_w = 0;
+
+  // bound a (of lo or hi) of scenario b
+  __device__ __forceinline__ T bound(const T* p, int a, int B, int b) const {
+    return p[a * (s_box ? B : 1) + b * s_box];
+  }
+};
+
+// x scaled by the stage weight w in the weights variant, x itself otherwise
+template <bool kW, typename T>
+__device__ __forceinline__ T weigh(T w, T x) {
+  if constexpr (kW) {
+    return w * x;
+  } else {
+    return x;
+  }
 }
 
 // What a team carries: its lane, its scenario and its shared memory.
@@ -318,9 +354,11 @@ __device__ __forceinline__ void team_put_row(const Team<T>& tm, const T* src, T*
 // desired stage always).
 template <typename T>
 struct RingSrc {
-  Traj<T> x;       // the live trajectory, or the candidate a sweep merges
-  const T* gains;  // (N, B, 52) k|K, or null
-  const T* d;      // (N, B, 12) defects, or null
+  Traj<T> x;              // the live trajectory, or the candidate a sweep merges
+  const T* gains;         // (N, B, 52) k|K, or null
+  const T* d;             // (N, B, 12) defects, or null
+  const T* w = nullptr;   // (N, B or 1) stage weights, or null
+  int s_w = 0;            // their B-stride
 };
 
 // Issues the copies of stage n's operands into `slot`: element e of the
@@ -345,6 +383,11 @@ __device__ __forceinline__ void ring_fetch(const Team<T>& tm, const Problem<T>& 
     for (int c = tm.lane; c < 12 / kChunk<T>; c += kTeamLanes) {
       __pipeline_memcpy_async(slot + kSlotD + c * kChunk<T>, row + c * kChunk<T>, 16);
     }
+  }
+  // the stage weight rides with the desired stage, as element 2 kStage
+  if (src.w != nullptr && tm.lane == (2 * kStage) % kTeamLanes) {
+    __pipeline_memcpy_async(slot + kSlotW, src.w + n * (src.s_w ? B : 1) + b * src.s_w,
+                            sizeof(T));
   }
 }
 
@@ -618,11 +661,13 @@ __device__ __forceinline__ void team_cxx_correction(const Team<T>& tm, const Til
 
 // Tracking-cost differentials of the stage in `slot` (backward.py
 // _stage_cost_diffs): S.c_x, c_xx into S.qxx (S.X is scratch for Q J_d),
-// c_u into registers.
-template <typename T, bool kExact>
+// c_u into registers. With kW each is scaled by the stage weight w (c_u
+// through w 2R, backward.py _riccati_stage's order).
+template <typename T, bool kExact, bool kW = false>
 __device__ __forceinline__ void team_cost_diffs(const Team<T>& tm, const Tile& tile,
                                                 const T* slot, const T* q, const T* t,
-                                                const T* v, const T* u, T* c_u) {
+                                                const T* v, const T* u, T* c_u, T w = T(1)) {
+  static_assert(!(kExact && kW), "the exact cost Hessian takes no stage weight yet");
   TeamState<T>& S = *tm.s;
   const T* Q = tm.cc->Q;
   const T* R = tm.cc->R;
@@ -647,9 +692,9 @@ __device__ __forceinline__ void team_cost_diffs(const Team<T>& tm, const Tile& t
       T acc = S.W[r] * S.qdx[0];
 #pragma unroll
       for (int k = 1; k < 6; ++k) acc += S.W[k * 6 + r] * S.qdx[k];
-      S.c_x[r] = T(2) * acc;
+      S.c_x[r] = weigh<kW>(w, T(2) * acc);
     } else {
-      S.c_x[r] = T(2) * S.qdx[r];
+      S.c_x[r] = weigh<kW>(w, T(2) * S.qdx[r]);
     }
   });
   // qjd = [Q[:, 0:6] W, Q[:, 6:12]] into X
@@ -670,9 +715,9 @@ __device__ __forceinline__ void team_cost_diffs(const Team<T>& tm, const Tile& t
       T acc = S.W[r] * S.X[c];
 #pragma unroll
       for (int k = 1; k < 6; ++k) acc += S.W[k * 6 + r] * S.X[k * 12 + c];
-      S.qxx[r * 12 + c] = T(2) * acc;
+      S.qxx[r * 12 + c] = weigh<kW>(w, T(2) * acc);
     } else {
-      S.qxx[r * 12 + c] = T(2) * S.X[r * 12 + c];
+      S.qxx[r * 12 + c] = weigh<kW>(w, T(2) * S.X[r * 12 + c]);
     }
   });
   tile.sync();
@@ -682,9 +727,9 @@ __device__ __forceinline__ void team_cost_diffs(const Team<T>& tm, const Tile& t
   for (int i = 0; i < 4; ++i) e[i] = u[i] - dud[i];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    T acc = (T(2) * R[r * 4]) * e[0];
+    T acc = weigh<kW>(w, T(2) * R[r * 4]) * e[0];
 #pragma unroll
-    for (int k = 1; k < 4; ++k) acc += (T(2) * R[r * 4 + k]) * e[k];
+    for (int k = 1; k < 4; ++k) acc += weigh<kW>(w, T(2) * R[r * 4 + k]) * e[k];
     c_u[r] = acc;
   }
 }
@@ -781,15 +826,95 @@ __device__ __forceinline__ void team_add_vfxx(const Team<T>& tm, const Tile& til
   tile.sync();
 }
 
+// clip(x, lo, hi) as jnp.clip / torch.clamp: a NaN stays NaN
+template <typename T>
+__device__ __forceinline__ T clip(T x, T lo, T hi) {
+  const T y = x < lo ? lo : x;
+  return y > hi ? hi : y;
+}
+
+// The projected-Newton box-QP gains of one stage (backward.py
+// _boxqp_gains_lanes, solver/constrained.py _boxqp_gains): minimize
+// 1/2 d'Quu d + Qu'd over lo_d <= d <= hi_d, from the clipped Newton step,
+// with kPnIters masked 4x4 Cholesky solves (Quu on the free block, the
+// identity on the clamped one); then k = d and K = -A^-1 (the rows of Qux of
+// the free controls) on the last free set, so the rows of clamped controls
+// are zero. The solves multiply by each pivot's reciprocal (chol_solve_rcp).
+// Per thread: every lane of a team runs it on the same inputs, as the
+// unconstrained Cholesky. q_xu is (12, 4) row-major.
+template <typename T>
+__device__ __forceinline__ void boxqp_gains(const T* q_uu, const T* q_u, const T* q_xu,
+                                            const T* lo_d, const T* hi_d, T* k, T* big_k) {
+  const T eps = sizeof(T) == 8 ? T(1e-9) : T(1e-6);
+  T delta[4], free[4];
+  {
+    T sol[4];
+    chol_solve_rcp<4, 1>(q_uu, q_u, sol);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      delta[a] = clip(-sol[a], lo_d[a], hi_d[a]);
+      free[a] = T(1);
+    }
+  }
+#pragma unroll 1
+  for (int it = 0; it < kPnIters; ++it) {
+    T grad[4], held[4], dh[4], qd[4], a_m[16], rhs[4], step[4];
+    matvec<4, 4>(q_uu, delta, qd);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      grad[a] = q_u[a] + qd[a];
+      const bool clamped = (delta[a] <= lo_d[a] + eps && grad[a] > T(0)) ||
+                           (delta[a] >= hi_d[a] - eps && grad[a] < T(0));
+      free[a] = clamped ? T(0) : T(1);
+      held[a] = clamped ? T(1) : T(0);
+      dh[a] = delta[a] * held[a];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        a_m[i * 4 + j] = q_uu[i * 4 + j] * free[i] * free[j] + ((i == j) ? held[i] : T(0));
+      }
+    }
+    matvec<4, 4>(q_uu, dh, qd);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) rhs[a] = (q_u[a] + qd[a]) * free[a];
+    chol_solve_rcp<4, 1>(a_m, rhs, step);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) delta[a] = clip(-step[a] + dh[a], lo_d[a], hi_d[a]);
+  }
+  T a_m[16], rhs[48], sol[48];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      a_m[i * 4 + j] = q_uu[i * 4 + j] * free[i] * free[j] + ((i == j) ? T(1) - free[i] : T(0));
+    }
+#pragma unroll
+    for (int c = 0; c < 12; ++c) rhs[i * 12 + c] = q_xu[c * 4 + i] * free[i];
+  }
+  chol_solve_rcp<4, 12>(a_m, rhs, sol);
+#pragma unroll
+  for (int a = 0; a < 4; ++a) k[a] = delta[a];
+#pragma unroll
+  for (int e = 0; e < 48; ++e) big_k[e] = -sol[e];
+}
+
 // One reverse Riccati stage (backward.py _riccati_stage, the exact path:
 // j_u contracted over its nonzero rows 8:12 only, the 4x4 Cholesky gains
 // plus quu_reg * I, the symmetrized value update) of the live stage in `slot`
 // against S.v_x, S.vxx, which it updates; k|K into S.gains, and the stage's
 // Qu.k and k.Quu.k. Ps is the problem with its constants in shared memory.
-template <typename T, bool kDdp>
+// The variants (compile-time; without them this is the exact path as it
+// was): kW scales the stage's cost terms by its weight slot[kSlotW]
+// (c_x, c_xx, c_u and the 2R of Q_uu; not quu_reg); kBox solves the gains
+// as the box-QP (boxqp_gains) within var's bounds less the stage's control,
+// and updates the value with the general gains (backward.py :550-571).
+template <typename T, bool kDdp, bool kBox = false, bool kW = false>
 __device__ __forceinline__ void team_riccati_stage(const Team<T>& tm, const Problem<T>& Ps,
                                                    T quu_reg, const T* slot, T* qutk_inc,
-                                                   T* ktquuk_inc) {
+                                                   T* ktquuk_inc,
+                                                   const VariantOps<T>& var = VariantOps<T>{}) {
   TeamState<T>& S = *tm.s;
   const Tile tile = team_tile();
   const int lane = tm.lane;
@@ -797,7 +922,8 @@ __device__ __forceinline__ void team_riccati_stage(const Team<T>& tm, const Prob
   read_stage(slot + kSlotLive, q, t, v, u);
   team_jx_blocks(Ps, q, v, &S.J);
   T c_u[4];
-  team_cost_diffs<T, kDdp>(tm, tile, slot, q, t, v, u, c_u);
+  const T w = kW ? slot[kSlotW] : T(1);
+  team_cost_diffs<T, kDdp, kW>(tm, tile, slot, q, t, v, u, c_u, w);
 
   // --- Q-expansion ---
   const T* ju = tm.pc->ju + 32;  // j_u rows 8:12
@@ -833,8 +959,8 @@ __device__ __forceinline__ void team_riccati_stage(const Team<T>& tm, const Prob
       T acc = ju[a] * S.vxx_ju[32 + c];
 #pragma unroll
       for (int r = 1; r < 4; ++r) acc += ju[r * 4 + a] * S.vxx_ju[(8 + r) * 4 + c];
-      q_uu[a * 4 + c] =
-          (T(2) * tm.cc->R[a * 4 + c] + acc) + quu_reg * ((a == c) ? T(1) : T(0));
+      q_uu[a * 4 + c] = (weigh<kW>(w, T(2) * tm.cc->R[a * 4 + c]) + acc) +
+                        quu_reg * ((a == c) ? T(1) : T(0));
     }
   }
   team_each<48>(lane, [&](int e) { S.q_xu[e] = jxt_entry<4>(S.J, S.vxx_ju, e / 4, e % 4); });
@@ -844,7 +970,19 @@ __device__ __forceinline__ void team_riccati_stage(const Team<T>& tm, const Prob
 
   // --- gains: [k | K] = -Quu^-1 [Qu | Qxu^T], solved in every lane ---
   T k[4];
-  {
+  if constexpr (kBox) {
+    T lo_d[4], hi_d[4], big_k[48];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      lo_d[a] = var.bound(var.lo, a, Ps.B, tm.b) - u[a];
+      hi_d[a] = var.bound(var.hi, a, Ps.B, tm.b) - u[a];
+    }
+    boxqp_gains(q_uu, q_u, S.q_xu, lo_d, hi_d, k, big_k);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) S.gains[a] = k[a];
+#pragma unroll
+    for (int e = 0; e < 48; ++e) S.gains[4 + e] = big_k[e];
+  } else {
     T rhs[52], sol[52];
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
@@ -867,12 +1005,26 @@ __device__ __forceinline__ void team_riccati_stage(const Team<T>& tm, const Prob
 
   // --- value update ---
   const T* K = S.gains + 4;
-  team_each<12>(lane, [&](int r) {
-    T acc = K[r] * quu_k[0];
+  if constexpr (kBox) {
+    // the general gains: v_x' = q_x + K'Quu k + K'q_u + Q_xu k
+    team_each<12>(lane, [&](int r) {
+      T a1 = K[r] * quu_k[0], a2 = K[r] * q_u[0], a3 = S.q_xu[r * 4] * k[0];
 #pragma unroll
-    for (int a = 1; a < 4; ++a) acc += K[a * 12 + r] * quu_k[a];
-    S.v_x[r] = S.q_x[r] - acc;
-  });
+      for (int a = 1; a < 4; ++a) {
+        a1 += K[a * 12 + r] * quu_k[a];
+        a2 += K[a * 12 + r] * q_u[a];
+        a3 += S.q_xu[r * 4 + a] * k[a];
+      }
+      S.v_x[r] = ((S.q_x[r] + a1) + a2) + a3;
+    });
+  } else {
+    team_each<12>(lane, [&](int r) {
+      T acc = K[r] * quu_k[0];
+#pragma unroll
+      for (int a = 1; a < 4; ++a) acc += K[a * 12 + r] * quu_k[a];
+      S.v_x[r] = S.q_x[r] - acc;
+    });
+  }
   team_each<48>(lane, [&](int e) {
     const int a = e / 12, c = e % 12;
     T acc = S.quu[a * 4] * K[c];
@@ -881,12 +1033,26 @@ __device__ __forceinline__ void team_riccati_stage(const Team<T>& tm, const Prob
     S.quuK[e] = acc;
   });
   tile.sync();
-  team_each_row(lane, [&](int r, int c) {
-    T acc = K[r] * S.quuK[c];
+  if constexpr (kBox) {
+    // S = Q_xx + Q_xu K + K'Q_ux + K'Quu K
+    team_each_row(lane, [&](int r, int c) {
+      T b1 = S.q_xu[r * 4] * K[c], b2 = K[r] * S.q_xu[c * 4], b3 = K[r] * S.quuK[c];
 #pragma unroll
-    for (int a = 1; a < 4; ++a) acc += K[a * 12 + r] * S.quuK[a * 12 + c];
-    S.qxx[r * 12 + c] = S.qxx[r * 12 + c] - acc;
-  });
+      for (int a = 1; a < 4; ++a) {
+        b1 += S.q_xu[r * 4 + a] * K[a * 12 + c];
+        b2 += K[a * 12 + r] * S.q_xu[c * 4 + a];
+        b3 += K[a * 12 + r] * S.quuK[a * 12 + c];
+      }
+      S.qxx[r * 12 + c] = ((S.qxx[r * 12 + c] + b1) + b2) + b3;
+    });
+  } else {
+    team_each_row(lane, [&](int r, int c) {
+      T acc = K[r] * S.quuK[c];
+#pragma unroll
+      for (int a = 1; a < 4; ++a) acc += K[a * 12 + r] * S.quuK[a * 12 + c];
+      S.qxx[r * 12 + c] = S.qxx[r * 12 + c] - acc;
+    });
+  }
   tile.sync();
   // per-stage symmetrization 0.5 (S + S^T)
   team_each_row(lane, [&](int r, int c) {
@@ -962,6 +1128,31 @@ inline int team_launch(Kernel kernel, int batch, size_t smem, void* stream, Args
   const int blocks = (batch + kTeamsPerBlock - 1) / kTeamsPerBlock;
   kernel<<<blocks, kTeamThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The variant operands packed after a kernel's own: ptrs lo hi w (each null
+// when its variant is off), ints s_box s_w.
+template <typename T>
+inline VariantOps<T> variant_from(const void* const* p, const long long* ip) {
+  VariantOps<T> v;
+  v.lo = static_cast<const T*>(p[0]);
+  v.hi = static_cast<const T*>(p[1]);
+  v.w = static_cast<const T*>(p[2]);
+  v.s_box = static_cast<int>(ip[0]);
+  v.s_w = static_cast<int>(ip[1]);
+  return v;
+}
+
+// launch(box, w) with std::true_type / std::false_type for the variant the
+// operands ask for: the bounds set (kBox), the weights set (kW).
+template <typename T, class Launch>
+inline int with_variant(const VariantOps<T>& v, Launch&& launch) {
+  if (v.lo != nullptr) {
+    return v.w != nullptr ? launch(std::true_type{}, std::true_type{})
+                          : launch(std::true_type{}, std::false_type{});
+  }
+  return v.w != nullptr ? launch(std::false_type{}, std::true_type{})
+                        : launch(std::false_type{}, std::false_type{});
 }
 
 // The launch geometry of this team size: out = (lanes per scenario, teams per

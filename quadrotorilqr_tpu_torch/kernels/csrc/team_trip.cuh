@@ -32,18 +32,25 @@ inline namespace QILQR_TEAM_NS(QILQR_TEAM_LANES) {
 // The reverse sweep of the team's scenario (backward.py _backward_kernel's
 // stage loop): k|K of every stage into the gains scratch; the sums of Qu.k
 // and k.Quu.k. The stages come from `src`; with `merge` each is also written
-// into `live` (src is then the last trip's candidate).
-template <typename T>
+// into `live` (src is then the last trip's candidate). kBox and kW run the
+// Riccati stage's box and weights variants on var's operands (the weights
+// ride the ring). Inlined into every kernel, with or without the variants:
+// behind a never-inlined call the compiler loses that the team's pointers
+// address shared memory, and a variant's sweep took up to twice as long
+// (PERF.md section 6).
+template <typename T, bool kBox = false, bool kW = false>
 __device__ __forceinline__ void team_backward(const Team<T>& tm, const Problem<T>& P,
                                               const Problem<T>& Ps, T quu_reg, const Traj<T>& src,
                                               bool merge, const Traj<T>& live, T* gains, T* qutk,
-                                              T* ktquuk) {
+                                              T* ktquuk,
+                                              const VariantOps<T>& var = VariantOps<T>{}) {
   team_zero_value(tm);
   T sum_qutk = T(0), sum_ktquuk = T(0);
-  ring_sweep(tm, P, RingSrc<T>{src, nullptr, nullptr}, true, [&](int n, const T* slot) {
+  const RingSrc<T> ring{src, nullptr, nullptr, kW ? var.w : nullptr, var.s_w};
+  ring_sweep(tm, P, ring, true, [&](int n, const T* slot) {
     if (merge) team_merge_stage(tm, live, P.B, n, slot);
     T a, c;
-    team_riccati_stage<T, false>(tm, Ps, quu_reg, slot, &a, &c);
+    team_riccati_stage<T, false, kBox, kW>(tm, Ps, quu_reg, slot, &a, &c, var);
     sum_qutk = sum_qutk + a;
     sum_ktquuk = sum_ktquuk + c;
     team_put_row(tm, tm.s->gains, scratch_row(gains, P.B, n, tm.b, 52), 52);
@@ -59,15 +66,19 @@ __device__ __forceinline__ void team_backward(const Team<T>& tm, const Problem<T
 // c + dx'Q dx + du'R du, the stage written into `out` when `store` (out may
 // be x: stage n is read before it is written), then the carry stepped.
 // Never inlined, and the store is a runtime flag: a cost-only probe and a
-// sweep that stores its candidate run the same instructions.
-template <typename T>
+// sweep that stores its candidate run the same instructions. The variants:
+// kBox clamps u_n into var's [lo, hi]; kW sums c + w_n (dx'Q dx + du'R du)
+// (rollout.py :108-128; without it the sum keeps its unweighted order).
+template <typename T, bool kBox = false, bool kW = false>
 __device__ __noinline__ T team_rollout(Team<T> tm, Problem<T> P, Traj<T> x, Traj<T> out,
-                                       const T* gains, T alpha, bool store) {
+                                       const T* gains, T alpha, bool store,
+                                       VariantOps<T> var = VariantOps<T>{}) {
   const Problem<T> Ps = smem_problem(P, tm);
   const Tile tile = team_tile();
   T q[4], t[3], v[6];
   T cost = T(0);
-  ring_sweep(tm, P, RingSrc<T>{x, gains, nullptr}, false, [&](int n, const T* slot) {
+  const RingSrc<T> ring{x, gains, nullptr, kW ? var.w : nullptr, var.s_w};
+  ring_sweep(tm, P, ring, false, [&](int n, const T* slot) {
     T qo[4], to[3], vo[6], uo[4], dx[12], u[4];
     read_stage(slot + kSlotLive, qo, to, vo, uo);
     if (n == 0) {
@@ -86,10 +97,17 @@ __device__ __noinline__ T team_rollout(Team<T> tm, Problem<T> P, Traj<T> x, Traj
 #pragma unroll
       for (int j = 1; j < 12; ++j) fb += g[4 + a * 12 + j] * dx[j];
       u[a] = (uo[a] + alpha * g[a]) + fb;
+      if constexpr (kBox) {
+        u[a] = clip(u[a], var.bound(var.lo, a, P.B, tm.b), var.bound(var.hi, a, P.B, tm.b));
+      }
     }
     T xq, ur;
     team_cost_terms(tile, tm.lane, tm.cc, slot + kSlotDes, q, t, v, u, &xq, &ur);
-    cost = cost + xq + ur;
+    if constexpr (kW) {
+      cost = cost + slot[kSlotW] * (xq + ur);
+    } else {
+      cost = cost + xq + ur;
+    }
     if (store) team_store_stage(tm, out, P.B, n, q, t, v, u);
     dynamics_step(Ps, 0, q, t, v, u);
     return true;
@@ -98,17 +116,23 @@ __device__ __noinline__ T team_rollout(Team<T> tm, Problem<T> P, Traj<T> x, Traj
 }
 
 // The cost of the team's trajectory x, summed stage by stage as the rollout
-// sums it (solve.py's seed cost).
-template <typename T>
+// sums it (solve.py's seed cost), weighted with kW.
+template <typename T, bool kW = false>
 __device__ __forceinline__ T team_trajectory_cost(const Team<T>& tm, const Problem<T>& P,
-                                                  const Traj<T>& x) {
+                                                  const Traj<T>& x,
+                                                  const VariantOps<T>& var = VariantOps<T>{}) {
   const Tile tile = team_tile();
   T cost = T(0);
-  ring_sweep(tm, P, RingSrc<T>{x, nullptr, nullptr}, false, [&](int n, const T* slot) {
+  const RingSrc<T> ring{x, nullptr, nullptr, kW ? var.w : nullptr, var.s_w};
+  ring_sweep(tm, P, ring, false, [&](int n, const T* slot) {
     T q[4], t[3], v[6], u[4], xq, ur;
     read_stage(slot + kSlotLive, q, t, v, u);
     team_cost_terms(tile, tm.lane, tm.cc, slot + kSlotDes, q, t, v, u, &xq, &ur);
-    cost = cost + xq + ur;
+    if constexpr (kW) {
+      cost = cost + slot[kSlotW] * (xq + ur);
+    } else {
+      cost = cost + xq + ur;
+    }
     return true;
   });
   return cost;
@@ -118,18 +142,21 @@ __device__ __forceinline__ T team_trajectory_cost(const Team<T>& tm, const Probl
 // trajectory x: probe j rolls out at alpha = ls_step^j and is accepted when its cost
 // change falls below ls_frac dJ(alpha), or at once with `force`. A search
 // that runs out ends on the alpha it last tried. With `store` each probe
-// writes its candidate into `out`; otherwise the probes sum costs only.
-template <typename T>
+// writes its candidate into `out`; otherwise the probes sum costs only. The
+// probes are team_rollout's (kBox, kW) instantiation.
+template <typename T, bool kBox = false, bool kW = false>
 __device__ __forceinline__ LineSearch<T> team_line_search(const Team<T>& tm, const Problem<T>& P,
                                                           const Traj<T>& x, const Traj<T>& out,
                                                           bool store, const T* gains, T qutk,
                                                           T ktquuk, T current, bool force,
                                                           int ls_max_iters, T ls_step,
-                                                          T ls_frac) {
+                                                          T ls_frac,
+                                                          const VariantOps<T>& var =
+                                                              VariantOps<T>{}) {
   LineSearch<T> ls{false, current, T(1), 0};
   T alpha = T(1);
   for (int j = 0; j < ls_max_iters; ++j) {
-    const T cand = team_rollout(tm, P, x, out, gains, alpha, store);
+    const T cand = team_rollout<T, kBox, kW>(tm, P, x, out, gains, alpha, store, var);
     const T desired = ls_frac * (alpha * qutk + alpha * alpha * ktquuk * T(0.5));
     ls.cost = cand;
     ls.alpha = alpha;

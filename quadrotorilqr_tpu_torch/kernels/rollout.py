@@ -12,6 +12,12 @@ of a warp per scenario, `csrc/team.cuh`) for CUDA tensors and takes
 as the backward kernel writes them, one (N, B, 52) k|K buffer: gains that
 `backward_pass_fused` returned pass as that buffer, without a copy.
 
+With control limits (`limits=(lo, hi)`) the kernel clamps each control
+into [lo, hi] (JAX `use_box`); with stage weights on the cost it sums
+w_n (dx'Q dx + du'R du) (JAX `use_weights`); the plain version then clamps
+and weighs alike (`solver.ilqr.forward_sim` with limits, the weighted
+`costs.quadratic.trajectory_cost`).
+
 `per_pass_kernels` gives the batch solver's per-pass route its backward
 pass and rollout, with the operands that do not change over a solve
 prepared once.
@@ -22,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..models.quadrotor import CONTROL_DIM
-from ..solver import ilqr
+from ..solver import constrained, ilqr
 from . import _build
 from . import backward as kb
 from .backward import (
@@ -37,27 +43,33 @@ from .backward import (
 )
 
 
-def rollout_cost_reference(params, cost, traj, ks, big_ks, alpha, dt_s):
-    """Plain PyTorch version: `solver.ilqr.forward_sim` and the new
-    trajectory's cost, summed stage by stage in the kernel's order."""
-    return ilqr.rollout_cost(params, cost, traj, ks, big_ks, alpha, dt_s)
+def rollout_cost_reference(params, cost, traj, ks, big_ks, alpha, dt_s, limits=None):
+    """Plain PyTorch version: `solver.ilqr.forward_sim` (clamped with
+    limits) and the new trajectory's cost, summed stage by stage in the
+    kernel's order."""
+    box = None
+    if limits is not None:
+        controls = traj.controls
+        box = constrained.prep_limits(limits, controls.shape[0], controls.dtype, controls.device)
+    return ilqr.rollout_cost(params, cost, traj, ks, big_ks, alpha, dt_s, box)
 
 
-def rollout_cost_fused(params, cost, traj, ks, big_ks, alpha, dt_s, active=None):
+def rollout_cost_fused(params, cost, traj, ks, big_ks, alpha, dt_s, active=None, limits=None):
     """Batched rollout: traj leaves (B, N, ...), ks (B, N, 4),
     Ks (B, N, 4, 12), alpha (B,). `active` (B,) bool marks the lanes whose
-    outputs the caller reads (None: all).
+    outputs the caller reads (None: all). `limits=(lo, hi)` clamps the
+    controls; stage weights come with the cost.
     Returns (Trajectory with (B, N, ...) leaves, cost (B,))."""
     controls = traj.controls
     device = controls.device
     if device.type == "cpu":
-        return rollout_cost_reference(params, cost, traj, ks, big_ks, alpha, dt_s)
+        return rollout_cost_reference(params, cost, traj, ks, big_ks, alpha, dt_s, limits)
     _check_cuda(device)
     dtype = controls.dtype
     batch, n = controls.shape[0], controls.shape[1]
     if ks.shape != (batch, n, CONTROL_DIM) or big_ks.shape != (batch, n, CONTROL_DIM, 12):
         raise ValueError(f"gains of shapes {tuple(ks.shape)}, {tuple(big_ks.shape)}")
-    ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device)
+    ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device, limits, True)
     return _launch(ops, traj, gains_buffer(ks, big_ks, dtype, device), alpha, active)
 
 
@@ -90,9 +102,10 @@ def _launch(ops, traj, gains, alpha, active):
 rollout_cost_fused.launches = 0
 
 
-def per_pass_kernels(params, cost, traj, dt_s, quu_reg):
+def per_pass_kernels(params, cost, traj, dt_s, quu_reg, limits=None):
     """(backward(t, active), rollout(t, ks, Ks, alpha, active), traj) for
-    `solver.ilqr.solve_loop` on the per-pass kernels.
+    `solver.ilqr.solve_loop` on the per-pass kernels (their box and weights
+    variants with limits and stage weights).
 
     On a CUDA batch the Problem operands are packed once for every launch of
     the solve, and `traj` comes back with its leaves as views of the
@@ -104,16 +117,16 @@ def per_pass_kernels(params, cost, traj, dt_s, quu_reg):
     device = controls.device
     if device.type == "cpu":
         return (
-            lambda t, act: backward_pass_fused(params, cost, t, dt_s, quu_reg, act),
+            lambda t, act: backward_pass_fused(params, cost, t, dt_s, quu_reg, act, limits),
             lambda t, ks, big_ks, alpha, act: rollout_cost_fused(
-                params, cost, t, ks, big_ks, alpha, dt_s, act
+                params, cost, t, ks, big_ks, alpha, dt_s, act, limits
             ),
             traj,
         )
     _check_cuda(device)
     dtype = controls.dtype
     batch, n = controls.shape[0], controls.shape[1]
-    ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device)
+    ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device, limits, True)
 
     def backward(t, act):
         return kb._launch(ops, t, quu_reg, act)

@@ -11,7 +11,10 @@ them. `solve_fused_whole` launches it for CUDA tensors and takes
 `solve_whole_reference` only for CPU tensors. On request the kernel also
 records the per-trip cost history (the TPU kernel's `record_history` rows,
 what `populate_debug` reads on the latency route) and each scenario's
-backward passes and probe sweeps.
+backward passes and probe sweeps. With control limits or stage weights it
+runs its box and weights variants (JAX `use_box`, `use_weights`), whose
+plain version is the same loop on `solver/constrained.py`'s pieces and the
+weighted cost.
 """
 
 from __future__ import annotations
@@ -29,15 +32,18 @@ from .backward import (
     _problem_operands,
     _traj_from_lanes,
     _traj_lanes,
+    backward_pass_reference,
 )
+from .rollout import rollout_cost_reference
 
 
 def counted_plain_solve(params, cost, traj, dt_s, options: ILQROptions, streamed=False,
-                        history=False):
-    """`solver.ilqr.solve_loop` on the plain pieces, counting per lane what
-    the whole-solve kernels count: backward passes, probe sweeps and, with
-    the streamed schedule (cost-only probes, one apply rollout at the alpha
-    last tried), apply sweeps. Returns (SolveResult, [(B,) int32 counts])."""
+                        history=False, limits=None):
+    """`solver.ilqr.solve_loop` on the plain pieces (the box-QP stage and
+    clamped rollouts with limits), counting per lane what the whole-solve
+    kernels count: backward passes, probe sweeps and, with the streamed
+    schedule (cost-only probes, one apply rollout at the alpha last tried),
+    apply sweeps. Returns (SolveResult, [(B,) int32 counts])."""
     batch = traj.controls.shape[0]
     counts = [torch.zeros(batch, dtype=torch.int32, device=traj.controls.device)
               for _ in range(3 if streamed else 2)]
@@ -47,11 +53,11 @@ def counted_plain_solve(params, cost, traj, dt_s, options: ILQROptions, streamed
 
     def backward(t, act):
         tally(0, act)
-        return ilqr.backward_pass(params, cost, t, dt_s, options.quu_reg)
+        return backward_pass_reference(params, cost, t, dt_s, options.quu_reg, limits)
 
     def probe(t, ks, big_ks, alpha, act):
         tally(1, act)
-        return ilqr.rollout_cost(params, cost, t, ks, big_ks, alpha, dt_s)
+        return rollout_cost_reference(params, cost, t, ks, big_ks, alpha, dt_s, limits)
 
     def apply(t, ks, big_ks, alpha, act):
         tally(2, act)
@@ -64,14 +70,14 @@ def counted_plain_solve(params, cost, traj, dt_s, options: ILQROptions, streamed
     return result, counts
 
 
-def solve_whole_reference(params, cost, traj, dt_s, options: ILQROptions):
+def solve_whole_reference(params, cost, traj, dt_s, options: ILQROptions, limits=None):
     """Plain PyTorch version: `solver.ilqr.solve_loop` on the plain pieces.
     Returns (Trajectory, cost (B,), iterations (B,) int32, status (B,) int32,
     cost history (B, max_iters), backward passes (B,) int32, probe sweeps
     (B,) int32): history slot i holds the committed cost of the lanes that
     executed an update on trip i, 0 elsewhere; the counts are per lane, as
     the kernel counts them."""
-    r, counts = counted_plain_solve(params, cost, traj, dt_s, options, history=True)
+    r, counts = counted_plain_solve(params, cost, traj, dt_s, options, history=True, limits=limits)
     return (r.trajectory, r.cost, r.iterations, r.status, r.debug.costs, *counts)
 
 
@@ -79,8 +85,9 @@ def solve_fused_whole(
     params, cost, traj, dt_s, options: ILQROptions, continuation=False, model=None,
     limits=None, return_history=False, return_probes=False,
 ):
-    """Whole-solve iLQR for (B, N, ...) trajectories, any B and any N.
-    Returns (Trajectory, cost (B,), iterations (B,) int32, status (B,) int32);
+    """Whole-solve iLQR for (B, N, ...) trajectories, any B and any N,
+    with `limits=(lo, hi)` (scalars, (4,) or (B, 4) each) and the cost's
+    stage weights on the kernel's box and weights variants. Returns (Trajectory, cost (B,), iterations (B,) int32, status (B,) int32);
     with `return_history` then the per-trip cost history (B, max_iters)
     (slot i: the committed cost of the lanes that executed an update on trip
     i, zeros otherwise: the debug record's costs buffer); with
@@ -90,8 +97,6 @@ def solve_fused_whole(
     ilqr.check_supported(model)
     if continuation:
         raise NotImplementedError(ilqr.CONTINUATION_TODO)
-    if limits is not None:
-        raise NotImplementedError(ilqr.LIMITS_TODO)
     ls = options.line_search_params
     if int(ls.max_iters) < 1:
         # trip 0's forced full step is the first, force-accepted probe: with
@@ -103,24 +108,25 @@ def solve_fused_whole(
         )
     device = traj.controls.device
     if device.type == "cpu":
-        out = solve_whole_reference(params, cost, traj, dt_s, options)
+        out = solve_whole_reference(params, cost, traj, dt_s, options, limits)
     else:
         _check_cuda(device)
-        out = _launch(params, cost, traj, dt_s, options, return_history, return_probes)
+        out = _launch(params, cost, traj, dt_s, options, return_history, return_probes, limits)
         solve_fused_whole.launches += 1
     return out[:4] + (out[4:5] if return_history else ()) + (out[5:] if return_probes else ())
 
 
-def _launch(params, cost, traj, dt_s, options, history, probes):
+def _launch(params, cost, traj, dt_s, options, history, probes, limits=None):
     """The kernel; the history and count outputs exist only when asked for,
     and without them the kernel is the instantiation that records
-    nothing."""
+    nothing. The bounds and the weights pick the box and weights
+    instantiations."""
     dtype = traj.controls.dtype
     device = traj.controls.device
     batch, n = traj.controls.shape[0], traj.controls.shape[1]
     cc = options.convergence_criteria
     ls = options.line_search_params
-    ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device)
+    ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device, limits, True)
     kw = dict(dtype=dtype, device=device)
     live = [torch.empty((n, d, batch), **kw) for d in (4, 3, 6, CONTROL_DIM)]
     best = [torch.empty((n, d, batch), **kw) for d in (4, 3, 6, CONTROL_DIM)]

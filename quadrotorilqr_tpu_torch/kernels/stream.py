@@ -59,8 +59,8 @@ def solve_fused_streamed(
     ilqr.check_supported(model)
     if continuation:
         raise NotImplementedError(ilqr.CONTINUATION_TODO)
-    if limits is not None:
-        raise NotImplementedError(ilqr.LIMITS_TODO)
+    if limits is not None or cost.stage_weights is not None:
+        raise NotImplementedError(ilqr.STREAM_VARIANTS_TODO)
     ls = options.line_search_params
     if int(ls.max_iters) < 1:
         # trip 0's forced full step is the first, force-accepted probe: with

@@ -105,8 +105,9 @@ def moment_arms(params: QuadrotorParams):
 
 
 def _ez(like):
-    ez = torch.zeros(3, dtype=like.dtype, device=like.device)
-    ez[2] = 1.0
+    # the identity's last row: made on the device (writing a Python 1.0 into
+    # a CUDA tensor would copy it from the host and sync every call)
+    ez = torch.eye(3, dtype=like.dtype, device=like.device)[2]
     return ez.expand(like.shape[:-1] + (3,))
 
 

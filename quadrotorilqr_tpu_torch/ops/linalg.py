@@ -35,25 +35,27 @@ def cholesky_small(a):
     return torch.stack(rows, -2)
 
 
-def _solve_lower(l, b):
+def _solve_lower(l, b, inv=None):
+    """l y = b; with `inv` (the pivots' reciprocals) multiplying by them
+    where the plain solve divides by the pivots."""
     n = l.shape[-1]
     ys = []
     for i in range(n):
         s = b[..., i, :]
         for j in range(i):
             s = s - l[..., i, j, None] * ys[j]
-        ys.append(s / l[..., i, i, None])
+        ys.append(s / l[..., i, i, None] if inv is None else s * inv[..., i, None])
     return torch.stack(ys, -2)
 
 
-def _solve_upper_t(l, y):
+def _solve_upper_t(l, y, inv=None):
     n = l.shape[-1]
     xs = [None] * n
     for i in reversed(range(n)):
         s = y[..., i, :]
         for j in range(i + 1, n):
             s = s - l[..., j, i, None] * xs[j]
-        xs[i] = s / l[..., i, i, None]
+        xs[i] = s / l[..., i, i, None] if inv is None else s * inv[..., i, None]
     return torch.stack(xs, -2)
 
 
@@ -63,6 +65,16 @@ def chol_solve_small(a, b):
     the same values either way)."""
     l = cholesky_small(a)
     return _solve_upper_t(l, _solve_lower(l, b))
+
+
+def chol_solve_small_rcp(a, b):
+    """chol_solve_small with each pivot's reciprocal 1 / l_jj (as the
+    factorization computes it) multiplied in where the solve divides by
+    l_jj: the box-QP's solves, in the CUDA kernels' order
+    (kernels/csrc/lanes.cuh chol_solve_rcp)."""
+    l = cholesky_small(a)
+    inv = 1.0 / torch.diagonal(l, dim1=-2, dim2=-1)
+    return _solve_upper_t(l, _solve_lower(l, b, inv), inv)
 
 
 def chol_solve_vec(a, b):

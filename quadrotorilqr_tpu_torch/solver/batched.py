@@ -13,6 +13,12 @@ Counterpart of `quadrotorilqr_tpu/solver/batched.py`:
     (no candidate trajectory) past it; a zero-probe line search, which the
     whole-solve kernels cannot express, goes to the batch loop, and so
     does a debug record past STREAM_HORIZON stages.
+  * Both take control limits (`limits=(lo, hi)`: scalars, (4,) or (B, 4)
+    each) and the cost's stage weights ((N,) or (B, N)) on the kernels' box
+    and weights variants (`backward.cu`, `rollout.cu`, `solve.cu`). The
+    streamed kernel has neither yet: a limited or weighted request past
+    STREAM_HORIZON stages on `solve_batch_latency` raises (ROADMAP Queue 2
+    item E), and so does one on the FDDP solvers (item F).
   * `solve_batch_fddp` runs the robust FDDP loop in one kernel launch:
     `kernels/fddp.py` up to STREAM_HORIZON_FDDP stages,
     `kernels/stream_fddp.py` past it; with `refine` it goes to
@@ -41,7 +47,7 @@ from ..kernels.stream_fddp import solve_fddp_streamed
 from . import fddp
 from .ilqr import (
     CONTINUATION_TODO,
-    LIMITS_TODO,
+    STREAM_VARIANTS_TODO,
     CostHistory,
     SolveResult,
     Trajectory,
@@ -62,12 +68,10 @@ STREAM_HORIZON = 256
 STREAM_HORIZON_FDDP = 231
 
 
-def _refuse(continuation, model, limits):
+def _refuse(continuation, model):
     check_supported(model)
     if continuation:
         raise NotImplementedError(CONTINUATION_TODO)
-    if limits is not None:
-        raise NotImplementedError(LIMITS_TODO)
 
 
 def solve_batch_fused(
@@ -81,10 +85,12 @@ def solve_batch_fused(
     limits=None,
 ) -> SolveResult:
     """Batched iLQR, one backward and one rollout launch at a time;
-    initial_trajs leaves are (B, N, ...)."""
-    _refuse(continuation, model, limits)
-    qc.check_supported(cost)
-    backward, rollout, trajs = per_pass_kernels(params, cost, initial_trajs, dt_s, options.quu_reg)
+    initial_trajs leaves are (B, N, ...), any N. With `limits` or stage
+    weights each launch is the kernel's box or weights variant."""
+    _refuse(continuation, model)
+    backward, rollout, trajs = per_pass_kernels(
+        params, cost, initial_trajs, dt_s, options.quu_reg, limits
+    )
     return solve_loop(
         backward,
         rollout,
@@ -106,7 +112,10 @@ def solve_batch_latency(
 ) -> SolveResult:
     """Batched iLQR with the whole loop in one kernel launch (the streamed
     kernel past STREAM_HORIZON stages); lane for lane the same result as
-    `solve_batch_fused`.
+    `solve_batch_fused`. Limits and stage weights run `solve.cu`'s box and
+    weights variants; past STREAM_HORIZON stages they raise
+    NotImplementedError (ROADMAP Queue 2 item E), never running without
+    them or on the batch loop.
 
     With `options.populate_debug` the whole-solve kernel records the
     per-trip cost history, and `debug` is a CostHistory: the costs and
@@ -115,21 +124,29 @@ def solve_batch_latency(
     history) and for zero-probe line searches the request goes to
     `solve_batch_fused`, whose `debug` is the full IterDebug, as the JAX
     package routes it."""
-    _refuse(continuation, model, limits)
+    _refuse(continuation, model)
     streamed = initial_trajs.controls.shape[1] > STREAM_HORIZON
+    if streamed and (limits is not None or cost.stage_weights is not None):
+        raise NotImplementedError(STREAM_VARIANTS_TODO)
     if options.line_search_params.max_iters < 1 or (options.populate_debug and streamed):
-        return solve_batch_fused(params, cost, initial_trajs, dt_s, options)
+        return solve_batch_fused(params, cost, initial_trajs, dt_s, options, limits=limits)
     if options.populate_debug:
         traj, cost_v, iterations, status, hist = solve_fused_whole(
-            params, cost, initial_trajs, dt_s, options, return_history=True
+            params, cost, initial_trajs, dt_s, options, limits=limits, return_history=True
         )
         # a lane's executed updates are its first trips, so valid is
         # arange < iterations (the batch loop's valid buffer)
         slots = torch.arange(hist.shape[1], device=hist.device)
         debug = CostHistory(costs=hist, valid=slots[None, :] < iterations[:, None])
         return SolveResult(traj, cost_v, iterations, status, debug)
-    engine = solve_fused_streamed if streamed else solve_fused_whole
-    traj, cost_v, iterations, status = engine(params, cost, initial_trajs, dt_s, options)
+    if streamed:
+        traj, cost_v, iterations, status = solve_fused_streamed(
+            params, cost, initial_trajs, dt_s, options
+        )
+    else:
+        traj, cost_v, iterations, status = solve_fused_whole(
+            params, cost, initial_trajs, dt_s, options, limits=limits
+        )
     return SolveResult(trajectory=traj, cost=cost_v, iterations=iterations, status=status)
 
 

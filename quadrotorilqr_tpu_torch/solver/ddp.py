@@ -107,9 +107,10 @@ def exact_cxx_analytic(cost, traj):
     """Exact state Hessians of the tracking cost for every stage,
     (..., N, 12, 12): the Gauss-Newton blocks with the closed-form Lie
     correction added into the pose block (the kernels' order)."""
-    from ..costs.quadratic import _weights_over_stages, check_supported
+    from ..costs.quadratic import _weights_over_stages, refuse_weights
+    from .ilqr import FDDP_VARIANTS_TODO
 
-    check_supported(cost)
+    refuse_weights(cost, FDDP_VARIANTS_TODO)
     des = cost.desired_states
     dx_pose = se3.minus(traj.states.pose, des.pose)
     dx = torch.cat([dx_pose, traj.states.vel - des.vel], -1)

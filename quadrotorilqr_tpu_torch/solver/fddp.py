@@ -40,7 +40,7 @@ from ..models import quadrotor as qm
 from ..tree import tree_map
 from . import ddp as ddp_mod
 from .ilqr import (
-    LIMITS_TODO,
+    FDDP_VARIANTS_TODO,
     MODEL_TODO,
     STATUS_CONVERGED,
     STATUS_LINE_SEARCH_FAILED,
@@ -143,11 +143,11 @@ def defects(params, traj: Trajectory, dt_s):
 
 def check_supported(cost, model=None, limits=None, penalty_fns=None):
     """Refuse every option outside the ported slice, naming its ROADMAP item."""
-    qc.check_supported(cost)
+    qc.refuse_weights(cost, FDDP_VARIANTS_TODO)
     if model is not None and model is not qm:
         raise NotImplementedError(MODEL_TODO)
     if limits is not None:
-        raise NotImplementedError(LIMITS_TODO)
+        raise NotImplementedError(FDDP_VARIANTS_TODO)
     if penalty_fns is not None:
         raise NotImplementedError(PENALTY_TODO)
 
@@ -236,7 +236,7 @@ def rollout_gap(params, traj: Trajectory, d, ks, big_ks, alpha, dt_s, model=None
     if model is not None and model is not qm:
         raise NotImplementedError(MODEL_TODO)
     if limits is not None:
-        raise NotImplementedError(LIMITS_TODO)
+        raise NotImplementedError(FDDP_VARIANTS_TODO)
     state = tree_map(lambda leaf: leaf[..., 0, :], traj.states)
     shrink = -(1.0 - alpha[..., None])
     states, controls = [], []

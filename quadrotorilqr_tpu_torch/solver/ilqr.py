@@ -36,7 +36,14 @@ ASSOCIATIVE_TODO = (
     "(ROADMAP Queue 1 item 15, solver/parallel_riccati.py)"
 )
 MODEL_TODO = "only the quadrotor model is ported (ROADMAP Queue 1 item 11, model families)"
-LIMITS_TODO = "control limits are not ported yet (ROADMAP Queue 1 item 10, box limits)"
+STREAM_VARIANTS_TODO = (
+    "control limits and stage weights on the streamed exact kernel (stream.cu, past 256 "
+    "stages) are not ported yet (ROADMAP Queue 2 item E)"
+)
+FDDP_VARIANTS_TODO = (
+    "control limits and stage weights on the FDDP solvers are not ported yet "
+    "(ROADMAP Queue 2 item F)"
+)
 CONTINUATION_TODO = (
     "continuation is not ported yet (ROADMAP Queue 1 item 13, MPC warm start)"
 )
@@ -126,11 +133,12 @@ def riccati_gains_update(q_x, q_u, q_xx, q_uu, q_xu):
     return k, big_k, v_x_new, v_xx_new, (q_u * k).sum(-1), (k * quu_k).sum(-1)
 
 
-def backward_pass(params, cost, traj: Trajectory, dt_s, quu_reg=0.0):
-    """Riccati recursion over (..., N, ...) trajectories.
+def backward_pass(params, cost, traj: Trajectory, dt_s, quu_reg=0.0, gains_update=None):
+    """Riccati recursion over (..., N, ...) trajectories. `gains_update(q_x,
+    q_u, q_xx, q_uu, q_xu, n)` replaces `riccati_gains_update` at stage n
+    (the box-QP stage of solver/constrained.py).
 
     Returns (ks (..., N, 4), Ks (..., N, 4, 12), QuTk (...), kTQuuk (...))."""
-    qc.check_supported(cost)
     j_x, j_u, c_x, c_u, c_xx, c_uu = quadratize(params, cost, traj, dt_s)
     batch = traj.controls.shape[:-2]
     kw = dict(dtype=traj.controls.dtype, device=traj.controls.device)
@@ -154,9 +162,11 @@ def backward_pass(params, cost, traj: Trajectory, dt_s, quu_reg=0.0):
         if quu_reg != 0.0:
             q_uu = q_uu + quu_reg * eye_u
         q_xu = jxt @ vxx_ju
-        k, big_k, v_x, v_xx, qutk_inc, ktquuk_inc = riccati_gains_update(
-            q_x, q_u, q_xx, q_uu, q_xu
-        )
+        if gains_update is None:
+            out = riccati_gains_update(q_x, q_u, q_xx, q_uu, q_xu)
+        else:
+            out = gains_update(q_x, q_u, q_xx, q_uu, q_xu, n)
+        k, big_k, v_x, v_xx, qutk_inc, ktquuk_inc = out
         qutk = qutk + qutk_inc
         ktquuk = ktquuk + ktquuk_inc
         ks[n] = k
@@ -173,9 +183,11 @@ def _stage(leaf, n):
     return leaf[..., n, :]
 
 
-def forward_sim(params, traj: Trajectory, ks, big_ks, alpha, dt_s):
+def forward_sim(params, traj: Trajectory, ks, big_ks, alpha, dt_s, limits=None):
     """Closed-loop rollout u_n = u_old_n + alpha k_n + K_n (x_n (-) x_old_n),
-    x_{n+1} = f(x_n, u_n); `alpha` is per lane (...)."""
+    x_{n+1} = f(x_n, u_n); `alpha` is per lane (...). With `limits=(lo, hi)`
+    (tensors broadcasting against (..., 4)) each u_n is clamped into
+    [lo, hi] first (solver/constrained.py)."""
     state = tree_map(lambda leaf: _stage(leaf, 0), traj.states)
     states, controls = [], []
     for n in range(traj.horizon):
@@ -186,6 +198,8 @@ def forward_sim(params, traj: Trajectory, ks, big_ks, alpha, dt_s):
             + alpha[..., None] * ks[..., n, :]
             + (big_ks[..., n, :, :] @ dx[..., None])[..., 0]
         )
+        if limits is not None:
+            u = torch.clamp(u, *limits)
         states.append(state)
         controls.append(u)
         state = qm.discrete_dynamics(params, state, u, dt_s)
@@ -193,9 +207,9 @@ def forward_sim(params, traj: Trajectory, ks, big_ks, alpha, dt_s):
     return Trajectory(times=traj.times, states=stacked, controls=torch.stack(controls, -2))
 
 
-def rollout_cost(params, cost, traj: Trajectory, ks, big_ks, alpha, dt_s):
+def rollout_cost(params, cost, traj: Trajectory, ks, big_ks, alpha, dt_s, limits=None):
     """forward_sim plus the new trajectory's cost: (Trajectory, cost (...))."""
-    new_traj = forward_sim(params, traj, ks, big_ks, alpha, dt_s)
+    new_traj = forward_sim(params, traj, ks, big_ks, alpha, dt_s, limits)
     return new_traj, qc.trajectory_cost(cost, new_traj.states, new_traj.controls)
 
 
@@ -393,7 +407,6 @@ def solve(
     are (B, N, ...) or one unbatched (N, ...) trajectory; params and cost
     leaves are shared or carry the same leading B."""
     check_supported(model, ddp, associative)
-    qc.check_supported(cost)
     single = initial_traj.controls.ndim == 2
     traj = tree_map(lambda a: a[None], initial_traj) if single else initial_traj
     result = solve_loop(

@@ -1,8 +1,8 @@
 """Solver options: the three frozen dataclasses of
 `quadrotorilqr_tpu/solver/options.py`, copied verbatim.
 
-`populate_debug` records a per-iteration debug history; the port does not
-implement it yet (ROADMAP Queue 1 item 6, "history").
+`populate_debug` records the per-iteration debug record (`IterDebug` from
+the batch loops, `CostHistory` from the whole-solve kernel; see api.py).
 """
 
 from __future__ import annotations

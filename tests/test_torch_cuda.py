@@ -16,7 +16,12 @@ and 300, horizons of 1, 2 and 40 stages, shared and per-scenario operand
 groups. The debug record: `solve.cu`'s recorded launch (cost history,
 backward passes and probe sweeps) against its plain version, bit-equal to
 the launch without history, and `populate_debug` on the per-pass and
-whole-solve routes against the plain loop's.
+whole-solve routes against the plain loop's. The box and weights variants
+(control limits and stage weights) of backward.cu, rollout.cu and solve.cu
+at float64, B=300, N=40 against their plain versions, their per-pass route
+against solve.cu, unit weights against none, and BASELINE config 4 through
+`app.mpc.run_mpc`: both routes in float64, and the quality checks of its
+constrained variant in float32 at fleet 128.
 
 This file imports no JAX, so the card machine runs it without the JAX
 package's conftest:
@@ -24,6 +29,7 @@ package's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 from types import SimpleNamespace
 
 import numpy as np
@@ -38,6 +44,7 @@ from quadrotorilqr_tpu_torch.kernels import solve as ks
 from quadrotorilqr_tpu_torch.kernels import stream as kst
 from quadrotorilqr_tpu_torch.kernels import stream_fddp as ksf
 from quadrotorilqr_tpu_torch.kernels import _build
+from quadrotorilqr_tpu_torch.solver import constrained
 from quadrotorilqr_tpu_torch.solver.batched import (
     _with_max_iters,
     solve_batch_fddp,
@@ -682,3 +689,159 @@ def test_cuda_debug_routes_match_plain(card_problem):
     torch.testing.assert_close(got.debug.trajectories.controls, ref.debug.trajectories.controls,
                                rtol=0, atol=1e-7)
     assert int(ref.debug.valid.sum()) == int(ref.iterations.sum())
+
+
+# ---- the box and weights variants and the MPC loop (BASELINE config 4) ----
+
+VARIANT_CASES = ["shared", "per_scenario", "wide"]
+
+
+@pytest.fixture(scope="module")
+def variant_problem():
+    """float64, B=300, N=40 (problem()) with each case's limits and stage
+    weights: shared bounds (0, 2.9) with (N,) weights [1, ..., 1, 20],
+    per-scenario (B, 4) bounds with (B, N) weights, and wide bounds with
+    unit weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    params, cost, traj = problem("cuda", batch=B, n=40, seed=40)
+    rng = np.random.default_rng(41)
+    on = dict(dtype=torch.float64, device="cuda")
+    w_n = torch.ones(40, **on)
+    w_n[-1] = 20.0
+    hover = 9.81 / 4
+    cases = {
+        "shared": ((0.0, 2.9), w_n),
+        "per_scenario": (
+            (torch.as_tensor(hover - rng.uniform(0.2, 0.6, size=(B, 4)), **on),
+             torch.as_tensor(hover + rng.uniform(0.2, 0.6, size=(B, 4)), **on)),
+            torch.as_tensor(rng.uniform(0.5, 2.0, size=(B, 40)), **on),
+        ),
+        "wide": ((-1e6, 1e6), torch.ones(40, **on)),
+    }
+    return params, cost, traj, cases
+
+
+def variant_case(variant_problem, case):
+    params, cost, traj, cases = variant_problem
+    limits, weights = cases[case]
+    return params, dataclasses.replace(cost, stage_weights=weights), traj, limits
+
+
+def assert_in_box(u, limits):
+    lo, hi = constrained.prep_limits(limits, u.shape[0], u.dtype, u.device)
+    lo, hi = (b[:, None] if b.ndim == 2 else b for b in (lo, hi))
+    assert bool(((u >= lo) & (u <= hi)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", VARIANT_CASES)
+@pytest.mark.parametrize("kernel", ["backward", "rollout", "solve"])
+def test_cuda_variants_match_plain(variant_problem, kernel, case):
+    """The box and weights instantiations of backward.cu, rollout.cu and
+    solve.cu against their plain versions (solver/constrained.py's box-QP
+    and clamped rollout, the weighted cost), at the bars of the kernels
+    without them; every produced control inside its box."""
+    params, cost, traj, limits = variant_case(variant_problem, case)
+    if kernel == "backward":
+        got = kb.backward_pass_fused(params, cost, traj, DT, limits=limits)
+        ref = kb.backward_pass_reference(params, cost, traj, DT, 0.0, limits)
+        for g, r in zip(got[:2], ref[:2]):
+            torch.testing.assert_close(g, r, rtol=0, atol=1e-9)
+        for g, r in zip(got[2:], ref[2:]):
+            torch.testing.assert_close(g, r, rtol=1e-9, atol=0)
+    elif kernel == "rollout":
+        k, big_k, _, _ = kb.backward_pass_reference(params, cost, traj, DT, 0.0, limits)
+        alpha = torch.linspace(0.1, 1.0, B, dtype=torch.float64, device="cuda")
+        got_t, got_c = kr.rollout_cost_fused(params, cost, traj, k, big_k, alpha, DT, limits=limits)
+        ref_t, ref_c = kr.rollout_cost_reference(params, cost, traj, k, big_k, alpha, DT, limits)
+        torch.testing.assert_close(got_t.controls, ref_t.controls, rtol=0, atol=1e-10)
+        torch.testing.assert_close(got_t.states.pose.trans, ref_t.states.pose.trans, rtol=0,
+                                   atol=1e-10)
+        torch.testing.assert_close(got_c, ref_c, rtol=1e-10, atol=0)
+        assert_in_box(got_t.controls, limits)
+    else:
+        got = ks.solve_fused_whole(params, cost, traj, DT, OPTIONS, limits=limits)
+        ref = ks.solve_whole_reference(params, cost, traj, DT, OPTIONS, limits)
+        assert_same_lanes(SolveResult(*got), SolveResult(*ref[:4]))
+        assert_in_box(got[0].controls, limits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", VARIANT_CASES)
+def test_cuda_variant_per_pass_route_matches_whole_solve(variant_problem, case):
+    """The per-pass route with limits and weights against solve.cu's
+    variant, and solve.cu's recorded variant bit-equal to its launch
+    without the record."""
+    params, cost, traj, limits = variant_case(variant_problem, case)
+    whole = solve_batch_latency(params, cost, traj, DT, OPTIONS, limits=limits)
+    assert_same_lanes(solve_batch_fused(params, cost, traj, DT, OPTIONS, limits=limits), whole)
+    rec = ks.solve_fused_whole(params, cost, traj, DT, OPTIONS, limits=limits,
+                               return_history=True, return_probes=True)
+    assert_bit_equal(SolveResult(*rec[:4]), whole)
+
+
+@pytest.mark.cuda
+def test_cuda_unit_weights_and_unconstrained_instantiations(variant_problem):
+    """Unit weights leave solve.cu's trajectory, status and iterations
+    bit-equal to no weights (the cost sums w (dx'Q dx + du'R du), so it
+    agrees to rounding); without limits or weights solve.cu runs the
+    instantiation without variants, bit-equal to stream.cu, which has none."""
+    params, cost, traj, _ = variant_problem
+    unit = dataclasses.replace(cost, stage_weights=torch.ones(40, dtype=torch.float64,
+                                                              device="cuda"))
+    base = ks.solve_fused_whole(params, cost, traj, DT, OPTIONS)
+    got = ks.solve_fused_whole(params, unit, traj, DT, OPTIONS)
+    for g, r in ((got[2], base[2]), (got[3], base[3]), (got[0].controls, base[0].controls),
+                 (got[0].states.pose.trans, base[0].states.pose.trans)):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    torch.testing.assert_close(got[1], base[1], rtol=1e-14, atol=0)
+    streamed = kst.solve_fused_streamed(params, cost, traj, DT, OPTIONS)
+    assert_bit_equal(SolveResult(*base), SolveResult(*streamed))
+
+
+def mpc_problem(fleet, dtype, ticks):
+    from quadrotorilqr_tpu_torch.app import workloads
+
+    return workloads.mpc_hover_problem(np.random.default_rng(4), fleet, 50, ticks, 0.01, dtype,
+                                       "cuda")
+
+
+def run_mpc(pb, ticks, latency, limits=True, weights=True):
+    from quadrotorilqr_tpu_torch.app import mpc
+
+    return mpc.run_mpc(
+        pb.params, pb.q, pb.r, pb.desired, pb.x0, ticks, 50, 0.01, pb.options,
+        latency_kernel=latency, stage_weights=pb.stage_weights if weights else None,
+        limits=pb.limits if limits else None, plant_params=pb.plant,
+    )
+
+
+@pytest.mark.cuda
+def test_cuda_run_mpc_routes_agree_f64(card):
+    """run_mpc with limits and terminal weights on solve.cu and on the
+    per-pass kernels, float64, fleet 37, 10 ticks: every tick's status and
+    iterations equal, costs rtol 1e-8, applied controls atol 1e-7."""
+    pb = mpc_problem(37, torch.float64, 10)
+    whole, loop = run_mpc(pb, 10, True), run_mpc(pb, 10, False)
+    for key in ("status", "iterations"):
+        torch.testing.assert_close(loop[key], whole[key], rtol=0, atol=0)
+    torch.testing.assert_close(loop["cost"], whole["cost"], rtol=1e-8, atol=0)
+    torch.testing.assert_close(loop["u"], whole["u"], rtol=0, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_cuda_config4_constrained_quality(card):
+    """chip_smoke.py's config 4 checks on solve.cu at fleet 128, float32,
+    100 ticks: every applied control in [0, 2.9], the upper bound binding on
+    some tick, the mean final position error below 0.8x the initial one,
+    and with the terminal weight below 1.5x the run without it."""
+    pb = mpc_problem(128, torch.float32, 100)
+    out = run_mpc(pb, 100, True)
+    base = run_mpc(pb, 100, True, weights=False)
+    u = out["u"]
+    hi = torch.tensor(2.9, dtype=torch.float32, device="cuda")
+    assert float(u.min()) >= 0.0 and bool((u <= hi).all()) and bool((u == hi).any())
+    err = lambda o: float(o["x_final"].pose.trans.norm(dim=-1).mean())
+    assert err(out) < 0.8 * float(pb.x0.pose.trans.norm(dim=-1).mean())
+    assert err(out) < 1.5 * err(base)

@@ -2,8 +2,8 @@
 
 The curvature helpers (`*_t_jac`, `vfxx_analytic`, `exact_cxx_analytic`)
 and `per_stage_costs` against the JAX functions at 1e-12; the port's batched
-`solve_fddp` (the plain version of the FDDP kernel) against
-`jax.vmap(solve_fddp)` on a mixed benign/aggressive problem, Gauss-Newton
+`solve_fddp` (the plain version of the FDDP kernel) against JAX's
+`solve_fddp` on every lane of a mixed benign/aggressive problem, Gauss-Newton
 and DDP, at the bar of tests/test_fddp_fused.py (status and iterations
 equal, cost rtol 1e-8, controls atol 1e-9); the multi-phase solve by
 composition (its first phase against JAX, its resume against the single
@@ -102,17 +102,31 @@ def problem():
 
 @pytest.fixture(scope="module")
 def jax_refs(problem):
-    """jax.vmap(solve_fddp) on the mixed problem (XLA), by ddp flag, each
-    compiled once for the module."""
+    """solve_fddp on every lane of the mixed problem (XLA), by ddp flag,
+    each compiled once for the module: `jax.lax.map` over the lanes, which
+    computes each lane as jax.vmap(solve_fddp) does, without tracing the
+    batching rule of its while loops (the larger part of the time), and
+    compiled at XLA's backend optimization level 0 without LLVM's expensive
+    passes (IEEE float64 all the same, in less compile time)."""
     (params, cost, trajs), _ = problem
     cache = {}
 
     def get(ddp):
         if ddp not in cache:
-            cache[ddp] = jax.vmap(lambda t: j_solve_fddp(params, cost, t, DT, J_OPTS, ddp=ddp))(trajs)
+            cache[ddp] = jax_lanes(lambda t: j_solve_fddp(params, cost, t, DT, J_OPTS, ddp=ddp),
+                                   trajs)
         return cache[ddp]
 
     return get
+
+
+def jax_lanes(solve, trajs):
+    """solve(t) for every lane t of trajs: `jax.lax.map`, compiled at XLA's
+    backend optimization level 0 and without LLVM's expensive passes."""
+    run = jax.jit(lambda ts: jax.lax.map(solve, ts))
+    return run.lower(trajs).compile(
+        {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+    )(trajs)
 
 
 # ---- curvature helpers and per-stage costs ----
@@ -279,15 +293,17 @@ def test_streamed_reference_matches_vmapped_jax_across_a_resume(problem, jax_ref
 
 def test_refine_first_phase_matches_jax(problem):
     """A fresh solve at the first phase's budget (what the multi-phase solve
-    runs as its first phase) equals vmap(solve_fddp) at that max_iters."""
+    runs as its first phase) equals JAX's solve_fddp at that max_iters on
+    every lane."""
     (j_params, j_cost, j_trajs), (params, cost, trajs) = problem
     bounds, _ = p_batched.resolve_refine_auto(ITERS, False)
     cc = (1e-9, 1e-9, bounds[0])
-    ref = jax.vmap(
+    ref = jax_lanes(
         lambda t: j_solve_fddp(
             j_params, j_cost, t, DT, ILQROptions(LineSearchParams(*LS), ConvergenceCriteria(*cc))
-        )
-    )(j_trajs)
+        ),
+        j_trajs,
+    )
     opts = dataclasses.replace(P_OPTS, convergence_criteria=p_options.ConvergenceCriteria(*cc))
     assert_lanes(p_batched.solve_batch_fddp(params, cost, trajs, DT, opts), ref)
 

@@ -231,15 +231,21 @@ def test_whole_solve_refuses_zero_probe_line_search():
     ids=["continuation", "limits", "history", "probes"],
 )
 def test_whole_solve_refuses_options_outside_the_slice(kwargs):
-    """continuation and limits are refused, naming their ROADMAP items;
-    the history and the probe counts are ported and come back after the
-    solution, (B, max_iters) and two (B,) int32 counts."""
+    """continuation is refused, naming its ROADMAP item; the history and
+    the probe counts are ported and come back after the solution,
+    (B, max_iters) and two (B,) int32 counts; limits are ported (the box
+    variant) and every control of the solution lies in its box."""
     _, p_opts = options_pair()
     params, cost, traj = port_objects(jax_objects(np_problem(3, 2, 3, True)))
     if "return_history" in kwargs or "return_probes" in kwargs:
         got = P_solve.solve_fused_whole(params, cost, traj, DT, p_opts, **kwargs)
         extra = [tuple(a.shape) for a in got[4:]]
         assert extra == ([(2, 6)] if "return_history" in kwargs else [(2,), (2,)])
+        return
+    if "limits" in kwargs:
+        got = P_solve.solve_fused_whole(params, cost, traj, DT, p_opts, **kwargs)
+        lo, hi = kwargs["limits"]
+        assert len(got) == 4 and bool(((got[0].controls >= lo) & (got[0].controls <= hi)).all())
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         P_solve.solve_fused_whole(params, cost, traj, DT, p_opts, **kwargs)

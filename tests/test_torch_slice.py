@@ -173,12 +173,20 @@ def test_api_solve_pytree_matches_jax(api_pair):
     "kwargs", [dict(solver="ddp"), dict(stage_weights=np.ones(N))], ids=["ddp", "weights"]
 )
 def test_api_refuses_options_outside_the_slice(api_pair, kwargs):
+    """solver="ddp" is refused, naming its ROADMAP item; stage weights are
+    ported: the class carries them on its cost, and refuses them only with
+    an FDDP solver (ROADMAP Queue 2 item F)."""
     p_api = api_pair[0]
+    args = (1.0, np.eye(3), 0.2, 0.016, 9.81, np.eye(12), np.eye(4), p_api.desired_traj, DT,
+            p_api.options)
+    if "stage_weights" in kwargs:
+        api = QuadrotorILQR(*args, device="cpu", **kwargs)
+        torch.testing.assert_close(api.cost.stage_weights, torch.ones(N, dtype=torch.float64))
+        with pytest.raises(NotImplementedError, match="Queue 2 item F"):
+            QuadrotorILQR(*args, device="cpu", solver="fddp", **kwargs)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        QuadrotorILQR(
-            1.0, np.eye(3), 0.2, 0.016, 9.81, np.eye(12), np.eye(4), p_api.desired_traj,
-            DT, p_api.options, device="cpu", **kwargs,
-        )
+        QuadrotorILQR(*args, device="cpu", **kwargs)
 
 
 def test_api_defaults_to_cuda_and_refuses_without_it(api_pair, monkeypatch):
