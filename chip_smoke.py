@@ -5,8 +5,9 @@
 
 Builds the port's CUDA kernels from `quadrotorilqr_tpu_torch/kernels/csrc`,
 holds each kernel against its plain PyTorch version on the card (float64
-lane for lane at B=300, N=40; float32 at the main paths' shapes to quality
-bounds), each streamed kernel against its whole-solve twin, the per-pass
+lane for lane at B=300, N=40, the FDDP kernels' exact DDP for its first
+FDDP_DDP_PLAIN_TRIPS trips at the JAX package's DDP bar; float32 at the
+main paths' shapes to quality bounds), each streamed kernel against its whole-solve twin, the per-pass
 kernels with lanes masked out against a full launch and their route
 (float64) against the whole-solve kernel, and drives four main paths
 through `QuadrotorILQR.solve_batch`:
@@ -19,7 +20,8 @@ through `QuadrotorILQR.solve_batch`:
     one FDDP kernel launch of Gauss-Newton trips and one of exact-DDP trips
     resumed from it) on the aggressive-tumble class of the robust headline
     (B=4096, N=50, dt 0.1, scale 1.8, 40 iterations); each launch is held
-    against the plain FDDP loop on the same inputs and resume rows;
+    against the plain FDDP loop on the same inputs and resume rows (the
+    exact-DDP one for its first C6_DDP_PLAIN_TRIPS trips);
   * the long-horizon paths on `long_horizon_problem` at B=4096: exact iLQR
     at N=1024 with `latency=True` (past 256 stages: one `stream.cu` launch;
     tolerance 1e-6, 10 iterations, 20 probes) and robust FDDP at N=512
@@ -63,11 +65,26 @@ the host-driven `mpc_step` loop's per-tick p50, p99 and max; and at fleet
 path, counted, with its quality checks and its first ticks against the
 plain route; the variants' kernels timed at config 4's shapes.
 
+The model families (phase 6c): each exact kernel's instantiation for the
+SE(3) body wrench (u = 6) and the 6- and 8-rotor multirotors
+(`backward.cu`, `rollout.cu`, `solve.cu`, `stream.cu`, each source built
+once per family) against its plain version in float64 (B=300, N=40, per-
+scenario params) lane for lane, `stream.cu` and the per-pass route
+bit-equal to `solve.cu`, a 4-rotor multirotor bit-equal to the quadrotor;
+`app/workloads.wrench_problem` and `hexarotor_problem` (6 and 8 rotors;
+B=4096, N=100, float32) through both exact routes against the plain loop,
+timed, with the per-pass kernels' launches timed; each family at N=512 on
+`stream.cu` beside `solve.cu`, against its plain loop for LONG_PLAIN_TRIPS
+trips; then the families' main path, counted: the three families through both exact
+routes at N=100 and through `solve_batch_latency` at N=512 (past their
+route points: `stream.cu`), each new instantiation launched at least once.
+
 Output: progress lines (with each compiled kernel's and never-inlined
 function's ptxas registers, spill stores and stack, and the team kernels'
 geometry: lanes per scenario, teams per block, shared
 bytes), the card's `nvidia-smi` name and power limit, a JSON line
-`{"kernels": [...]}` with each kernel's launches, error and times,
+`{"kernels": [...]}` with each kernel's launches, error and times (the
+model families' instantiations as `backward_wrench`, ..., `stream_rotor8`),
 and as the last line `{"ok": true, "device": {...}}`. Any failed check
 raises, so the exit code is not 0. Without a CUDA device, or without the
 repository beside it, it exits with code 2 and prints no result.
@@ -95,6 +112,13 @@ DT = 0.02
 # takes 15-20 s (a backward pass, a probe and an apply sweep), and a trip
 # in which some lane's line search runs out adds 20 probe sweeps
 LONG_PLAIN_TRIPS = 2
+# The float64 FDDP kernels' exact-DDP curvature is held against the plain
+# DDP loop for its first trips only: the plain loop's second-order terms
+# take ~5 s a trip at B=300, N=40 (125 s for 25 trips on an H100 host)
+FDDP_DDP_PLAIN_TRIPS = 12
+# Config 6's exact-DDP launch (its trips 16-40) is held against the plain
+# loop for its first trips only: the plain loop took 145-310 s for all 24
+C6_DDP_PLAIN_TRIPS = 8
 
 # The least time the card could take: the larger of the operations over the
 # H100's float32 rate outside the tensor cores and the bytes (each input read
@@ -117,6 +141,11 @@ PEAK_BYTES = 3.35e12
 #     J_x p 171, J_u w 32, + d 12;
 #   FDDP defect 560, counted on the trips that computed defects (the kernel
 #     reports them), and value transport v_x + V_xx d 288 on every trip.
+# The model families' stages (control width u, the nonzero entries of each
+# j_u column): riccati_flops and rollout_flops below, 14,133 and 1,271 for
+# the wrench (u = 6; 1 in each force column, 3 in each torque column),
+# 14,589 and 1,310 for the hexarotor (u = 6, 4 in each column), 17,684 and
+# 1,434 for the octorotor (u = 8, 4 in each column).
 FLOPS = dict(
     riccati=12074, ddp_extra=6840, rollout=1202, gap_rollout=1412, model=696,
     defect=560, transport=288, stage_cost=566,
@@ -264,9 +293,9 @@ def bit_equal(got, ref):
 
 def ptxas_summary(build_log):
     """{function: (registers or None, spill store bytes, stack bytes)} from
-    the build's `-Xptxas -v` lines, named as `kernel<float, ddp>`: entry
-    functions with their registers, never-inlined device functions with
-    their spills and stack."""
+    the build's `-Xptxas -v` lines, named as `kernel<float, ddp, Quadrotor>`
+    (the model family last): entry functions with their registers,
+    never-inlined device functions with their spills and stack."""
     import re
 
     def short(mangled):
@@ -295,6 +324,10 @@ def ptxas_summary(build_log):
         else:
             names = (("ddp", "gauss-newton"),)
         parts += [on if bit == "1" else off for bit, (on, off) in zip(bits, names)]
+        # the model family (csrc/quadrotor.cuh), the last template argument
+        fam = re.search(r"\d+(Quadrotor|Wrench|Multirotor)(?:ILi(\d+)E)?", mangled[i + args.end():])
+        if fam:
+            parts.append(fam.group(1) + (f"<{fam.group(2)}>" if fam.group(2) else ""))
         return f"{name}<{', '.join(parts)}>"
 
     out, current = {}, None
@@ -366,7 +399,7 @@ def mpc_phase(env):
         return float(((a - b).abs() / b.abs()).max())
 
     def in_box(u, limits):
-        lo, hi = constrained.prep_limits(limits, batch, f64, dev)
+        lo, hi = constrained.prep_limits(limits, batch, f64, dev, 4)
         lo, hi = (b[:, None] if b.ndim == 2 else b for b in (lo, hi))
         return bool(((u >= lo) & (u <= hi)).all()), int(((u == lo) | (u == hi)).sum())
 
@@ -568,7 +601,7 @@ def mpc_phase(env):
     warm = mpc.mpc_warm_start(pb.desired, pb.x0, MPC_HORIZON)
     b4 = warm.controls.shape[0]
     ones4 = torch.ones(b4, dtype=torch.float32, device=dev)
-    lo4, hi4 = constrained.prep_limits(pb.limits, b4, torch.float32, dev)
+    lo4, hi4 = constrained.prep_limits(pb.limits, b4, torch.float32, dev, 4)
     lo4, hi4 = (b[:, None] if b.ndim == 2 else b for b in (lo4, hi4))
     # the kernels see the trajectory after trip 0's full step (the warm
     # start sits on the target past stage 0, where k is exactly 0)
@@ -698,6 +731,361 @@ def mpc_phase(env):
     )}
 
 
+# The wider-control model families (csrc/quadrotor.cuh): each exact kernel
+# source's instantiation per family, with its control width u, the nonzero
+# entries of each column of its j_u (the wrench's force columns 1, its
+# torque columns 3; a rotor's thrust column 4: rows 8:12), and the JAX lane
+# model it runs.
+FAMILY_CASES = (
+    ("_wrench", 6, (1, 1, 1, 3, 3, 3), "quadrotorilqr_tpu/kernels/models.py:118"),
+    ("_rotor6", 6, (4,) * 6, "quadrotorilqr_tpu/kernels/models.py:247"),
+    ("_rotor8", 8, (4,) * 8, "quadrotorilqr_tpu/kernels/models.py:247"),
+)
+
+
+def riccati_flops(ju_nnz):
+    """A Gauss-Newton Riccati stage of a family with control width u =
+    len(ju_nnz) whose j_u column c has ju_nnz[c] nonzero entries (z in all;
+    team_riccati_stage), the u = 4 count of FLOPS with its u-dependent terms
+    recounted, j_u's structural zeros left out: the j_x blocks 1006; the cost
+    diffs 2971 + 3 u^2 (c_u = 2R (u - u_d)); the Q-expansion 4447 + 2 z
+    (q_u) + 12 (2 z - u) (V_xx j_u) + u (2 z + 3 u) (Q_uu) + 171 u (Q_xu =
+    j_x' V_xx j_u, 14.25 a 12-row column); the u x u Cholesky gains, its
+    factorization sum_j (2 j + 2 + (u - 1 - j)(2 j + 1)) and 2 x 13 u^2 for
+    the two triangular solves of 13 columns, with the u = 4 count's 10
+    others; the value update 26 u^2 + 303 u + 286. At u = 4, z = 16:
+    12074."""
+    u, z = len(ju_nnz), sum(ju_nnz)
+    fact = sum(2 * j + 2 + (u - 1 - j) * (2 * j + 1) for j in range(u))
+    return (1006 + (2971 + 3 * u * u)
+            + (4447 + 2 * z + 12 * (2 * z - u) + u * (2 * z + 3 * u) + 171 * u)
+            + (10 + fact + 26 * u * u) + (26 * u * u + 303 * u + 286))
+
+
+def rollout_flops(u, wrench):
+    """A rollout stage (team_rollout): the state minus 227, the controls 25 u,
+    the stage cost 526 + 2 u^2 + 2 u, the dynamics step 263 shared by the
+    families plus the wrench's force and torque terms 21, or the rotors'
+    thrust sum and moment map 7 u + 18. At u = 4 with rotors: 1202."""
+    return 227 + 25 * u + (526 + 2 * u * u + 2 * u) + 263 + (21 if wrench else 7 * u + 18)
+
+
+def np_family_problem(seed, batch, n, suffix):
+    """As np_problem, for the family of a kernel suffix (_wrench, _rotorR):
+    random stages around the family's hover control, per-scenario params
+    (masses, inertias, and for the rotors the yaw ratios), and an R with
+    off-diagonal terms, as numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    q = np.concatenate([np.ones((batch, n, 1)), 0.3 * rng.normal(size=(batch, n, 3))], -1)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    des_q = np.zeros((n, 4))
+    des_q[:, 0] = 1.0
+    scale = 1.0 + 0.2 * rng.uniform(-1, 1, size=batch)
+    inertia = (np.diag([0.4, 0.5, 0.6]) + 0.03) * scale[:, None, None]
+    if suffix == "_wrench":
+        u, hover = 6, np.array([0.0, 0.0, 1.3 * 9.81, 0.0, 0.0, 0.0])
+        params = SimpleNamespace(mass_kg=1.3 * scale, inertia=inertia, g_mpss=np.full(batch, 9.81))
+    else:
+        u = int(suffix[len("_rotor"):])
+        hover = np.full(u, 1.5 * 9.81 / u)
+        ang = 2.0 * np.pi * np.arange(u) / u
+        ring = np.stack([0.3 * np.cos(ang), 0.3 * np.sin(ang), np.zeros(u)], -1)
+        params = SimpleNamespace(
+            mass_kg=1.5 * scale, inertia=inertia,
+            rotor_positions_m=np.broadcast_to(ring, (batch, u, 3)),
+            rotor_spin=np.broadcast_to(np.where(np.arange(u) % 2 == 0, -1.0, 1.0), (batch, u)),
+            torque_to_thrust_ratio_m=0.01 + 0.02 * rng.uniform(size=batch),
+            g_mpss=np.full(batch, 9.81),
+        )
+    cost = SimpleNamespace(
+        Q=np.diag(np.concatenate([100.0 * np.ones(6), np.ones(6)])),
+        R=np.eye(u) + 0.1 * np.ones((u, u)),
+        desired_states=SimpleNamespace(
+            pose=SimpleNamespace(quat=des_q, trans=np.zeros((n, 3))), vel=np.zeros((n, 6))
+        ),
+        desired_controls=np.tile(hover, (n, 1)),
+    )
+    traj = SimpleNamespace(
+        times=np.broadcast_to(np.arange(n) * DT, (batch, n)),
+        states=SimpleNamespace(
+            pose=SimpleNamespace(quat=q, trans=0.4 * rng.normal(size=(batch, n, 3))),
+            vel=0.2 * rng.normal(size=(batch, n, 6)),
+        ),
+        controls=hover + 0.5 * rng.normal(size=(batch, n, u)),
+    )
+    return params, cost, traj
+
+
+def families_phase(env):
+    """Phase 6c: the wider-control model families (the SE(3) body wrench,
+    u = 6, and the 6- and 8-rotor multirotors) on backward.cu, rollout.cu,
+    solve.cu and stream.cu. Every new instantiation against its plain
+    version in float64 (B=300, N=40) lane for lane, stream.cu and the
+    per-pass route bit-equal to solve.cu; a 4-rotor multirotor bit-equal to
+    the quadrotor; each family's workload (B=4096, N=100, f32) through both
+    exact routes against the plain loop, with the per-pass kernels timed;
+    each family at N=512 on stream.cu beside solve.cu, against plain for
+    LONG_PLAIN_TRIPS trips; then the main path, counted: the three families
+    at N=100 through both routes and at N=512 through
+    `solve_batch_latency` (stream.cu). Returns the new instantiations' JSON
+    entries."""
+    import torch
+
+    from quadrotorilqr_tpu_torch import convert
+    from quadrotorilqr_tpu_torch.app import workloads
+    from quadrotorilqr_tpu_torch.kernels import _build
+    from quadrotorilqr_tpu_torch.kernels import backward as kb
+    from quadrotorilqr_tpu_torch.kernels import rollout as kr
+    from quadrotorilqr_tpu_torch.kernels import solve as ks
+    from quadrotorilqr_tpu_torch.kernels import stream as kst
+    from quadrotorilqr_tpu_torch.models.multirotor import MultirotorParams
+    from quadrotorilqr_tpu_torch.solver import ilqr
+    from quadrotorilqr_tpu_torch.solver.batched import (
+        _with_max_iters,
+        solve_batch_fused,
+        solve_batch_latency,
+        stream_horizon,
+    )
+    from quadrotorilqr_tpu_torch.solver.options import (
+        ConvergenceCriteria,
+        ILQROptions,
+        LineSearchParams,
+    )
+
+    e = env
+    dev, card = e.dev, e.card
+    f64, f32 = torch.float64, torch.float32
+    t_phase = time.perf_counter()
+    e.check([sfx for sfx, *_ in FAMILY_CASES] == [sfx for sfx in _build.FAMILIES if sfx],
+            "FAMILY_CASES differs from the families the kernels are built for")
+    opts = ILQROptions(LineSearchParams(0.5, 0.5, 20), ConvergenceCriteria(1e-8, 1e-8, 6))
+    entries = {}  # name -> fields of its JSON entry
+
+    def rel_max(a, b):
+        return float(((a - b).abs() / b.abs()).max())
+
+    def lanes(got, ref):
+        """Status and iterations equal, max rel cost, max |du|."""
+        same = bool((got[3] == ref[3]).all() and (got[2] == ref[2]).all())
+        return same, rel_max(got[1], ref[1]), max_abs(got[0].controls, ref[0].controls)
+
+    def problem(sfx, seed, n):
+        """The family's full-width workload (B=4096, f32) at N=n."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        if sfx == "_wrench":
+            return workloads.wrench_problem(gen, batch, n, DT, f32, dev)
+        return workloads.hexarotor_problem(gen, batch, n, DT, f32, dev, n_rotors=int(sfx[6:]))
+
+    # ---- every new instantiation against its plain version, float64 ----
+    for sfx, u, _, _ in FAMILY_CASES:
+        p_np, c_np, t_np = np_family_problem(3, 300, 40, sfx)
+        params = convert.params_from_numpy(p_np, f64, dev)
+        cost = convert.cost_from_numpy(c_np, f64, dev)
+        traj = convert.trajectory_from_numpy(t_np, f64, dev)
+        ref_b, b_plain = e.time_once(lambda: kb.backward_pass_reference(params, cost, traj, DT))
+        got_b = kb.backward_pass_fused(params, cost, traj, DT)
+        alpha = torch.linspace(0.1, 1.0, 300, dtype=f64, device=dev)
+        (r_t, r_c), r_plain = e.time_once(
+            lambda: kr.rollout_cost_reference(params, cost, traj, ref_b[0], ref_b[1], alpha, DT))
+        g_t, g_c = kr.rollout_cost_fused(params, cost, traj, ref_b[0], ref_b[1], alpha, DT)
+        ref_s, s_plain = e.time_once(lambda: ks.solve_whole_reference(params, cost, traj, DT, opts))
+        got_s = ks.solve_fused_whole(params, cost, traj, DT, opts)
+        ref_st, st_plain = e.time_once(
+            lambda: kst.solve_streamed_reference(params, cost, traj, DT, opts))
+        got_st = kst.solve_fused_streamed(params, cost, traj, DT, opts, return_probes=True)
+        loop = solve_batch_fused(params, cost, traj, DT, opts)
+        torch.cuda.synchronize()
+        err_b = max(max_abs(got_b[0], ref_b[0]), max_abs(got_b[1], ref_b[1]))
+        rel_b = max(rel_max(g, r) for g, r in zip(got_b[2:], ref_b[2:]))
+        err_r = max(max_abs(g_t.states.pose.quat, r_t.states.pose.quat),
+                    max_abs(g_t.states.pose.trans, r_t.states.pose.trans),
+                    max_abs(g_t.states.vel, r_t.states.vel), max_abs(g_t.controls, r_t.controls))
+        rel_r = rel_max(g_c, r_c)
+        ok_s, rel_s, du_s = lanes(got_s, ref_s)
+        ok_st, rel_st, du_st = lanes(got_st, ref_st)
+        st_bits = bit_equal(got_st, got_s)
+        pp_bits = bit_equal(loop, got_s)
+        e.log(f"f64 {sfx[1:]} (u={u}, B=300, N=40): backward max |dk|,|dK| {err_b:.3e} (atol 1e-9), "
+              f"rel QuTk/kTQuuk {rel_b:.3e} (rtol 1e-9); rollout max |dtraj| {err_r:.3e} (atol "
+              f"1e-10), rel cost {rel_r:.3e} (rtol 1e-10); solve.cu vs plain: status and "
+              f"iterations equal {ok_s}, rel cost {rel_s:.3e} (rtol 1e-8), max |du| {du_s:.3e} "
+              f"(atol 1e-7), statuses {torch.bincount(ref_s[3], minlength=3).tolist()}; stream.cu "
+              f"vs its plain loop {ok_st} ({rel_st:.3e}, {du_st:.3e}); stream.cu bit-equal to "
+              f"solve.cu {st_bits}; the per-pass route bit-equal to solve.cu {pp_bits}")
+        e.check(err_b <= 1e-9 and rel_b <= 1e-9 and err_r <= 1e-10 and rel_r <= 1e-10,
+                f"f64 {sfx[1:]} per-pass kernels disagree with plain")
+        e.check(ok_s and rel_s <= 1e-8 and du_s <= 1e-7 and ok_st and rel_st <= 1e-8
+                and du_st <= 1e-7, f"f64 {sfx[1:]} whole-solve kernels disagree with plain")
+        e.check(st_bits and pp_bits, f"f64 {sfx[1:]}: stream.cu or the per-pass route differs "
+                f"from solve.cu")
+        entries[f"backward{sfx}"] = dict(f64_err=err_b, f64_plain_ms=b_plain)
+        entries[f"rollout{sfx}"] = dict(f64_err=err_r, f64_plain_ms=r_plain)
+        entries[f"solve{sfx}"] = dict(f64_err=du_s, f64_plain_ms=s_plain)
+        entries[f"stream{sfx}"] = dict(f64_err=du_st, f64_plain_ms=st_plain)
+
+    # ---- a 4-rotor multirotor is the quadrotor: bit-equal on both routes ----
+    p_np, c_np, t_np = np_problem(4, 300, 40)
+    q_params = convert.params_from_numpy(p_np, f64, dev)
+    arm = float(p_np.arm_length_m[0])
+    ring = torch.tensor([[-arm, 0.0, 0.0], [0.0, -arm, 0.0], [arm, 0.0, 0.0], [0.0, arm, 0.0]],
+                        dtype=f64, device=dev)
+    m_params = MultirotorParams(
+        mass_kg=q_params.mass_kg, inertia=q_params.inertia,
+        rotor_positions_m=ring.expand(300, 4, 3).contiguous(),
+        rotor_spin=torch.tensor([-1.0, 1.0, -1.0, 1.0], dtype=f64, device=dev).expand(300, 4)
+        .contiguous(),
+        torque_to_thrust_ratio_m=q_params.torque_to_thrust_ratio_m, g_mpss=q_params.g_mpss,
+    )
+    cost = convert.cost_from_numpy(c_np, f64, dev)
+    traj = convert.trajectory_from_numpy(t_np, f64, dev)
+    same = all(
+        bit_equal(route(m_params, cost, traj, DT, opts), route(q_params, cost, traj, DT, opts))
+        for route in (solve_batch_latency, solve_batch_fused)
+    )
+    torch.cuda.synchronize()
+    e.log(f"f64 multirotor with R=4 (the reference airframe) vs the quadrotor, B=300, N=40: "
+          f"solve.cu and the per-pass route bit-equal {same}")
+    e.check(same, "the 4-rotor multirotor differs from the quadrotor")
+
+    # ---- each family's workload, float32, B=4096, N=100, against plain ----
+    batch, n = 4096, 100
+    fam_opts = workloads.FAMILY_OPTIONS
+    mains = {sfx: problem(sfx, 0, n) for sfx, *_ in FAMILY_CASES}
+    for sfx, u, ju_nnz, _ in FAMILY_CASES:
+        params, cost, trajs = mains[sfx]
+        wrench = sfx == "_wrench"
+        ref, plain_ms = e.time_once(lambda: ks.solve_whole_reference(params, cost, trajs, DT,
+                                                                     fam_opts))
+        res = {"solve.cu": solve_batch_latency(params, cost, trajs, DT, fam_opts),
+               "per-pass": solve_batch_fused(params, cost, trajs, DT, fam_opts)}
+        torch.cuda.synchronize()
+        conv_p = float((ref[3] == ilqr.STATUS_CONVERGED).float().mean())
+        for route, r in res.items():
+            finite = bool(torch.isfinite(r.cost).all() and torch.isfinite(r.trajectory.controls).all())
+            agree = float((r.status == ref[3]).float().mean())
+            med = float(((r.cost - ref[1]).abs() / ref[1].abs()).median())
+            conv = float((r.status == ilqr.STATUS_CONVERGED).float().mean())
+            e.log(f"f32 {sfx[1:]} workload (B={batch}, N={n}) via {route}: finite {finite}, status "
+                  f"agreement with plain {agree:.4f} (>= 0.99), median rel cost diff {med:.3e} "
+                  f"(< 1e-3), converged {conv:.4f} (plain {conv_p:.4f}, within 0.01), mean "
+                  f"iterations {float(r.iterations.float().mean()):.3f}, mean cost "
+                  f"{float(r.cost.mean()):.6g}")
+            e.check(finite and agree >= 0.99 and med < 1e-3 and abs(conv - conv_p) <= 0.01,
+                    f"f32 {sfx[1:]} workload via {route} outside its bounds")
+        # the per-pass kernels on the trajectory after trip 0's full step
+        ones = torch.ones(batch, dtype=f32, device=dev)
+        k0 = kb.backward_pass_reference(params, cost, trajs, DT)
+        trajs1, _ = kr.rollout_cost_reference(params, cost, trajs, k0[0], k0[1], ones, DT)
+        k1 = kb.backward_pass_fused(params, cost, trajs1, DT)
+        d, stage, word = 13 + u, batch * n, 4
+        passes, probes = int(ref[5].sum()), int(ref[6].sum())
+
+        def bwd():
+            return kb.backward_pass_fused(params, cost, trajs1, DT)
+
+        def roll():
+            return kr.rollout_cost_fused(params, cost, trajs1, k1[0], k1[1], ones, DT)
+
+        timed = {
+            "backward": (e.launch_ms(bwd, f"qilqr_backward{sfx}"),
+                         e.time_ms(lambda: kb.backward_pass_reference(params, cost, trajs1, DT)),
+                         (stage * riccati_flops(ju_nnz), (d + 13 * u) * stage * word)),
+            "rollout": (e.launch_ms(roll, f"qilqr_rollout{sfx}"),
+                        e.time_ms(lambda: kr.rollout_cost_reference(params, cost, trajs1, k1[0],
+                                                                    k1[1], ones, DT)),
+                        (stage * rollout_flops(u, wrench), (2 * d + 13 * u) * stage * word)),
+            "solve": (e.time_ms(lambda: solve_batch_latency(params, cost, trajs, DT, fam_opts)),
+                      plain_ms,
+                      ((passes * riccati_flops(ju_nnz) + probes * rollout_flops(u, wrench)) * n,
+                       2 * d * stage * word)),
+        }
+        per_pass_ms = e.time_ms(lambda: solve_batch_fused(params, cost, trajs, DT, fam_opts))
+        e.log(f"{sfx[1:]} workload (B={batch}, N={n}, f32): solve.cu {timed['solve'][0]:.3f} ms per "
+              f"batch solve ({batch / timed['solve'][0] * 1e3:.1f} solves/s), the per-pass route "
+              f"{per_pass_ms:.3f} ms, the plain loop {plain_ms:.1f} ms; backward.cu launch "
+              f"{timed['backward'][0]:.3f} ms (plain {timed['backward'][1]:.1f}), rollout.cu "
+              f"launch {timed['rollout'][0]:.3f} ms (plain {timed['rollout'][1]:.1f}); the plain "
+              f"loop ran {passes} backward passes, {probes} probe sweeps {card}")
+        for kname, (ms, p_ms, work) in timed.items():
+            entries[f"{kname}{sfx}"].update(
+                ms=ms, plain_ms=p_ms, work=work, shape=dict(B=batch, N=n, dtype="float32"),
+                per_pass_route_ms=per_pass_ms,
+            )
+
+    # ---- each family at N=512 on stream.cu, beside solve.cu, against plain ----
+    long_n = 512
+    longs = {sfx: problem(sfx, 1, long_n) for sfx, *_ in FAMILY_CASES}
+    for sfx, u, ju_nnz, _ in FAMILY_CASES:
+        l_params, l_cost, l_trajs = longs[sfx]
+        l_args = (l_params, l_cost, l_trajs, DT, _with_max_iters(fam_opts, LONG_PLAIN_TRIPS))
+        l_k = kst.solve_fused_streamed(*l_args, return_probes=True)
+        l_p, l_plain_ms = e.time_once(lambda: kst.solve_streamed_reference(*l_args))
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(l_k[1]).all() and torch.isfinite(l_k[0].controls).all())
+        rel = (l_k[1] - l_p[1]).abs() / l_p[1].abs()
+        med, q99 = float(rel.median()), float(rel.quantile(0.99))
+        agree = float((l_k[3] == l_p[3]).float().mean())
+        l_work = [int(a.sum()) for a in l_k[4:]]
+        e.log(f"f32 {sfx[1:]} stream.cu vs its plain loop (B={batch}, N={long_n}, its first "
+              f"{LONG_PLAIN_TRIPS} trips): finite {finite}, rel cost diff median {med:.3e} (< 1e-3), "
+              f"99th percentile {q99:.3e} (< 1e-3), status agreement {agree:.4f} (>= 0.99); "
+              f"(backward passes, probe sweeps, apply sweeps) {l_work}; plain loop "
+              f"{l_plain_ms:.1f} ms")
+        e.check(finite and med < 1e-3 and q99 < 1e-3 and agree >= 0.99,
+                f"f32 {sfx[1:]} stream.cu outside its bounds")
+        full_args = (l_params, l_cost, l_trajs, DT, fam_opts)
+        l_ms = e.time_ms(lambda: kst.solve_fused_streamed(*l_args))
+        path_ms = e.time_ms(lambda: solve_batch_latency(*full_args))
+        twin_ms = e.time_ms(lambda: ks.solve_fused_whole(*full_args))
+        e.log(f"{sfx[1:]} at N={long_n} (B={batch}, f32): stream.cu {l_ms:.3f} ms for "
+              f"{LONG_PLAIN_TRIPS} trips; the whole path (solve_batch_latency, past "
+              f"{stream_horizon(u)} stages) {path_ms:.3f} ms, solve.cu on the same inputs "
+              f"{twin_ms:.3f} ms {card}")
+        passes, probes, applies = l_work
+        entries[f"stream{sfx}"].update(
+            ms=l_ms, plain_ms=l_plain_ms,
+            shape=dict(B=batch, N=long_n, dtype="float32", trips=LONG_PLAIN_TRIPS),
+            work=((passes * riccati_flops(ju_nnz)
+                   + (probes + applies) * rollout_flops(u, sfx == "_wrench")) * long_n,
+                  2 * (13 + u) * batch * long_n * 4),
+            full_width=dict(B=batch, N=long_n, ms=path_ms, whole_twin_ms=twin_ms),
+        )
+
+    # ---- the families' main path through the batch solvers, counted ----
+    e.reset_counts()
+    out = {}
+    for sfx, *_ in FAMILY_CASES:
+        out[sfx, "solve"] = solve_batch_latency(*mains[sfx], DT, fam_opts)
+        out[sfx, "per-pass"] = solve_batch_fused(*mains[sfx], DT, fam_opts)
+        out[sfx, "stream"] = solve_batch_latency(*longs[sfx], DT, fam_opts)
+    torch.cuda.synchronize()
+    fam = e.family_counts()
+    e.log(f"model families main path launches: {fam}")
+    names = [f"{k}{sfx}" for sfx, *_ in FAMILY_CASES for k in ("backward", "rollout", "solve",
+                                                                "stream")]
+    e.check(all(fam.get(name, 0) > 0 for name in names), f"a family kernel never ran: {fam}")
+    for (sfx, route), r in out.items():
+        n_ = long_n if route == "stream" else n
+        u = dict((s, uu) for s, uu, *_ in FAMILY_CASES)[sfx]
+        ok = (r.trajectory.controls.shape == (batch, n_, u)
+              and bool(torch.isfinite(r.cost).all() and torch.isfinite(r.trajectory.controls).all()))
+        e.log(f"{sfx[1:]} via {route} (B={batch}, N={n_}, f32): converged "
+              f"{float((r.status == ilqr.STATUS_CONVERGED).float().mean()):.4f}, mean iterations "
+              f"{float(r.iterations.float().mean()):.3f}, statuses "
+              f"{torch.bincount(r.status, minlength=3).tolist()}, shapes and finite {ok}")
+        e.check(ok, f"{sfx[1:]} via {route}: wrong shapes or non-finite")
+    for sfx, *_ in FAMILY_CASES:
+        agree = float((out[sfx, "solve"].status == out[sfx, "per-pass"].status).float().mean())
+        e.log(f"{sfx[1:]}: the two exact routes agree on {agree:.4f} of statuses (>= 0.99)")
+        e.check(agree >= 0.99, f"{sfx[1:]}: the exact routes disagree")
+    for name in names:
+        entries[name]["launches"] = fam[name]
+    e.log(f"model families phase took {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 T0 = time.perf_counter()
 
 
@@ -793,10 +1181,16 @@ def main() -> int:
 
     def reset_counts():
         for fn in wrappers.values():
-            fn.launches = 0
+            fn.launches.clear()
 
     def counts():
-        return {name: fn.launches for name, fn in wrappers.items()}
+        return {name: fn.launches.total() for name, fn in wrappers.items()}
+
+    def family_counts():
+        """Launches per kernel instantiation, named as their C entries:
+        backward, backward_wrench, ..."""
+        return {f"{name}{sfx}": n for name, fn in wrappers.items()
+                for sfx, n in fn.launches.items()}
 
     def time_once(fn):
         """(result, ms) of one run, CUDA events around it."""
@@ -966,6 +1360,10 @@ def main() -> int:
     m_opts = ILQROptions(LineSearchParams(0.5, 0.5, 20), ConvergenceCriteria(1e-9, 1e-9, 25))
     fo = fddp.FDDPOptions()
     m_args = (m_params, m_cost, m_trajs, mix_dt, m_opts)
+    # the Gauss-Newton curvature over all 25 trips, the exact DDP one over
+    # FDDP_DDP_PLAIN_TRIPS
+    m_cases = {False: m_args,
+               True: m_args[:4] + (_with_max_iters(m_opts, FDDP_DDP_PLAIN_TRIPS),)}
     m_refs = {}
 
     def ddp_bar(got, ref):
@@ -982,9 +1380,9 @@ def main() -> int:
                 and float(rel[strict].max()) <= 1e-8 and float(du[strict].max()) <= 1e-4
                 and float(rel.max()) < 2e-4)
 
-    for ddp in (False, True):
-        got = kf.solve_fddp_fused(*m_args, fo, ddp=ddp)
-        ref, plain_ms = time_once(lambda: kf.solve_fddp_whole_reference(*m_args, fo, ddp))
+    for ddp, args in m_cases.items():
+        got = kf.solve_fddp_fused(*args, fo, ddp=ddp)
+        ref, plain_ms = time_once(lambda: kf.solve_fddp_whole_reference(*args, fo, ddp))
         m_refs[ddp] = (got, ref)
         torch.cuda.synchronize()
         same_status = (got[3] == ref[3]).float().mean().item()
@@ -994,7 +1392,8 @@ def main() -> int:
         conv = ref[3] == ilqr.STATUS_CONVERGED
         if not ddp:
             err["fddp"] = float(du.max())
-        log(f"f64 FDDP ddp={ddp} B=300 N=40: status equal {same_status:.4f}, iterations equal "
+        log(f"f64 FDDP ddp={ddp} B=300 N=40 ({args[4].convergence_criteria.max_iters} trips): "
+            f"status equal {same_status:.4f}, iterations equal "
             f"{same_iters:.4f}, max rel cost {float(rel.max()):.3e}, max |du| {float(du.max()):.3e}; "
             f"statuses {torch.bincount(ref[3], minlength=3).tolist()}, converged {conv.float().mean().item():.3f}; "
             f"plain loop {plain_ms:.1f} ms")
@@ -1018,9 +1417,9 @@ def main() -> int:
     check(exact and pending > 0, "the two-phase FDDP kernel solve differs from the single phase")
     # the streamed FDDP kernel: Gauss-Newton lane for lane with plain and
     # with fddp.cu, exact DDP at the DDP bar, two resumed launches = one
-    for ddp in (False, True):
+    for ddp, args in m_cases.items():
         got_w, ref = m_refs[ddp]
-        got_s = ksf.solve_fddp_streamed(*m_args, fo, ddp=ddp)
+        got_s = ksf.solve_fddp_streamed(*args, fo, ddp=ddp)
         torch.cuda.synchronize()
         ok_p, rel_p, du_p = twins(got_s, ref, 1e-8, 1e-7)
         ok_w, rel_w, du_w = twins(got_s, got_w)
@@ -1203,6 +1602,11 @@ def main() -> int:
     rows = dict(initial_mu=gn_k[4], initial_status=gn_k[3], initial_iters=gn_k[2])
     ddp_k = kf.solve_fddp_fused(*rp_args, gn_k[0], r_dt, ddp_opts, r_fo, ddp=True, return_mu=True,
                                 return_probes=True, **rows)
+    # the exact-DDP launch cut at its first C6_DDP_PLAIN_TRIPS trips, for
+    # the plain loop
+    ddp_cut = _with_max_iters(r_opts, C6_DDP_PLAIN_TRIPS)
+    ddp_kc = kf.solve_fddp_fused(*rp_args, gn_k[0], r_dt, ddp_cut, r_fo, ddp=True,
+                                 return_mu=True, return_probes=True, **rows)
     out = (r_trajs, None, None, None, None)
     for lo, hi, flag in zip(edges, edges[1:], flags):
         out = kf.solve_fddp_fused(
@@ -1230,35 +1634,39 @@ def main() -> int:
     check(abs(conv_of(gn_k) - conv_of(gn_p)) <= 0.01 and med < 1e-3,
           "f32 FDDP Gauss-Newton launch outside its bounds")
     ddp_p, plain_ddp_ms = time_once(lambda: kf.solve_fddp_whole_reference(
-        *rp_args, gn_k[0], r_dt, ddp_opts, r_fo, True, gn_k[4], gn_k[3], gn_k[2]))
+        *rp_args, gn_k[0], r_dt, ddp_cut, r_fo, True, gn_k[4], gn_k[3], gn_k[2]))
     torch.cuda.synchronize()
     live = gn_k[3] == 0
-    rel = (ddp_k[1] - ddp_p[1]).abs() / ddp_p[1].abs()
+    rel = (ddp_kc[1] - ddp_p[1]).abs() / ddp_p[1].abs()
     med = float(rel[live].median())
-    conv_live = [float((r[3][live] == ilqr.STATUS_CONVERGED).float().mean()) for r in (ddp_k, ddp_p)]
-    log(f"f32 FDDP exact-DDP launch (trips {switch}-40, resumed; {int(live.sum())} lanes pending "
-        f"at the switch) vs plain loop on the same rows: converged {conv_of(ddp_k):.4f} vs "
-        f"{conv_of(ddp_p):.4f} (within 0.01; of the pending lanes {conv_live[0]:.4f} vs "
-        f"{conv_live[1]:.4f}), status agreement of the pending lanes "
-        f"{float((ddp_k[3][live] == ddp_p[3][live]).float().mean()):.4f}, their median rel cost "
-        f"diff {med:.3e} (< 1e-3), mean iterations {float(ddp_k[2].float().mean()):.3f} vs "
+    conv_live = [float((r[3][live] == ilqr.STATUS_CONVERGED).float().mean())
+                 for r in (ddp_kc, ddp_p)]
+    log(f"f32 FDDP exact-DDP launch (its trips {switch}-{switch + C6_DDP_PLAIN_TRIPS}, resumed; "
+        f"{int(live.sum())} lanes pending at the switch) vs plain loop on the same rows: converged "
+        f"{conv_of(ddp_kc):.4f} vs {conv_of(ddp_p):.4f} (within 0.01; of the pending lanes "
+        f"{conv_live[0]:.4f} vs {conv_live[1]:.4f}), status agreement of the pending lanes "
+        f"{float((ddp_kc[3][live] == ddp_p[3][live]).float().mean()):.4f}, their median rel cost "
+        f"diff {med:.3e} (< 1e-3), mean iterations {float(ddp_kc[2].float().mean()):.3f} vs "
         f"{float(ddp_p[2].float().mean()):.3f}")
-    check(int(live.sum()) > 0 and abs(conv_of(ddp_k) - conv_of(ddp_p)) <= 0.01 and med < 1e-3,
+    check(int(live.sum()) > 0 and abs(conv_of(ddp_kc) - conv_of(ddp_p)) <= 0.01 and med < 1e-3,
           "f32 FDDP exact-DDP launch outside its bounds")
     # what the two launches ran, for the bound: trips, probe sweeps, defect trips
     work_gn = (int(gn_k[2].sum()), float(gn_k[5].sum()), int(gn_k[6].sum()))
-    work_ddp = (int((ddp_k[2] - gn_k[2]).sum()), float(ddp_k[5].sum()), int(ddp_k[6].sum()))
+    work_ddp, work_ddp_cut = (
+        (int((k[2] - gn_k[2]).sum()), float(k[5].sum()), int(k[6].sum())) for k in (ddp_k, ddp_kc)
+    )
     log(f"the FDDP launches ran (trips, probe sweeps, defect trips): Gauss-Newton {work_gn}, "
         f"exact DDP {work_ddp}")
     # the streamed FDDP kernel on the same two launches, inputs and resume
     # rows, against the same plain results
     gn_s = ksf.solve_fddp_streamed(*rp_args, r_trajs, r_dt, gn_opts, r_fo, return_mu=True,
                                    return_probes=True)
+    ddp_sc = ksf.solve_fddp_streamed(*rp_args, gn_k[0], r_dt, ddp_cut, r_fo, ddp=True, **rows)
     ddp_s = ksf.solve_fddp_streamed(*rp_args, gn_k[0], r_dt, ddp_opts, r_fo, ddp=True,
                                     return_mu=True, return_probes=True, **rows)
     torch.cuda.synchronize()
     for name, k_out, p_out, w_out, lanes in (
-        ("Gauss-Newton", gn_s, gn_p, gn_k, torch.ones_like(live)), ("exact-DDP", ddp_s, ddp_p, ddp_k, live)
+        ("Gauss-Newton", gn_s, gn_p, gn_k, torch.ones_like(live)), ("exact-DDP", ddp_sc, ddp_p, ddp_kc, live)
     ):
         finite = bool(torch.isfinite(k_out[1]).all() and torch.isfinite(k_out[0].controls).all())
         med = float(((k_out[1] - p_out[1]).abs() / p_out[1].abs())[lanes].median())
@@ -1635,7 +2043,11 @@ def main() -> int:
     ms["fddp_gn"] = time_ms(lambda: kf.solve_fddp_fused(*rp_args, r_trajs, r_dt, gn_opts, r_fo))
     ms["fddp_ddp"] = time_ms(lambda: kf.solve_fddp_fused(
         *rp_args, gn_k[0], r_dt, ddp_opts, r_fo, ddp=True, **rows))
-    per_kernel["fddp"] = (ms["fddp_gn"] + ms["fddp_ddp"], plain_gn_ms + plain_ddp_ms)
+    # held against plain: the Gauss-Newton launch and the exact-DDP one cut
+    # at the plain loop's trips (the two whole launches in `full_width`)
+    ms["fddp_ddp_cut"] = time_ms(lambda: kf.solve_fddp_fused(
+        *rp_args, gn_k[0], r_dt, ddp_cut, r_fo, ddp=True, **rows))
+    per_kernel["fddp"] = (ms["fddp_gn"] + ms["fddp_ddp_cut"], plain_gn_ms + plain_ddp_ms)
     # the streamed kernels on the main path's inputs, in the calls held
     # against their plain versions: the first LONG_PLAIN_TRIPS trips at
     # N=1024 and N=512
@@ -1646,8 +2058,9 @@ def main() -> int:
         b_, n_ = shapes.get(name, (batch, horizon))
         log(f"{name} kernel: {k_ms:.3f} ms, plain {p_ms:.3f} ms (B={b_}, N={n_}, f32) {card}")
     log(f"fddp launches: Gauss-Newton trips 0-{switch} {ms['fddp_gn']:.3f} ms (plain "
-        f"{plain_gn_ms:.3f} ms), exact DDP trips {switch}-40 {ms['fddp_ddp']:.3f} ms (plain "
-        f"{plain_ddp_ms:.3f} ms) {card}")
+        f"{plain_gn_ms:.3f} ms), exact DDP trips {switch}-40 {ms['fddp_ddp']:.3f} ms, its first "
+        f"{C6_DDP_PLAIN_TRIPS} trips {ms['fddp_ddp_cut']:.3f} ms (plain {plain_ddp_ms:.3f} ms) "
+        f"{card}")
     # the streamed kernels beside their twins at the twins' shapes
     ms["stream_bench"] = time_ms(lambda: kst.solve_fused_streamed(*solve_args))
     ms["stream_fddp_gn"] = time_ms(
@@ -1721,6 +2134,7 @@ def main() -> int:
     # the long-horizon paths at full width, each beside its whole-solve twin
     # on the same inputs
     full = {
+        "fddp": (ms["fddp_gn"] + ms["fddp_ddp"], ms["stream_fddp_gn"] + ms["stream_fddp_ddp"], r_n),
         "stream": (time_ms(lambda: long_api.solve_batch(lh_trajs, latency=True)),
                    time_ms(lambda: ks.solve_fused_whole(*lh_args)), lh_n),
         "stream_fddp": (time_ms(lambda: robust_long.solve_batch(rl_trajs)),
@@ -1739,6 +2153,12 @@ def main() -> int:
         launch_ms=launch_ms, reset_counts=reset_counts, counts=counts,
     ))
     mpc_numbers = variants.pop("_mpc")
+
+    # ---- 6c. the wider-control model families ----
+    families = families_phase(SimpleNamespace(
+        dev=dev, card=card, log=log, check=check, time_once=time_once, time_ms=time_ms,
+        launch_ms=launch_ms, reset_counts=reset_counts, family_counts=family_counts,
+    ))
 
     # ---- 7. bounds: the work this run's inputs needed ----
     f = FLOPS
@@ -1776,11 +2196,12 @@ def main() -> int:
         "rollout": (stage * f["rollout"], (17 + 52 + 17) * stage * word + 2 * batch * word),
         "solve": ((solve_work[0] * f["riccati"] + solve_work[1] * f["rollout"]) * horizon,
                   2 * 17 * stage * word + 3 * batch * word),
-        "fddp": fddp_work(r_n, r_batch, [work_gn + (0,), work_ddp + (0,)], 6),
+        "fddp": fddp_work(r_n, r_batch, [work_gn + (0,), work_ddp_cut + (0,)], 6),
         "stream": stream_work(lh_n, lh_batch, *long_plain_work),
         "stream_fddp": fddp_work(rl_n, lh_batch, rl_plain_work, 7),
     }
     full_work = {
+        "fddp": fddp_work(r_n, r_batch, [work_gn + (0,), work_ddp + (0,)], 6),
         "stream": stream_work(lh_n, lh_batch, *long_work),
         "stream_fddp": fddp_work(rl_n, lh_batch, long_fddp_work, 7),
     }
@@ -1806,6 +2227,11 @@ def main() -> int:
             f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB -> {b_ms:.5f} ms ({b_by}); measured "
             f"{v['ms']:.4f} ms")
     log(f"config 4 numbers: {json.dumps(mpc_numbers)}")
+    family_bounds = {name: bound(*v["work"]) for name, v in families.items()}
+    for name, v in families.items():
+        (flops, nbytes), (b_ms, b_by) = v["work"], family_bounds[name]
+        log(f"{name} bound ({v['shape']}): {flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB -> "
+            f"{b_ms:.5f} ms ({b_by}); measured {v['ms']:.4f} ms")
 
     pkg = "quadrotorilqr_tpu_torch/kernels/csrc"
     replaces = {
@@ -1821,9 +2247,9 @@ def main() -> int:
     launches["stream_fddp"] = rl_launches["stream_fddp"]
     # no single PyTorch call computes a Riccati sweep, a closed-loop rollout
     # or a whole solve, so there is no library time to set beside them. ms,
-    # plain_ms and bound_ms share their inputs and work: for the streamed
-    # kernels the main path's calls held against plain (above), with the
-    # whole path's time and bound beside them in `full_width`
+    # plain_ms and bound_ms share their inputs and work: for fddp.cu and the
+    # streamed kernels the main path's calls held against plain (above),
+    # with the whole path's time and bound beside them in `full_width`
     kernels = [
         {
             "name": name, "route": "cuda", "source": f"{pkg}/{name}.cu",
@@ -1850,6 +2276,10 @@ def main() -> int:
         k_ms, w_ms, n_ = full[k["name"]]
         k["full_width"] = {"B": lh_batch, "N": n_, "ms": k_ms, "whole_twin_ms": w_ms,
                            "bound_ms": full_bounds[k["name"]][0]}
+    # fddp.cu: the main path's two whole launches, beside stream_fddp.cu's
+    k_ms, w_ms, n_ = full["fddp"]
+    kernels[3]["full_width"] = {"B": r_batch, "N": n_, "ms": k_ms, "streamed_twin_ms": w_ms,
+                                "bound_ms": full_bounds["fddp"][0]}
     # the box and weights instantiations of the first three, on config 4's
     # main path (the MPC loop with rotor limits and the terminal weight):
     # launches there; error (float32) and times at its shapes, beside the
@@ -1867,6 +2297,22 @@ def main() -> int:
         }
         for name, v in variants.items()
     ]
+    # the model families' instantiations of the four exact kernels, on the
+    # families' main path: launches there; times at the shapes in `shape`;
+    # error lane for lane against plain in float64 at B=300, N=40
+    lane_models = {sfx: line for sfx, _, _, line in FAMILY_CASES}
+    models = {"_wrench": "se3_wrench (u=6)", "_rotor6": "multirotor R=6", "_rotor8": "multirotor R=8"}
+    for name, v in families.items():
+        kernel, sfx = name.split("_", 1)
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{pkg}/{kernel}.cu",
+            "replaces": replaces[kernel], "launches": v["launches"], "max_abs_err": v["f64_err"],
+            "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": family_bounds[name][0],
+            "bound_by": family_bounds[name][1], "library_ms": None,
+            "model": models["_" + sfx], "lane_model": lane_models["_" + sfx],
+            "shape": v["shape"], "max_abs_err_shape": {"B": 300, "N": 40, "dtype": "float64"},
+            **{k: v[k] for k in ("per_pass_route_ms", "full_width") if k in v},
+        })
     log(f"chip_smoke took {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

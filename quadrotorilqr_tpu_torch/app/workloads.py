@@ -2,7 +2,9 @@
 and weights (BASELINE config 1), the hover-to-waypoint benchmark problem,
 the figure eight (BASELINE config 3), the MPC hover-regulation problem
 (BASELINE config 4), the long-horizon problem and the aggressive tumble
-(`quadrotorilqr_tpu/app/workloads.py`).
+(`quadrotorilqr_tpu/app/workloads.py`), and the wider-control families'
+waypoint problems: the SE(3) body wrench (`benchmarks/wrench_bench.py`) and
+the hexarotor (`__graft_entry__.py`).
 
 The deterministic trajectories are built in float64 numpy, as the JAX
 package builds them, then cast. Random draws come from an explicit
@@ -19,7 +21,9 @@ import torch
 
 from ..costs.quadratic import QuadraticTrackingCost
 from ..lie import se3
+from ..models.multirotor import MultirotorParams
 from ..models.quadrotor import QuadrotorParams, State
+from ..models.se3_wrench import WrenchParams
 from ..parallel.batch import initial_trajectory_from_state
 from ..solver.ilqr import Trajectory
 from ..solver.options import ConvergenceCriteria, ILQROptions, LineSearchParams
@@ -331,3 +335,72 @@ def mpc_hover_problem(
         limits=(0.0, 2.9),
         stage_weights=weights,
     )
+
+
+# The wider-control families' solve settings (benchmarks/wrench_bench.py:46-90):
+# tolerance 1e-6, 10 iterations, line search (0.5, 0.5, 20).
+FAMILY_OPTIONS = ILQROptions(LineSearchParams(0.5, 0.5, 20), ConvergenceCriteria(1e-6, 1e-6, 10))
+
+
+def _family_waypoint_problem(generator, params, hover, batch, n, dt_s, dtype, device):
+    """Hover at the origin from start poses Exp(0.3 N(0, I_6)) at rest, with
+    Q = diag(100 1_6, 1_6), R = I_u and the hover control `hover` (u,) at
+    every stage. Returns (params, cost, initial trajectories)."""
+    draw = lambda shape: torch.randn(
+        shape, generator=generator, dtype=dtype, device=generator.device
+    ).to(device)
+    x0 = State(pose=se3.exp(0.3 * draw((batch, 6))),
+               vel=torch.zeros((batch, 6), dtype=dtype, device=device))
+    u = len(hover)
+    desired = Trajectory(
+        times=torch.arange(n, dtype=dtype, device=device) * dt_s,
+        states=State(
+            pose=se3.identity((n,), dtype, device),
+            vel=torch.zeros((n, 6), dtype=dtype, device=device),
+        ),
+        controls=torch.as_tensor(np.tile(hover, (n, 1)), dtype=dtype, device=device),
+    )
+    cost = QuadraticTrackingCost(
+        Q=torch.diag(torch.tensor([100.0] * 6 + [1.0] * 6, dtype=dtype)).to(device),
+        R=torch.eye(u, dtype=dtype, device=device),
+        desired_states=desired.states,
+        desired_controls=desired.controls,
+    )
+    return params, cost, initial_trajectory_from_state(x0, desired)
+
+
+def wrench_problem(
+    generator: torch.Generator, batch=4096, n=100, dt_s=0.02, dtype=torch.float32, device=None
+):
+    """The SE(3) body-wrench throughput problem as
+    `benchmarks/wrench_bench.py:51-86` builds it: a 1.3 kg body with inertia
+    diag(0.4, 0.5, 0.6) + 0.03, g 9.81; hover wrench [0, 0, 1.3 g, 0, 0, 0];
+    start poses Exp(0.3 N(0, I_6)) at rest; Q = diag(100 1_6, 1_6), R = I_6;
+    solved with FAMILY_OPTIONS. The draws come from `generator` (not
+    jax.random's numbers).
+
+    Returns (params, cost, initial trajectories with (batch, n, ...) leaves)."""
+    params = WrenchParams.create(
+        1.3, torch.diag(torch.tensor([0.4, 0.5, 0.6], dtype=dtype)) + 0.03, 9.81, device=device
+    )
+    hover = np.array([0.0, 0.0, 1.3 * 9.81, 0.0, 0.0, 0.0])
+    return _family_waypoint_problem(generator, params, hover, batch, n, dt_s, dtype, device)
+
+
+def hexarotor_problem(
+    generator: torch.Generator, batch=4096, n=100, dt_s=0.02, dtype=torch.float32, device=None,
+    n_rotors=6,
+):
+    """The wrench problem's waypoint task on the hexarotor of
+    `__graft_entry__.py:268-282`: `MultirotorParams.regular(6, mass 1.5,
+    inertia diag(0.4, 0.5, 0.6) + 0.03, arm 0.3, kappa 0.02, g 9.81)`, hover
+    1.5 g / 6 per rotor, R = I_6; `n_rotors` puts another count of rotors
+    on the same ring (hover 1.5 g / R each, R = I_R).
+
+    Returns (params, cost, initial trajectories with (batch, n, ...) leaves)."""
+    params = MultirotorParams.regular(
+        n_rotors, 1.5, torch.diag(torch.tensor([0.4, 0.5, 0.6], dtype=dtype)) + 0.03, 0.3, 0.02,
+        9.81, device=device,
+    )
+    hover = np.full(n_rotors, 1.5 * 9.81 / n_rotors)
+    return _family_waypoint_problem(generator, params, hover, batch, n, dt_s, dtype, device)

@@ -1,7 +1,8 @@
 """Carry state across from the JAX package, and results back.
 
-The JAX package's containers (QuadrotorParams, QuadraticTrackingCost,
-Trajectory, State, SE3) are pytrees. Converted leaf by leaf to numpy arrays
+The JAX package's containers (QuadrotorParams, WrenchParams,
+MultirotorParams, QuadraticTrackingCost, Trajectory, State, SE3) are
+pytrees. Converted leaf by leaf to numpy arrays
 (`jax.tree.map(np.asarray, x)`), they become the port's dataclasses here.
 Fields are read by attribute name, so this module imports nothing of JAX.
 Shared and per-scenario leaves pass through with their shapes unchanged.
@@ -9,12 +10,16 @@ Shared and per-scenario leaves pass through with their shapes unchanged.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from .costs.quadratic import QuadraticTrackingCost
 from .lie.se3 import SE3
+from .models.multirotor import MultirotorParams
 from .models.quadrotor import QuadrotorParams, State
+from .models.se3_wrench import WrenchParams
 from .solver.ilqr import Trajectory
 from .tree import tree_map
 
@@ -42,14 +47,19 @@ def trajectory_from_numpy(t, dtype=None, device=None) -> Trajectory:
     )
 
 
-def params_from_numpy(p, dtype=None, device=None) -> QuadrotorParams:
-    return QuadrotorParams(
-        mass_kg=_tensor(p.mass_kg, dtype, device),
-        inertia=_tensor(p.inertia, dtype, device),
-        arm_length_m=_tensor(p.arm_length_m, dtype, device),
-        torque_to_thrust_ratio_m=_tensor(p.torque_to_thrust_ratio_m, dtype, device),
-        g_mpss=_tensor(p.g_mpss, dtype, device),
-    )
+def params_from_numpy(p, dtype=None, device=None):
+    """A model family's params, the family told by the fields `p` carries:
+    rotor positions make a MultirotorParams, an arm length a
+    QuadrotorParams, mass, inertia and gravity alone a WrenchParams."""
+    if hasattr(p, "rotor_positions_m"):
+        cls = MultirotorParams
+    elif hasattr(p, "arm_length_m"):
+        cls = QuadrotorParams
+    else:
+        cls = WrenchParams
+    return cls(**{
+        f.name: _tensor(getattr(p, f.name), dtype, device) for f in dataclasses.fields(cls)
+    })
 
 
 def cost_from_numpy(c, dtype=None, device=None) -> QuadraticTrackingCost:

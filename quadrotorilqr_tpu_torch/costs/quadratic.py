@@ -28,8 +28,9 @@ from ..models.quadrotor import State
 
 @dataclass
 class QuadraticTrackingCost:
-    """Q (..., 12, 12), R (..., 4, 4) and the stacked desired trajectory
-    (leaves (..., N, d)). Each leaf may carry a leading scenario dim."""
+    """Q (..., 12, 12), R (..., u, u) and the stacked desired trajectory
+    (leaves (..., N, d); desired controls (..., N, u)), u the model's
+    control width. Each leaf may carry a leading scenario dim."""
 
     Q: torch.Tensor
     R: torch.Tensor

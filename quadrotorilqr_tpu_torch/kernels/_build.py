@@ -1,8 +1,10 @@
 """Build the CUDA kernels and load them with ctypes.
 
 On first use, `load()` compiles every `kernels/csrc/*.cu` with nvcc for
-Hopper (`sm_90a`), one nvcc process per source, all started together, and
-links the objects into one shared library with a plain C interface, under
+Hopper (`sm_90a`): the exact kernels' sources (FAMILY_SOURCES) once per
+model family (FAMILIES: `-DQILQR_FAMILY_T`, `-DQILQR_FAMILY`,
+csrc/quadrotor.cuh), the others once, one nvcc process per object, all started together, and links
+the objects into one shared library with a plain C interface, under
 `build/torch_kernels/` at the repository root. The library's name carries a
 hash of the sources and flags, so an edited source never reuses a stale
 build. Each C entry takes packed arrays of device pointers, integers and
@@ -33,13 +35,20 @@ NVCC_FLAGS = (
     # print each kernel's registers and local-memory spills
     "-Xptxas", "-v",
 )
-ENTRIES = (
-    "qilqr_backward", "qilqr_rollout", "qilqr_solve", "qilqr_fddp", "qilqr_stream",
-    "qilqr_stream_fddp",
-)
-# the kernels built on csrc/team.cuh (every kernel), each with a
+# The model families the exact kernels are built for: the C entries' suffix
+# (kernels/models.py LaneModel.suffix; nvcc's -DQILQR_FAMILY) -> the
+# family's type in csrc/quadrotor.cuh (-DQILQR_FAMILY_T). The quadrotor's
+# entries have no suffix and need no define; a 4-rotor multirotor runs them.
+FAMILIES = {"": "Quadrotor", "_wrench": "Wrench", "_rotor6": "Multirotor<6>",
+            "_rotor8": "Multirotor<8>"}
+# the sources built once per family; the FDDP kernels are the quadrotor's alone
+FAMILY_SOURCES = ("backward", "rollout", "solve", "stream")
+# the kernels built on csrc/team.cuh (every kernel and family), each with a
 # qilqr_<name>_team_info entry
-TEAM_KERNELS = ("backward", "rollout", "solve", "fddp", "stream", "stream_fddp")
+TEAM_KERNELS = tuple(f"{k}{fam}" for k in FAMILY_SOURCES for fam in FAMILIES) + (
+    "fddp", "stream_fddp",
+)
+ENTRIES = tuple(f"qilqr_{name}" for name in TEAM_KERNELS)
 
 
 class _Library:
@@ -59,8 +68,19 @@ def _sources():
     return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
 
 
+def _objects():
+    """(source, defines, object stem) of every object the library links."""
+    out = []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        families = FAMILIES.items() if src.stem in FAMILY_SOURCES else (("", ""),)
+        out += [(src, [f"-DQILQR_FAMILY_T={t}", f"-DQILQR_FAMILY={fam}"] if fam else [],
+                 f"{src.stem}{fam}") for fam, t in families]
+    return out
+
+
 def source_digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(FAMILIES.items())).encode())
     for path in _sources():
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -116,11 +136,11 @@ def load() -> _Library:
         nvcc = _nvcc()
         t0 = time.perf_counter()
         objs, procs = [], []
-        for src in (p for p in _sources() if p.suffix == ".cu"):
-            obj = BUILD_DIR / f"{src.stem}_{os.getpid()}.o"
+        for src, defines, stem in _objects():
+            obj = BUILD_DIR / f"{stem}_{os.getpid()}.o"
             objs.append(obj)
             procs.append(subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                [nvcc, *NVCC_FLAGS, *defines, "-c", str(src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             ))
         logs = [proc.communicate()[0] for proc in procs]

@@ -4,9 +4,13 @@ Counterpart of `quadrotorilqr_tpu/kernels/backward.py:1062`
 (`backward_pass_fused` over the Pallas `_backward_kernel`). The CUDA kernel
 (`csrc/backward.cu`) runs one team of lanes of a warp per scenario
 (`csrc/team.cuh`) on the scenario-minor trajectory (N, d, B) and writes the
-gains as one (N, B, 52) k|K buffer, the layout the rollout kernel reads; the
-public function keeps the JAX signature and hands back batch-leading
-(B, N, ...) views of it (`gains_views`).
+gains as one (N, B, P) k|K buffer, the layout the rollout kernel reads (P:
+the lane model's `gains_pitch`, 52 for the quadrotor's u = 4); the public
+function keeps the JAX signature and hands back batch-leading (B, N, ...)
+views of it (`gains_views`). The model family comes from the params type
+or `model=` (`kernels.models.lane_model_for`): the wrench and the 6- and
+8-rotor multirotors run their own instantiations of the kernel, without
+the box and weights variants.
 
 `backward_pass_fused` launches the kernel for CUDA tensors and takes the
 plain version, `backward_pass_reference`, only for CPU tensors.
@@ -26,20 +30,17 @@ JAX `_prep_limits`, `kernels/backward.py:1039-1060`) and the gains layout
 
 from __future__ import annotations
 
+import collections
 import typing
 
 import torch
 
 from ..costs import quadratic as qc
 from ..lie.se3 import SE3
-from ..models.quadrotor import CONTROL_DIM, State
+from ..models.quadrotor import State
 from ..solver import constrained, ilqr
 from . import _build
-from .models import prep_params
-
-
-# a row of the gains buffer: k (4), then K (4 x 12) row-major
-GAINS_WIDTH = CONTROL_DIM + CONTROL_DIM * 12
+from .models import QUADROTOR, LaneModel, lane_model_for
 
 
 class CostBatched(typing.NamedTuple):
@@ -102,13 +103,15 @@ def _prep_cost(cost, batch, dtype, device):
 class Operands(typing.NamedTuple):
     """Packed kernel arguments; `tensors` keeps the device buffers alive.
     `variant` holds the box and weights variants' (tensors, ptrs, ints),
-    which go after the kernel's own operands."""
+    which go after the kernel's own operands; `lm` is the model family's
+    lane model, which names the kernel instantiation."""
 
     tensors: list
     ptrs: list
     ints: list
     reals: list
     variant: tuple = ((), (), ())
+    lm: LaneModel = QUADROTOR
 
     def extend(self, tensors=(), ints=(), reals=()):
         """Append kernel-specific operands (None for a null pointer), then
@@ -119,10 +122,15 @@ class Operands(typing.NamedTuple):
             self.ptrs + [0 if t is None else t.data_ptr() for t in tensors] + list(v_ptrs),
             self.ints + list(ints) + list(v_ints),
             self.reals + [float(r) for r in reals],
+            lm=self.lm,
         )
 
+    def entry(self, kernel):
+        """The C entry of `kernel` ("backward", ...) for the model family."""
+        return f"qilqr_{kernel}{self.lm.suffix}"
 
-def _variant_operands(cost, limits, batch, n, dtype, device):
+
+def _variant_operands(cost, limits, batch, n, dtype, device, u_dim):
     """The box and weights variants' operands in csrc/team.cuh's packed
     order (`variant_from`): (tensors, ptrs lo hi w, ints s_box s_w). The
     bounds are (4,) shared or (4, B) per scenario (`constrained.prep_limits`
@@ -131,7 +139,7 @@ def _variant_operands(cost, limits, batch, n, dtype, device):
     lo = hi = w = None
     s_box = s_w = 0
     if limits is not None:
-        lo, hi = constrained.prep_limits(limits, batch, dtype, device)
+        lo, hi = constrained.prep_limits(limits, batch, dtype, device, u_dim)
         s_box = int(lo.ndim == 2)
         if s_box:
             lo, hi = lo.t().contiguous(), hi.t().contiguous()
@@ -150,46 +158,58 @@ def _variant_operands(cost, limits, batch, n, dtype, device):
 
 
 def _problem_operands(
-    params, cost, batch, n, dt_s, dtype, device, limits=None, variants=False
+    params, cost, batch, n, dt_s, dtype, device, limits=None, variants=False, model=None
 ) -> Operands:
     """The operands every kernel reads, in csrc/quadrotor.cuh's order:
-    ptrs dq dtr dv du Q R g minv ju iinv_ma inertia inertia_inv;
-    ints B N s_des s_qr s_par; reals dt. With `variants` (the kernels that
-    have box and weights variants: backward, rollout, solve) also the
-    variants' operands for `limits` and the cost's stage weights; the other
-    kernels refuse both before they get here."""
-    if not variants and (limits is not None or cost.stage_weights is not None):
-        raise NotImplementedError("this kernel has no box or weights variant")
-    if n * CONTROL_DIM * 12 * batch >= 2**31:
+    ptrs dq dtr dv du Q R g minv ju iinv_ma inertia inertia_inv (iinv_ma
+    null for the wrench); ints B N s_des s_qr s_par; reals dt; and the
+    model family's lane model (`lane_model_for(params, model)`). With
+    `variants` (the kernels that have box and weights variants: backward,
+    rollout, solve) also the variants' operands for `limits` and the cost's
+    stage weights; the other kernels refuse both before they get here.
+    Only the quadrotor kernels have those variants: with another family
+    limits and weights raise, as does a rotor count without kernels."""
+    lm = lane_model_for(params, model)
+    if lm.suffix is None:
+        raise NotImplementedError(ilqr.FAMILY_ROTORS_TODO)
+    if limits is not None or cost.stage_weights is not None:
+        if not variants:
+            raise NotImplementedError("this kernel has no box or weights variant")
+        if lm.suffix:
+            raise NotImplementedError(ilqr.FAMILY_VARIANTS_TODO)
+    if n * lm.gains_pitch() * batch >= 2**31:
         raise ValueError(f"B={batch} x N={n} overflows the kernels' 32-bit buffer offsets")
     *cost_ops, cb = _prep_cost(cost, batch, dtype, device)
-    *param_ops, params_batched = prep_params(params, dt_s, dtype, device)
-    cores = ((n, 4), (n, 3), (n, 6), (n, CONTROL_DIM), (12, 12), (CONTROL_DIM, CONTROL_DIM))
+    *param_ops, params_batched = lm.prep(params, dt_s, dtype, device)
+    u = lm.u_dim
+    cores = ((n, 4), (n, 3), (n, 6), (n, u), (12, 12), (u, u))
     for op, core, batched in zip(cost_ops, cores, (cb.des,) * 4 + (cb.qr,) * 2):
         if tuple(op.shape) != core + (batch if batched else 1,):
             raise ValueError(f"cost operand of shape {tuple(op.shape)}, expected {core} by lanes")
     for op in param_ops:
-        if op.shape[-1] != (batch if params_batched else 1):
+        if op is not None and op.shape[-1] != (batch if params_batched else 1):
             raise ValueError(f"params carry {op.shape[-1]} scenarios, the batch {batch}")
     tensors = cost_ops + param_ops
     return Operands(
-        tensors,
-        [t.data_ptr() for t in tensors],
+        [t for t in tensors if t is not None],
+        [0 if t is None else t.data_ptr() for t in tensors],
         [batch, n, int(cb.des), int(cb.qr), int(params_batched)],
         [float(dt_s)],
-        _variant_operands(cost, limits, batch, n, dtype, device) if variants else ((), (), ()),
+        _variant_operands(cost, limits, batch, n, dtype, device, lm.u_dim) if variants else ((), (), ()),
+        lm,
     )
 
 
-def _traj_lanes(traj, dtype, device):
-    """(q, t, v, u) of a (B, N, ...) trajectory in the (N, d, B) layout."""
+def _traj_lanes(traj, dtype, device, u_dim):
+    """(q, t, v, u) of a (B, N, ...) trajectory in the (N, d, B) layout,
+    its controls u_dim wide."""
     s = traj.states
     batch, n = traj.controls.shape[:2]
     lanes = [
         _to_lanes(a, dtype, device)
         for a in (s.pose.quat, s.pose.trans, s.vel, traj.controls)
     ]
-    for a, d in zip(lanes, (4, 3, 6, CONTROL_DIM)):
+    for a, d in zip(lanes, (4, 3, 6, u_dim)):
         if tuple(a.shape) != (n, d, batch):
             raise ValueError(f"trajectory leaf of lane shape {tuple(a.shape)}, expected {(n, d, batch)}")
     return lanes
@@ -201,29 +221,38 @@ def _traj_from_lanes(times, q, t, v, u):
     return ilqr.Trajectory(times=times, states=State(pose=SE3(quat=q, trans=t), vel=v), controls=u)
 
 
-def gains_views(gains):
-    """(ks (B, N, 4), Ks (B, N, 4, 12)): views of a (N, B, 52) k|K buffer."""
-    ks = gains[..., :CONTROL_DIM].transpose(0, 1)
-    big_ks = gains[..., CONTROL_DIM:].unflatten(-1, (CONTROL_DIM, 12)).transpose(0, 1)
+def gains_views(gains, u_dim):
+    """(ks (B, N, u), Ks (B, N, u, 12)): views of a (N, B, P) k|K buffer
+    (k first, then K row-major, then the row's padding up to P)."""
+    ks = gains[..., :u_dim].transpose(0, 1)
+    big_ks = gains[..., u_dim:13 * u_dim].unflatten(-1, (u_dim, 12)).transpose(0, 1)
     return ks, big_ks
 
 
-def gains_buffer(ks, big_ks, dtype, device):
-    """The (N, B, 52) k|K buffer of (B, N, 4) / (B, N, 4, 12) gains: the
+def gains_buffer(ks, big_ks, dtype, device, pitch):
+    """The (N, B, pitch) k|K buffer of (B, N, u) / (B, N, u, 12) gains: the
     buffer itself, without a copy, when they are `gains_views` of one (as
     `backward_pass_fused` returns them); else the gains packed into a new
-    one."""
-    batch, n = ks.shape[:2]
-    w = GAINS_WIDTH
+    one, its padding zero."""
+    batch, n, u = ks.shape
+    w = pitch
     if (
         ks.dtype == big_ks.dtype == dtype and ks.device == big_ks.device == device
         and ks.stride() == (w, w * batch, 1) and big_ks.stride() == (w, w * batch, 12, 1)
-        and big_ks.data_ptr() == ks.data_ptr() + CONTROL_DIM * ks.element_size()
+        and big_ks.data_ptr() == ks.data_ptr() + u * ks.element_size()
         and ks.data_ptr() % 16 == 0  # the kernels fetch a row in 16-byte chunks
     ):
         return ks.as_strided((n, batch, w), (w * batch, w, 1))
-    packed = torch.cat([_on(ks, dtype, device), _on(big_ks, dtype, device).flatten(-2)], -1)
+    pad = torch.zeros((batch, n, w - 13 * u), dtype=dtype, device=device)
+    packed = torch.cat([_on(ks, dtype, device), _on(big_ks, dtype, device).flatten(-2), pad], -1)
     return packed.transpose(0, 1).contiguous()
+
+
+def count_launch(wrapper, suffix=""):
+    """One launch of `wrapper`'s kernel: each wrapper counts its launches per
+    model family, by the C entries' suffix ("" for the quadrotor), in its
+    Counter `launches`."""
+    wrapper.launches[suffix] += 1
 
 
 def _active_lanes(active, batch, device):
@@ -234,34 +263,39 @@ def _active_lanes(active, batch, device):
     return active.to(torch.bool).contiguous()
 
 
-def backward_pass_reference(params, cost, traj, dt_s, quu_reg=0.0, limits=None):
+def backward_pass_reference(params, cost, traj, dt_s, quu_reg=0.0, limits=None, model=None):
     """Plain PyTorch version: the batched `solver.ilqr.backward_pass`, or
     with limits `solver.constrained.backward_pass_box` (the stage weights
-    ride the cost in both)."""
+    ride the cost in both), on the params' model family (or `model`)."""
     if limits is None:
-        return ilqr.backward_pass(params, cost, traj, dt_s, quu_reg)
+        return ilqr.backward_pass(params, cost, traj, dt_s, quu_reg, model=model)
     controls = traj.controls
-    box = constrained.prep_limits(limits, controls.shape[0], controls.dtype, controls.device)
-    return constrained.backward_pass_box(params, cost, traj, dt_s, box, quu_reg)
+    box = constrained.prep_limits(
+        limits, controls.shape[0], controls.dtype, controls.device, controls.shape[-1]
+    )
+    return constrained.backward_pass_box(params, cost, traj, dt_s, box, quu_reg, model)
 
 
-def backward_pass_fused(params, cost, traj, dt_s, quu_reg=0.0, active=None, limits=None):
+def backward_pass_fused(params, cost, traj, dt_s, quu_reg=0.0, active=None, limits=None,
+                        model=None):
     """Batched backward pass over (B, N, ...) trajectories.
 
-    Params and cost leaves may be shared or carry a leading B. `active` (B,)
-    bool marks the lanes whose outputs the caller reads (None: all); the
-    kernel skips the others and leaves their outputs unset. `limits=(lo,
-    hi)` (scalars, (4,) or (B, 4) each) takes the box-QP gains; stage
-    weights come with the cost.
-    Returns (ks (B, N, 4), Ks (B, N, 4, 12), QuTk (B,), kTQuuk (B,)); on the
-    card ks and Ks are views of one (N, B, 52) buffer (`gains_views`)."""
+    Params and cost leaves may be shared or carry a leading B; the model
+    family is the params' (or `model=`). `active` (B,) bool marks the lanes
+    whose outputs the caller reads (None: all); the kernel skips the others
+    and leaves their outputs unset. `limits=(lo, hi)` (scalars, (4,) or
+    (B, 4) each) takes the box-QP gains; stage weights come with the cost.
+    Returns (ks (B, N, u), Ks (B, N, u, 12), QuTk (B,), kTQuuk (B,)); on the
+    card ks and Ks are views of one (N, B, P) buffer (`gains_views`)."""
     controls = traj.controls
     device = controls.device
     if device.type == "cpu":
-        return backward_pass_reference(params, cost, traj, dt_s, quu_reg, limits)
+        return backward_pass_reference(params, cost, traj, dt_s, quu_reg, limits, model)
     _check_cuda(device)
     batch, n = controls.shape[0], controls.shape[1]
-    ops = _problem_operands(params, cost, batch, n, dt_s, controls.dtype, device, limits, True)
+    ops = _problem_operands(
+        params, cost, batch, n, dt_s, controls.dtype, device, limits, True, model
+    )
     return _launch(ops, traj, quu_reg, active)
 
 
@@ -271,15 +305,16 @@ def _launch(ops, traj, quu_reg, active):
     controls = traj.controls
     dtype, device = controls.dtype, controls.device
     batch, n = controls.shape[0], controls.shape[1]
-    gains = torch.empty((n, batch, GAINS_WIDTH), dtype=dtype, device=device)
+    u = ops.lm.u_dim
+    gains = torch.empty((n, batch, ops.lm.gains_pitch()), dtype=dtype, device=device)
     red = torch.empty((2, batch), dtype=dtype, device=device)
     ops = ops.extend(
-        [*_traj_lanes(traj, dtype, device), _active_lanes(active, batch, device), gains, red],
+        [*_traj_lanes(traj, dtype, device, u), _active_lanes(active, batch, device), gains, red],
         reals=[quu_reg],
     )
-    _build.launch("qilqr_backward", dtype, ops.ptrs, ops.ints, ops.reals, device)
-    backward_pass_fused.launches += 1
-    return (*gains_views(gains), red[0], red[1])
+    _build.launch(ops.entry("backward"), dtype, ops.ptrs, ops.ints, ops.reals, device)
+    count_launch(backward_pass_fused, ops.lm.suffix)
+    return (*gains_views(gains, u), red[0], red[1])
 
 
-backward_pass_fused.launches = 0
+backward_pass_fused.launches = collections.Counter()

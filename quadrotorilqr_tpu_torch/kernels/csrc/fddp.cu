@@ -73,7 +73,7 @@ struct FddpIO {
   T* mu;              // out (B,)
   T* probes;          // out (B,): stages the probes ran / N
   int* defect_trips;  // out (B,): trips whose reverse sweep computed the defects
-  T* gains;           // scratch (N, B, 52): k | K
+  T* gains;           // scratch (N, B, 52): k | K (the quadrotor's row)
   Traj<T> best;       // scratch (N, d, B): the line search's candidate
   T* d;               // scratch (N, B, 12): the defects
   FddpKnobs<T> k;
@@ -81,7 +81,7 @@ struct FddpIO {
 
 template <typename T, bool kDdp>
 __global__ void __launch_bounds__(kTeamThreads) fddp_kernel(Problem<T> P, FddpIO<T> io) {
-  Team<T> tm;
+  Team<T, Quadrotor> tm;
   if (!team_setup(P, &tm)) return;
   const int b = tm.b, N = P.N;
   team_copy_traj(tm, P, io.x0, io.live);
@@ -152,12 +152,16 @@ int launch_fddp(const void* const* ptrs, const long long* ints, const double* re
   io.d = static_cast<T*>(out(21));
   io.defect_trips = static_cast<int*>(out(22));
   io.k = fddp_knobs<T>(ints + kProblemInts, reals + kProblemReals);
-  const size_t smem = team_block_bytes<T>(P.s_qr, P.s_par);
+  const size_t smem = team_block_bytes<T, Quadrotor>(P.s_qr, P.s_par);
   if (io.k.ddp) return team_launch(fddp_kernel<T, true>, P.B, smem, stream, P, io);
   return team_launch(fddp_kernel<T, false>, P.B, smem, stream, P, io);
 }
 
 }  // namespace qilqr
+
+extern "C" const char* qilqr_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
 
 extern "C" int qilqr_fddp_f32(const void* const* ptrs, const long long* ints,
                               const double* reals, void* stream) {
@@ -170,5 +174,5 @@ extern "C" int qilqr_fddp_f64(const void* const* ptrs, const long long* ints,
 }
 
 extern "C" int qilqr_fddp_team_info(int f64, int s_qr, int s_par, long long* out) {
-  return qilqr::team_info(f64, s_qr, s_par, out);
+  return qilqr::team_info<qilqr::Quadrotor>(f64, s_qr, s_par, out);
 }

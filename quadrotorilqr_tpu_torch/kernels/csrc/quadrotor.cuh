@@ -1,8 +1,8 @@
-// The kernels' operands and the serial pieces of the quadrotor model, per
-// thread.
+// The kernels' operands, the model families, and the serial pieces of the
+// models, per thread.
 //
-// Counterpart of quadrotorilqr_tpu/kernels/models.py (the quadrotor
-// LaneModel), kernels/rollout.py (_dynamics_step, _state_minus) and
+// Counterpart of quadrotorilqr_tpu/kernels/models.py (the quadrotor, wrench
+// and multirotor LaneModels), kernels/rollout.py (_dynamics_step, _state_minus) and
 // kernels/backward.py (_stage_jx_blocks, _ad_cot_lanes; without the
 // box/weights/drag/substep/penalty options), and the scalar trip logic of
 // solve.py (_trip_close) and fddp.py (the FDDP options). team.cuh builds
@@ -20,6 +20,52 @@
 
 namespace qilqr {
 
+// ---- the model families (kernels/models.py's lane models) ----
+//
+// Every family is an SE(3) rigid body with an affine control-to-acceleration
+// map, so the discrete dynamics Jacobian j_x has the same blocks for each
+// (stage_jx_blocks). A family differs in its control width kNu, the first
+// nonzero row kJuLo of its stage-constant control Jacobian j_u = dt j_cont_u
+// (the Riccati contractions run over rows kJuLo:12 only: the rows above are
+// structural zeros) and its dynamics step (dynamics_step). A kernel source is
+// compiled once per family (kernels/_build.py FAMILIES, the macros
+// QILQR_FAMILY_T and QILQR_FAMILY); the host functions carry the family as a template argument,
+// so that the families' objects link into one library.
+template <int NU, int JU_LO, bool WRENCH>
+struct ModelFamily {
+  static constexpr int kNu = NU;
+  static constexpr int kJuLo = JU_LO;
+  static constexpr bool kWrench = WRENCH;  // body-wrench control: no moment map
+  static constexpr int kStage = 13 + NU;   // a trajectory stage: q(4) t(3) v(6) u(NU)
+  // a k|K row, k (NU) then K (NU x 12) row-major, padded to whole 16-byte
+  // chunks in float32 and float64: 52 values at u = 4, 80 at 6, 104 at 8
+  static constexpr int kGainsPitch = (13 * NU + 3) / 4 * 4;
+};
+
+// 4 rotor thrusts, j_u rows 8:12 (the only family with the box, weights and
+// record instantiations)
+struct Quadrotor : ModelFamily<4, 8, false> {};
+// the fully actuated SE(3) body wrench u = [f_body, tau_body]: j_u rows 6:9
+// (dt/m) I3 into the force columns, rows 9:12 dt I^-1 into the torque ones
+struct Wrench : ModelFamily<6, 6, true> {};
+// R rotor thrusts on any airframe: j_u rows 8:12, as the quadrotor (R = 4 is
+// the quadrotor and runs its kernels)
+template <int R>
+struct Multirotor : ModelFamily<R, 8, false> {};
+
+// The family a kernel source is compiled for: kernels/_build.py FAMILIES
+// defines its type QILQR_FAMILY_T and the suffix QILQR_FAMILY of its C
+// entries (QILQR_ENTRY: qilqr_backward_f32, qilqr_backward_wrench_f32, ...);
+// without them, the quadrotor.
+#ifndef QILQR_FAMILY_T
+#define QILQR_FAMILY_T Quadrotor
+#define QILQR_FAMILY
+#endif
+using Family = QILQR_FAMILY_T;
+#define QILQR_ENTRY__(kernel, family, suffix) qilqr_##kernel##family##_##suffix
+#define QILQR_ENTRY_(kernel, family, suffix) QILQR_ENTRY__(kernel, family, suffix)
+#define QILQR_ENTRY(kernel, suffix) QILQR_ENTRY_(kernel, QILQR_FAMILY, suffix)
+
 // Operand pointers that every kernel reads: the cost and the model.
 // Order of the packed pointer / int / real arrays the host passes (see
 // kernels/backward.py _problem_operands):
@@ -32,11 +78,11 @@ constexpr int kProblemReals = 1;
 
 template <typename T>
 struct Problem {
-  const T *dq, *dtr, *dv, *du;  // desired (N, d, B or 1)
-  const T *Q, *R;               // (12, 12, .), (4, 4, .)
+  const T *dq, *dtr, *dv, *du;  // desired (N, d, B or 1), du (N, u, .)
+  const T *Q, *R;               // (12, 12, .), (u, u, .)
   const T *g, *minv;            // (.)
-  const T *ju;                  // (12, 4, .) discrete control Jacobian dt * j_cont_u
-  const T *iinv_ma;             // (3, 4, .) I^-1 @ moment_arms
+  const T *ju;                  // (12, u, .) discrete control Jacobian dt * j_cont_u
+  const T *iinv_ma;             // (3, u, .) I^-1 @ the moment map; null for the wrench
   const T *inertia, *inertia_inv;  // (3, 3, .)
   int B, N, s_des, s_qr, s_par;
   T dt;
@@ -112,31 +158,47 @@ __device__ __forceinline__ void state_minus(const T* q1, const T* t1, const T* v
   for (int i = 0; i < 6; ++i) dx[6 + i] = v1[i] - v2[i];
 }
 
-// One Lie-Euler step (rollout.py _dynamics_step): updates q, t, v in place.
-template <typename T>
+// One Lie-Euler step of family M (rollout.py _dynamics_step, JAX
+// kernels/models.py _quadrotor_dynamics_step / _wrench_dynamics_step):
+// updates q, t, v in place. The rotor families: thrust sum(u) / m along body
+// z, angular I^-1 MA u - I^-1 (w x I w). The wrench (kernels/models.py
+// :164-187): linear -g R^T e_z + f / m, angular I^-1 (tau - w x I w).
+template <class M, typename T>
 __device__ __forceinline__ void dynamics_step(const Problem<T>& P, int b, T* q, T* t, T* v,
                                               const T* u) {
+  constexpr int NU = M::kNu;
   const T dt = P.dt;
   const T ez[3] = {T(0), T(0), T(1)};
   T qc[4], rtez[3];
   quat_conjugate(q, qc);
   quat_rotate(qc, ez, rtez);
   T g = P.par(P.g, 0, b);
-  T thrust = (u[0] + u[1] + u[2] + u[3]) * P.par(P.minv, 0, b);
+  const T minv = P.par(P.minv, 0, b);
   T acc[6];
-  for (int i = 0; i < 3; ++i) acc[i] = -g * rtez[i] + thrust * ez[i];
-  T I[9], Iinv[9], ima[12];
+  T I[9], Iinv[9];
   for (int i = 0; i < 9; ++i) {
     I[i] = P.par(P.inertia, i, b);
     Iinv[i] = P.par(P.inertia_inv, i, b);
   }
-  for (int i = 0; i < 12; ++i) ima[i] = P.par(P.iinv_ma, i, b);
-  T iom[3], c[3], a1[3], a2[3];
+  T iom[3], c[3];
   matvec<3, 3>(I, v + 3, iom);
   cross(v + 3, iom, c);
-  matvec<3, 4>(ima, u, a1);
-  matvec<3, 3>(Iinv, c, a2);
-  for (int i = 0; i < 3; ++i) acc[3 + i] = a1[i] - a2[i];
+  if constexpr (M::kWrench) {
+    for (int i = 0; i < 3; ++i) acc[i] = -g * rtez[i] + minv * u[i];
+    T tq[3];
+    for (int i = 0; i < 3; ++i) tq[i] = u[3 + i] - c[i];
+    matvec<3, 3>(Iinv, tq, acc + 3);
+  } else {
+    T usum = u[0];
+    for (int i = 1; i < NU; ++i) usum = usum + u[i];
+    T thrust = usum * minv;
+    for (int i = 0; i < 3; ++i) acc[i] = -g * rtez[i] + thrust * ez[i];
+    T ima[3 * NU], a1[3], a2[3];
+    for (int i = 0; i < 3 * NU; ++i) ima[i] = P.par(P.iinv_ma, i, b);
+    matvec<3, NU>(ima, u, a1);
+    matvec<3, 3>(Iinv, c, a2);
+    for (int i = 0; i < 3; ++i) acc[3 + i] = a1[i] - a2[i];
+  }
   T tau[6], qe[4], te[3], qn[4], tn[3];
   for (int i = 0; i < 6; ++i) tau[i] = dt * v[i];
   se3_exp(tau, qe, te);

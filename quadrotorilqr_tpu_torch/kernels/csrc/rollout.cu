@@ -8,7 +8,7 @@
 //     J      += (x_n (-) x_d,n)' Q (.) + (u_n - u_d,n)' R (.)
 // with a per-scenario step alpha. The cost accumulates stage by stage as
 // (J + dx'Q dx) + du'R du, the TPU kernel's order. The gains come as the
-// backward kernel writes them, k|K (N, B, 52).
+// backward kernel writes them, k|K (N, B, P).
 //
 // What bounds it on an H100: the dependent chain of one scenario's stages
 // (two SE(3) logs, an exp and the dynamics step, ~1.2k operations a stage,
@@ -28,6 +28,10 @@
 // team_rollout's (kBox, kW) instantiations, picked when the bounds or the
 // weights are passed: u_n clamped into [lo, hi], the cost summed as
 // J + w_n (dx'Q dx + du'R du).
+//
+// The model families: compiled once per family, as backward.cu, each
+// family's step (quadrotor.cuh dynamics_step) in team_rollout; the wrench
+// and the 6- and 8-rotor multirotors without the variants.
 #define QILQR_TEAM_LANES 8  // lanes per scenario (PERF.md section 6)
 #include "team_trip.cuh"
 
@@ -36,7 +40,7 @@ namespace qilqr {
 template <typename T>
 struct RolloutIO {
   Traj<T> x;                    // (N, d, B) previous trajectory
-  const T* gains;               // (N, B, 52): k | K
+  const T* gains;               // (N, B, P): k | K
   const T* alpha;               // (B,)
   const unsigned char* active;  // (B,) lanes to compute, or null for all
   Traj<T> out;                  // out (N, d, B)
@@ -44,9 +48,9 @@ struct RolloutIO {
   VariantOps<T> var;            // bounds and weights of the variants
 };
 
-template <typename T, bool kBox, bool kW>
+template <typename T, bool kBox, bool kW, class M>
 __global__ void __launch_bounds__(kTeamThreads) rollout_kernel(Problem<T> P, RolloutIO<T> io) {
-  Team<T> tm;
+  Team<T, M> tm;
   if (!team_setup(P, &tm)) return;
   // an inactive lane's team leaves whole, after the block-wide setup
   if (io.active != nullptr && io.active[tm.b] == 0) return;
@@ -59,7 +63,7 @@ __global__ void __launch_bounds__(kTeamThreads) rollout_kernel(Problem<T> P, Rol
 // packed operands after the Problem block:
 //   ptrs: q t v u  gains alpha active  oq ot ov ou cost  lo hi w
 //   ints: s_box s_w
-template <typename T>
+template <typename T, class M>
 int launch_rollout(const void* const* ptrs, const long long* ints, const double* reals,
                    void* stream) {
   Problem<T> P = make_problem<T>(ptrs, ints, reals);
@@ -72,25 +76,31 @@ int launch_rollout(const void* const* ptrs, const long long* ints, const double*
   io.out = traj_from<T>(p + 7);
   io.cost = static_cast<T*>(const_cast<void*>(p[11]));
   io.var = variant_from<T>(p + 12, ints + kProblemInts);
-  const size_t bytes = team_block_bytes<T>(P.s_qr, P.s_par);
-  return with_variant(io.var, [&](auto box, auto w) {
-    return team_launch(rollout_kernel<T, decltype(box)::value, decltype(w)::value>, P.B, bytes,
-                       stream, P, io);
-  });
+  const size_t bytes = team_block_bytes<T, M>(P.s_qr, P.s_par);
+  if constexpr (std::is_same_v<M, Quadrotor>) {
+    return with_variant(io.var, [&](auto box, auto w) {
+      return team_launch(rollout_kernel<T, decltype(box)::value, decltype(w)::value, M>, P.B,
+                         bytes, stream, P, io);
+    });
+  } else {
+    // the other families have no variant instantiation (the host refuses them)
+    if (io.var.lo != nullptr || io.var.w != nullptr) return cudaErrorNotSupported;
+    return team_launch(rollout_kernel<T, false, false, M>, P.B, bytes, stream, P, io);
+  }
 }
 
 }  // namespace qilqr
 
-extern "C" int qilqr_rollout_f32(const void* const* ptrs, const long long* ints,
-                                 const double* reals, void* stream) {
-  return qilqr::launch_rollout<float>(ptrs, ints, reals, stream);
+extern "C" int QILQR_ENTRY(rollout, f32)(const void* const* ptrs, const long long* ints,
+                                         const double* reals, void* stream) {
+  return qilqr::launch_rollout<float, qilqr::Family>(ptrs, ints, reals, stream);
 }
 
-extern "C" int qilqr_rollout_f64(const void* const* ptrs, const long long* ints,
-                                 const double* reals, void* stream) {
-  return qilqr::launch_rollout<double>(ptrs, ints, reals, stream);
+extern "C" int QILQR_ENTRY(rollout, f64)(const void* const* ptrs, const long long* ints,
+                                         const double* reals, void* stream) {
+  return qilqr::launch_rollout<double, qilqr::Family>(ptrs, ints, reals, stream);
 }
 
-extern "C" int qilqr_rollout_team_info(int f64, int s_qr, int s_par, long long* out) {
-  return qilqr::team_info(f64, s_qr, s_par, out);
+extern "C" int QILQR_ENTRY(rollout, team_info)(int f64, int s_qr, int s_par, long long* out) {
+  return qilqr::team_info<qilqr::Family>(f64, s_qr, s_par, out);
 }

@@ -23,7 +23,7 @@
 // ~400 values of Riccati state in local memory (0.6% of the bound, PERF.md
 // section 6). What this design does about it (team.cuh, team_trip.cuh): a
 // team of lanes shares each scenario, the Riccati state lives in shared
-// memory, the 12x12 and 12x4 products are split over the team by output
+// memory, the 12x12 and 12xu products are split over the team by output
 // entries, Q, R and the model parameters are read from shared memory, each
 // stage's operands arrive through a cp.async ring kRing - 1 stages ahead,
 // and the candidate is merged by the sweep that reads it. The cost sums in
@@ -44,6 +44,12 @@
 // instantiations (kBox, kW), each with and without the record, picked when
 // the bounds or the weights are passed: team_backward's and team_rollout's
 // variants, the seed cost weighted. The trip logic is the same.
+//
+// The model families (JAX solve.py's lane models, its ju_lo_row): this
+// source is compiled once per family (kernels/_build.py FAMILIES): the
+// quadrotor with every instantiation above, and the wrench
+// (u = 6, j_u rows 6:12) and the 6- and 8-rotor multirotors (j_u rows 8:12),
+// each the instantiation without record, box or weights alone.
 #define QILQR_TEAM_LANES 8  // lanes per scenario (PERF.md section 6)
 #include "team_trip.cuh"
 
@@ -56,7 +62,7 @@ struct SolveIO {
   T* cost;       // out (B,)
   int* iters;    // out (B,)
   int* status;   // out (B,)
-  T* gains;      // scratch (N, B, 52): k | K
+  T* gains;      // scratch (N, B, P): k | K
   Traj<T> best;  // scratch (N, d, B): the line search's candidate
   T* hist;       // out (max_iters, B) or null: the per-trip cost history
   int* passes;   // out (B,) or null: backward passes run
@@ -66,9 +72,9 @@ struct SolveIO {
   VariantOps<T> var;  // bounds and weights of the variants
 };
 
-template <typename T, bool kRecord, bool kBox, bool kW>
+template <typename T, bool kRecord, bool kBox, bool kW, class M>
 __global__ void __launch_bounds__(kTeamThreads) solve_kernel(Problem<T> P, SolveIO<T> io) {
-  Team<T> tm;
+  Team<T, M> tm;
   if (!team_setup(P, &tm)) return;
   const Problem<T> Ps = smem_problem(P, tm);
   team_copy_traj(tm, P, io.x0, io.live);
@@ -127,7 +133,7 @@ __global__ void __launch_bounds__(kTeamThreads) solve_kernel(Problem<T> P, Solve
 //          (those three null unless asked for)  lo hi w
 //   ints:  max_iters ls_max_iters  s_box s_w
 //   reals: quu_reg rtol atol ls_step ls_frac
-template <typename T>
+template <typename T, class M>
 int launch_solve(const void* const* ptrs, const long long* ints, const double* reals,
                  void* stream) {
   Problem<T> P = make_problem<T>(ptrs, ints, reals);
@@ -154,31 +160,35 @@ int launch_solve(const void* const* ptrs, const long long* ints, const double* r
   io.ls_step = static_cast<T>(rp[3]);
   io.ls_frac = static_cast<T>(rp[4]);
   io.var = variant_from<T>(p + 19, ip + 2);
-  const size_t bytes = team_block_bytes<T>(P.s_qr, P.s_par);
+  const size_t bytes = team_block_bytes<T, M>(P.s_qr, P.s_par);
   const bool record = io.hist != nullptr || io.passes != nullptr || io.probes != nullptr;
-  return with_variant(io.var, [&](auto box, auto w) {
-    constexpr bool kBox = decltype(box)::value, kW = decltype(w)::value;
-    return record ? team_launch(solve_kernel<T, true, kBox, kW>, P.B, bytes, stream, P, io)
-                  : team_launch(solve_kernel<T, false, kBox, kW>, P.B, bytes, stream, P, io);
-  });
+  if constexpr (std::is_same_v<M, Quadrotor>) {
+    return with_variant(io.var, [&](auto box, auto w) {
+      constexpr bool kBox = decltype(box)::value, kW = decltype(w)::value;
+      return record
+                 ? team_launch(solve_kernel<T, true, kBox, kW, M>, P.B, bytes, stream, P, io)
+                 : team_launch(solve_kernel<T, false, kBox, kW, M>, P.B, bytes, stream, P, io);
+    });
+  } else {
+    // the other families have no record or variant instantiation (the host
+    // refuses them)
+    if (record || io.var.lo != nullptr || io.var.w != nullptr) return cudaErrorNotSupported;
+    return team_launch(solve_kernel<T, false, false, false, M>, P.B, bytes, stream, P, io);
+  }
 }
 
 }  // namespace qilqr
 
-extern "C" int qilqr_solve_f32(const void* const* ptrs, const long long* ints,
-                               const double* reals, void* stream) {
-  return qilqr::launch_solve<float>(ptrs, ints, reals, stream);
+extern "C" int QILQR_ENTRY(solve, f32)(const void* const* ptrs, const long long* ints,
+                                       const double* reals, void* stream) {
+  return qilqr::launch_solve<float, qilqr::Family>(ptrs, ints, reals, stream);
 }
 
-extern "C" int qilqr_solve_f64(const void* const* ptrs, const long long* ints,
-                               const double* reals, void* stream) {
-  return qilqr::launch_solve<double>(ptrs, ints, reals, stream);
+extern "C" int QILQR_ENTRY(solve, f64)(const void* const* ptrs, const long long* ints,
+                                       const double* reals, void* stream) {
+  return qilqr::launch_solve<double, qilqr::Family>(ptrs, ints, reals, stream);
 }
 
-extern "C" const char* qilqr_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-extern "C" int qilqr_solve_team_info(int f64, int s_qr, int s_par, long long* out) {
-  return qilqr::team_info(f64, s_qr, s_par, out);
+extern "C" int QILQR_ENTRY(solve, team_info)(int f64, int s_qr, int s_par, long long* out) {
+  return qilqr::team_info<qilqr::Family>(f64, s_qr, s_par, out);
 }

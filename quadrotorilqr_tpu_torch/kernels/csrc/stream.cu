@@ -23,12 +23,16 @@
 // local memory at 255 registers and every stage operand fetched from device
 // memory when needed (0.2-0.85% of the bound, PERF.md section 5). What this
 // design does about it (team.cuh): a team of lanes shares each scenario, the
-// Riccati state lives in shared memory, the 12x12 and 12x4 products are
+// Riccati state lives in shared memory, the 12x12 and 12xu products are
 // split over the team by output entries, Q, R and the model parameters are
 // read from shared memory, and each stage's operands arrive through a
 // cp.async ring kRing - 1 stages ahead (the TPU kernel's `chunk` window).
 // It reports the backward passes, probe sweeps and apply sweeps each
 // scenario ran.
+//
+// The model families (JAX stream.py's lane models): compiled once per family
+// (kernels/_build.py FAMILIES), as solve.cu; the batch solver routes a
+// family here past its max_horizon_for(u) stages.
 #define QILQR_TEAM_LANES 8  // lanes per scenario (PERF.md section 6)
 #include "team_trip.cuh"
 
@@ -41,7 +45,7 @@ struct StreamIO {
   T* cost;       // out (B,)
   int* iters;    // out (B,)
   int* status;   // out (B,)
-  T* gains;      // scratch (N, B, 52): k | K
+  T* gains;      // scratch (N, B, P): k | K
   int* passes;   // out (B,): backward passes run
   int* probes;   // out (B,): probe sweeps run
   int* applies;  // out (B,): apply sweeps run
@@ -49,9 +53,9 @@ struct StreamIO {
   T quu_reg, rtol, atol, ls_step, ls_frac;
 };
 
-template <typename T>
+template <typename T, class M>
 __global__ void __launch_bounds__(kTeamThreads) stream_kernel(Problem<T> P, StreamIO<T> io) {
-  Team<T> tm;
+  Team<T, M> tm;
   if (!team_setup(P, &tm)) return;
   const Problem<T> Ps = smem_problem(P, tm);
   const int N = P.N;
@@ -101,7 +105,7 @@ __global__ void __launch_bounds__(kTeamThreads) stream_kernel(Problem<T> P, Stre
 //   ptrs:  q t v u  oq ot ov ou  cost iters status  gains  passes probes applies
 //   ints:  max_iters ls_max_iters
 //   reals: quu_reg rtol atol ls_step ls_frac
-template <typename T>
+template <typename T, class M>
 int launch_stream(const void* const* ptrs, const long long* ints, const double* reals,
                   void* stream) {
   Problem<T> P = make_problem<T>(ptrs, ints, reals);
@@ -126,21 +130,22 @@ int launch_stream(const void* const* ptrs, const long long* ints, const double* 
   io.atol = static_cast<T>(rp[2]);
   io.ls_step = static_cast<T>(rp[3]);
   io.ls_frac = static_cast<T>(rp[4]);
-  return team_launch(stream_kernel<T>, P.B, team_block_bytes<T>(P.s_qr, P.s_par), stream, P, io);
+  return team_launch(stream_kernel<T, M>, P.B, team_block_bytes<T, M>(P.s_qr, P.s_par), stream,
+                     P, io);
 }
 
 }  // namespace qilqr
 
-extern "C" int qilqr_stream_f32(const void* const* ptrs, const long long* ints,
-                                const double* reals, void* stream) {
-  return qilqr::launch_stream<float>(ptrs, ints, reals, stream);
+extern "C" int QILQR_ENTRY(stream, f32)(const void* const* ptrs, const long long* ints,
+                                        const double* reals, void* stream) {
+  return qilqr::launch_stream<float, qilqr::Family>(ptrs, ints, reals, stream);
 }
 
-extern "C" int qilqr_stream_f64(const void* const* ptrs, const long long* ints,
-                                const double* reals, void* stream) {
-  return qilqr::launch_stream<double>(ptrs, ints, reals, stream);
+extern "C" int QILQR_ENTRY(stream, f64)(const void* const* ptrs, const long long* ints,
+                                        const double* reals, void* stream) {
+  return qilqr::launch_stream<double, qilqr::Family>(ptrs, ints, reals, stream);
 }
 
-extern "C" int qilqr_stream_team_info(int f64, int s_qr, int s_par, long long* out) {
-  return qilqr::team_info(f64, s_qr, s_par, out);
+extern "C" int QILQR_ENTRY(stream, team_info)(int f64, int s_qr, int s_par, long long* out) {
+  return qilqr::team_info<qilqr::Family>(f64, s_qr, s_par, out);
 }

@@ -56,7 +56,7 @@ struct StreamFddpIO {
   T* probes;          // out (B,): stages the probes ran / N
   int* defect_trips;  // out (B,): trips whose reverse sweep computed the defects
   int* applies;       // out (B,): apply sweeps run
-  T* gains;           // scratch (N, B, 52): k | K
+  T* gains;           // scratch (N, B, 52): k | K (the quadrotor's row)
   T* d;               // scratch (N, B, 12): the defects
   FddpKnobs<T> k;
 };
@@ -64,7 +64,7 @@ struct StreamFddpIO {
 template <typename T, bool kDdp>
 __global__ void __launch_bounds__(kTeamThreads) stream_fddp_kernel(Problem<T> P,
                                                                    StreamFddpIO<T> io) {
-  Team<T> tm;
+  Team<T, Quadrotor> tm;
   if (!team_setup(P, &tm)) return;
   const int b = tm.b, N = P.N;
   team_copy_traj(tm, P, io.x0, io.live);
@@ -136,7 +136,7 @@ int launch_stream_fddp(const void* const* ptrs, const long long* ints, const dou
   io.defect_trips = static_cast<int*>(out(18));
   io.applies = static_cast<int*>(out(19));
   io.k = fddp_knobs<T>(ints + kProblemInts, reals + kProblemReals);
-  const size_t smem = team_block_bytes<T>(P.s_qr, P.s_par);
+  const size_t smem = team_block_bytes<T, Quadrotor>(P.s_qr, P.s_par);
   if (io.k.ddp) return team_launch(stream_fddp_kernel<T, true>, P.B, smem, stream, P, io);
   return team_launch(stream_fddp_kernel<T, false>, P.B, smem, stream, P, io);
 }
@@ -154,5 +154,5 @@ extern "C" int qilqr_stream_fddp_f64(const void* const* ptrs, const long long* i
 }
 
 extern "C" int qilqr_stream_fddp_team_info(int f64, int s_qr, int s_par, long long* out) {
-  return qilqr::team_info(f64, s_qr, s_par, out);
+  return qilqr::team_info<qilqr::Quadrotor>(f64, s_qr, s_par, out);
 }

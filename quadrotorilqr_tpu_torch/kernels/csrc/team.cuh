@@ -11,13 +11,13 @@
 //     memory (TeamState), not on a thread's stack;
 //   * Q, R, j_u and the model parameters are loaded into shared memory once
 //     per launch: per block when their B-stride is 0, per team when it is 1;
-//   * the 12x12 and 12x4 products are split over the team by output
+//   * the 12x12 and 12xu products are split over the team by output
 //     entries, never by their inner sums: each lane computes whole entries,
 //     each sum in one fixed order, whatever the team size. The dot
 //     products that feed a branch or a cost fold (dx'Q dx, p'c_xx p) are
 //     gathered with shuffles and folded in their original order;
 //   * the serial pieces (SE(3) log and exp, the dynamics step, the j_x
-//     blocks, the 4x4 Cholesky solve, the line-search and trip logic) run
+//     blocks, the u x u Cholesky solve, the line-search and trip logic) run
 //     in every lane of the team on identical inputs, through the per-thread
 //     code of quadrotor.cuh, so every branch is team-uniform;
 //   * stage operands (the live or candidate stage, k|K, the defects, the
@@ -25,13 +25,17 @@
 //     in shared memory, kRing - 1 stages ahead of the stage being computed:
 //     the counterpart of the TPU kernels' `chunk` window.
 //
-// Layout of the kernel-private scratch: k|K as (N, B, 52) (k first, then K
-// row-major) and the defects as (N, B, 12), so that a team's row is one
-// contiguous run of 16-byte chunks; the candidate trajectory of the
-// whole-solve kernels is (N, d, B), as the live one. Every global element a
-// sweep stores and a later sweep reads back is stored and read by the same
-// lane (element e of a stage, or 16-byte chunk e of a row, by lane
-// e % kTeamLanes).
+// Every piece is generic over the model family M (quadrotor.cuh: the control
+// width M::kNu, the j_u rows M::kJuLo:12 the contractions run over, the
+// dynamics step), carried by the team's type Team<T, M>.
+//
+// Layout of the kernel-private scratch: k|K as (N, B, P) (k first, then K
+// row-major, padded to P = M::kGainsPitch values: 52 for the quadrotor) and
+// the defects as (N, B, 12), so that a team's row is one contiguous run of
+// 16-byte chunks; the candidate trajectory of the whole-solve kernels is
+// (N, d, B), as the live one. Every global element a sweep stores and a
+// later sweep reads back is stored and read by the same lane (element e of a
+// stage, or 16-byte chunk e of a row, by lane e % kTeamLanes).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -66,14 +70,18 @@ constexpr int kTeamThreads = 32;  // one warp a block
 constexpr int kTeamsPerBlock = kTeamThreads / kTeamLanes;
 // ring slots: the stage being computed and kRing - 1 stages in flight
 constexpr int kRing = 4;
-// a slot: k|K, the defects, the live stage (q t v u), the desired stage, the
-// stage weight (weights variant)
-constexpr int kSlotGains = 0, kSlotD = 52, kSlotLive = 64, kSlotDes = 81, kSlotW = 98,
-              kSlot = 100;
+// A ring slot of family M: k|K (its padded row), the defects, the live stage
+// (q t v u), the desired stage, the stage weight (weights variant), in whole
+// 16-byte chunks. The quadrotor's: 0, 52, 64, 81, 98, 100 values.
+template <class M>
+struct Slot {
+  static constexpr int kGains = 0, kD = M::kGainsPitch, kLive = kD + 12,
+                       kDes = kLive + M::kStage, kW = kDes + M::kStage,
+                       kSize = (kW + 1 + 3) / 4 * 4;
+};
 // projected-Newton iterations of the box-QP gain solve (box variant;
 // solver/constrained.py _PN_ITERS)
 constexpr int kPnIters = 4;
-constexpr int kStage = 17;  // q(4) t(3) v(6) u(4)
 
 using Tile = cg::thread_block_tile<kTeamLanes>;
 
@@ -81,40 +89,40 @@ __device__ __forceinline__ Tile team_tile() {
   return cg::tiled_partition<kTeamLanes>(cg::this_thread_block());
 }
 
-template <typename T>
+template <typename T, class M>
 struct alignas(16) CostConsts {
   T Q[144];
-  T R[16];
+  T R[M::kNu * M::kNu];
 };
 
-template <typename T>
+template <typename T, class M>
 struct alignas(16) ParConsts {
   T g, minv;
-  T ju[48];  // (12, 4) discrete control Jacobian
-  T ima[12];
+  T ju[12 * M::kNu];  // (12, u) discrete control Jacobian
+  T ima[3 * M::kNu];  // I^-1 MA (unused by the wrench)
   T inertia[9], inertia_inv[9];
 };
 
 // One scenario's shared-memory state.
-template <typename T>
+template <typename T, class M>
 struct alignas(16) TeamState {
-  alignas(16) T ring[kRing][kSlot];
-  alignas(16) T gains[52];  // this stage's k | K
-  alignas(16) T dk[16];     // this stage's defect (12 used)
+  alignas(16) T ring[kRing][Slot<M>::kSize];
+  alignas(16) T gains[M::kGainsPitch];  // this stage's k | K
+  alignas(16) T dk[16];                 // this stage's defect (12 used)
   T vxx[144], qxx[144], X[144];
   JxBlocks<T> J;
-  T W[36], qdx[12], c_x[12], q_x[12], v_x[12], quu[16];
-  T vxx_ju[48], q_xu[48], quuK[48];
+  T W[36], qdx[12], c_x[12], q_x[12], v_x[12], quu[M::kNu * M::kNu];
+  T vxx_ju[12 * M::kNu], q_xu[12 * M::kNu], quuK[12 * M::kNu];
   T tj[36], m1[36], m2[36], gy[9];  // exact-DDP curvature scratch
 };
 
 // Shared-memory bytes of one block: the B-stride-0 operand groups once, then
 // each team's state and its B-stride-1 groups.
-template <typename T>
+template <typename T, class M>
 inline size_t team_block_bytes(int s_qr, int s_par) {
-  const size_t blk = (s_qr ? 0 : sizeof(CostConsts<T>)) + (s_par ? 0 : sizeof(ParConsts<T>));
-  const size_t team = sizeof(TeamState<T>) + (s_qr ? sizeof(CostConsts<T>) : 0) +
-                      (s_par ? sizeof(ParConsts<T>) : 0);
+  const size_t cc = sizeof(CostConsts<T, M>), pc = sizeof(ParConsts<T, M>);
+  const size_t blk = (s_qr ? 0 : cc) + (s_par ? 0 : pc);
+  const size_t team = sizeof(TeamState<T, M>) + (s_qr ? cc : 0) + (s_par ? pc : 0);
   return blk + kTeamsPerBlock * team;
 }
 
@@ -147,19 +155,20 @@ __device__ __forceinline__ T weigh(T w, T x) {
   }
 }
 
-// What a team carries: its lane, its scenario and its shared memory.
-template <typename T>
+// What a team carries: its lane, its scenario and its shared memory, for
+// model family M.
+template <typename T, class M>
 struct Team {
   int lane, b;
-  TeamState<T>* s;
-  const CostConsts<T>* cc;
-  const ParConsts<T>* pc;
+  TeamState<T, M>* s;
+  const CostConsts<T, M>* cc;
+  const ParConsts<T, M>* pc;
 };
 
-template <typename T>
-__device__ __forceinline__ void load_cost_consts(const Problem<T>& P, CostConsts<T>* cc, int b,
+template <typename T, class M>
+__device__ __forceinline__ void load_cost_consts(const Problem<T>& P, CostConsts<T, M>* cc, int b,
                                                  int i0, int step) {
-  for (int e = i0; e < 160; e += step) {
+  for (int e = i0; e < 144 + M::kNu * M::kNu; e += step) {
     if (e < 144) {
       cc->Q[e] = P.q(e, b);
     } else {
@@ -168,10 +177,14 @@ __device__ __forceinline__ void load_cost_consts(const Problem<T>& P, CostConsts
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void load_par_consts(const Problem<T>& P, ParConsts<T>* pc, int b,
+// g, minv, j_u, I^-1 MA (not for the wrench, whose pointer is null), I,
+// I^-1 as one run of elements
+template <typename T, class M>
+__device__ __forceinline__ void load_par_consts(const Problem<T>& P, ParConsts<T, M>* pc, int b,
                                                 int i0, int step) {
-  for (int e = i0; e < 80; e += step) {
+  constexpr int kJu = 2, kIma = kJu + 12 * M::kNu, kI = kIma + (M::kWrench ? 0 : 3 * M::kNu),
+                kIinv = kI + 9, kEnd = kIinv + 9;
+  for (int e = i0; e < kEnd; e += step) {
     T* dst;
     const T* src;
     int k;
@@ -179,14 +192,14 @@ __device__ __forceinline__ void load_par_consts(const Problem<T>& P, ParConsts<T
       dst = &pc->g, src = P.g, k = 0;
     } else if (e == 1) {
       dst = &pc->minv, src = P.minv, k = 0;
-    } else if (e < 50) {
-      dst = pc->ju + (e - 2), src = P.ju, k = e - 2;
-    } else if (e < 62) {
-      dst = pc->ima + (e - 50), src = P.iinv_ma, k = e - 50;
-    } else if (e < 71) {
-      dst = pc->inertia + (e - 62), src = P.inertia, k = e - 62;
+    } else if (e < kIma) {
+      dst = pc->ju + (e - kJu), src = P.ju, k = e - kJu;
+    } else if (e < kI) {
+      dst = pc->ima + (e - kIma), src = P.iinv_ma, k = e - kIma;
+    } else if (e < kIinv) {
+      dst = pc->inertia + (e - kI), src = P.inertia, k = e - kI;
     } else {
-      dst = pc->inertia_inv + (e - 71), src = P.inertia_inv, k = e - 71;
+      dst = pc->inertia_inv + (e - kIinv), src = P.inertia_inv, k = e - kIinv;
     }
     *dst = P.par(src, k, b);
   }
@@ -196,36 +209,38 @@ __device__ __forceinline__ void load_par_consts(const Problem<T>& P, ParConsts<T
 // of the block takes part, so this comes before any team leaves) and
 // returns whether this thread's team has a scenario: a team beyond B exits
 // whole.
-template <typename T>
-__device__ __forceinline__ bool team_setup(const Problem<T>& P, Team<T>* tm) {
+template <typename T, class M>
+__device__ __forceinline__ bool team_setup(const Problem<T>& P, Team<T, M>* tm) {
+  using CC = CostConsts<T, M>;
+  using PC = ParConsts<T, M>;
   extern __shared__ __align__(16) unsigned char qilqr_smem[];
   cg::thread_block block = cg::this_thread_block();
   const Tile tile = team_tile();
   const int t = static_cast<int>(tile.meta_group_rank());
   unsigned char* p = qilqr_smem;
-  CostConsts<T>* bcc = nullptr;
-  ParConsts<T>* bpc = nullptr;
+  CC* bcc = nullptr;
+  PC* bpc = nullptr;
   if (!P.s_qr) {
-    bcc = reinterpret_cast<CostConsts<T>*>(p);
-    p += sizeof(CostConsts<T>);
+    bcc = reinterpret_cast<CC*>(p);
+    p += sizeof(CC);
   }
   if (!P.s_par) {
-    bpc = reinterpret_cast<ParConsts<T>*>(p);
-    p += sizeof(ParConsts<T>);
+    bpc = reinterpret_cast<PC*>(p);
+    p += sizeof(PC);
   }
-  const size_t team_bytes = sizeof(TeamState<T>) + (P.s_qr ? sizeof(CostConsts<T>) : 0) +
-                            (P.s_par ? sizeof(ParConsts<T>) : 0);
+  const size_t team_bytes =
+      sizeof(TeamState<T, M>) + (P.s_qr ? sizeof(CC) : 0) + (P.s_par ? sizeof(PC) : 0);
   p += t * team_bytes;
   tm->lane = static_cast<int>(tile.thread_rank());
   tm->b = blockIdx.x * kTeamsPerBlock + t;
-  tm->s = reinterpret_cast<TeamState<T>*>(p);
-  p += sizeof(TeamState<T>);
-  CostConsts<T>* cc = bcc;
+  tm->s = reinterpret_cast<TeamState<T, M>*>(p);
+  p += sizeof(TeamState<T, M>);
+  CC* cc = bcc;
   if (P.s_qr) {
-    cc = reinterpret_cast<CostConsts<T>*>(p);
-    p += sizeof(CostConsts<T>);
+    cc = reinterpret_cast<CC*>(p);
+    p += sizeof(CC);
   }
-  ParConsts<T>* pc = P.s_par ? reinterpret_cast<ParConsts<T>*>(p) : bpc;
+  PC* pc = P.s_par ? reinterpret_cast<PC*>(p) : bpc;
   tm->cc = cc;
   tm->pc = pc;
   const int tid = static_cast<int>(threadIdx.x);
@@ -241,8 +256,8 @@ __device__ __forceinline__ bool team_setup(const Problem<T>& P, Team<T>* tm) {
 // The problem as the per-thread code reads it, with Q, R and the model
 // parameters in shared memory (B-stride 0). The desired trajectory is read
 // from the ring instead.
-template <typename T>
-__device__ __forceinline__ Problem<T> smem_problem(const Problem<T>& P, const Team<T>& tm) {
+template <typename T, class M>
+__device__ __forceinline__ Problem<T> smem_problem(const Problem<T>& P, const Team<T, M>& tm) {
   Problem<T> S = P;
   S.Q = tm.cc->Q;
   S.R = tm.cc->R;
@@ -259,26 +274,27 @@ __device__ __forceinline__ Problem<T> smem_problem(const Problem<T>& P, const Te
 
 // ---- stage elements and the operand ring ----
 
-// element e of stage n of a (N, d, B) trajectory: q (0-3), t (4-6), v (7-12), u (13-16)
-template <typename T>
+// element e of stage n of a (N, d, B) trajectory of family M: q (0-3),
+// t (4-6), v (7-12), u (13 to 12 + u)
+template <class M, typename T>
 __device__ __forceinline__ T* traj_elem(const Traj<T>& x, int B, int n, int e, int b) {
   if (e < 4) return x.q + (n * 4 + e) * B + b;
   if (e < 7) return x.t + (n * 3 + e - 4) * B + b;
   if (e < 13) return x.v + (n * 6 + e - 7) * B + b;
-  return x.u + (n * 4 + e - 13) * B + b;
+  return x.u + (n * M::kNu + e - 13) * B + b;
 }
 
-template <typename T>
+template <class M, typename T>
 __device__ __forceinline__ const T* des_elem(const Problem<T>& P, int n, int e, int b) {
   const int s = P.s_des;
   const int stride = s ? P.B : 1;
   if (e < 4) return P.dq + (n * 4 + e) * stride + b * s;
   if (e < 7) return P.dtr + (n * 3 + e - 4) * stride + b * s;
   if (e < 13) return P.dv + (n * 6 + e - 7) * stride + b * s;
-  return P.du + (n * 4 + e - 13) * stride + b * s;
+  return P.du + (n * M::kNu + e - 13) * stride + b * s;
 }
 
-template <typename T>
+template <class M, typename T>
 __device__ __forceinline__ void read_stage(const T* s, T* q, T* t, T* v, T* u) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) q[i] = s[i];
@@ -287,15 +303,15 @@ __device__ __forceinline__ void read_stage(const T* s, T* q, T* t, T* v, T* u) {
 #pragma unroll
   for (int i = 0; i < 6; ++i) v[i] = s[7 + i];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) u[i] = s[13 + i];
+  for (int i = 0; i < M::kNu; ++i) u[i] = s[13 + i];
 }
 
 // stage n of x <- (q, t, v, u), element e by lane e % kTeamLanes
-template <typename T>
-__device__ __forceinline__ void team_store_stage(const Team<T>& tm, const Traj<T>& x, int B,
+template <typename T, class M>
+__device__ __forceinline__ void team_store_stage(const Team<T, M>& tm, const Traj<T>& x, int B,
                                                  int n, const T* q, const T* t, const T* v,
                                                  const T* u) {
-  T vals[kStage];
+  T vals[M::kStage];
 #pragma unroll
   for (int i = 0; i < 4; ++i) vals[i] = q[i];
 #pragma unroll
@@ -303,19 +319,19 @@ __device__ __forceinline__ void team_store_stage(const Team<T>& tm, const Traj<T
 #pragma unroll
   for (int i = 0; i < 6; ++i) vals[7 + i] = v[i];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) vals[13 + i] = u[i];
+  for (int i = 0; i < M::kNu; ++i) vals[13 + i] = u[i];
 #pragma unroll
-  for (int e = 0; e < kStage; ++e) {
-    if (e % kTeamLanes == tm.lane) *traj_elem(x, B, n, e, tm.b) = vals[e];
+  for (int e = 0; e < M::kStage; ++e) {
+    if (e % kTeamLanes == tm.lane) *traj_elem<M>(x, B, n, e, tm.b) = vals[e];
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void team_copy_traj(const Team<T>& tm, const Problem<T>& P,
+template <typename T, class M>
+__device__ __forceinline__ void team_copy_traj(const Team<T, M>& tm, const Problem<T>& P,
                                                const Traj<T>& src, const Traj<T>& dst) {
   for (int n = 0; n < P.N; ++n) {
-    for (int e = tm.lane; e < kStage; e += kTeamLanes) {
-      *traj_elem(dst, P.B, n, e, tm.b) = *traj_elem(src, P.B, n, e, tm.b);
+    for (int e = tm.lane; e < M::kStage; e += kTeamLanes) {
+      *traj_elem<M>(dst, P.B, n, e, tm.b) = *traj_elem<M>(src, P.B, n, e, tm.b);
     }
   }
 }
@@ -323,11 +339,11 @@ __device__ __forceinline__ void team_copy_traj(const Team<T>& tm, const Problem<
 // stage n of x <- the trajectory stage a sweep fetched into `slot` (the
 // merge of a candidate into the live trajectory), element e by lane
 // e % kTeamLanes, the lane that fetched it
-template <typename T>
-__device__ __forceinline__ void team_merge_stage(const Team<T>& tm, const Traj<T>& x, int B, int n,
-                                                 const T* slot) {
-  for (int e = tm.lane; e < kStage; e += kTeamLanes) {
-    *traj_elem(x, B, n, e, tm.b) = slot[kSlotLive + e];
+template <typename T, class M>
+__device__ __forceinline__ void team_merge_stage(const Team<T, M>& tm, const Traj<T>& x, int B,
+                                                 int n, const T* slot) {
+  for (int e = tm.lane; e < M::kStage; e += kTeamLanes) {
+    *traj_elem<M>(x, B, n, e, tm.b) = slot[Slot<M>::kLive + e];
   }
 }
 
@@ -342,8 +358,9 @@ __device__ __forceinline__ T* scratch_row(T* base, int B, int n, int b, int widt
 }
 
 // a row of `width` values from shared to global memory, chunk c by lane c % kTeamLanes
-template <typename T>
-__device__ __forceinline__ void team_put_row(const Team<T>& tm, const T* src, T* dst, int width) {
+template <typename T, class M>
+__device__ __forceinline__ void team_put_row(const Team<T, M>& tm, const T* src, T* dst,
+                                             int width) {
   for (int c = tm.lane; c < width / kChunk<T>; c += kTeamLanes) {
     *reinterpret_cast<uint4*>(dst + c * kChunk<T>) =
         *reinterpret_cast<const uint4*>(src + c * kChunk<T>);
@@ -355,7 +372,7 @@ __device__ __forceinline__ void team_put_row(const Team<T>& tm, const T* src, T*
 template <typename T>
 struct RingSrc {
   Traj<T> x;              // the live trajectory, or the candidate a sweep merges
-  const T* gains;         // (N, B, 52) k|K, or null
+  const T* gains;         // (N, B, P) k|K, or null
   const T* d;             // (N, B, 12) defects, or null
   const T* w = nullptr;   // (N, B or 1) stage weights, or null
   int s_w = 0;            // their B-stride
@@ -364,29 +381,32 @@ struct RingSrc {
 // Issues the copies of stage n's operands into `slot`: element e of the
 // trajectory's and the desired stage by lane e % kTeamLanes, 16-byte chunks
 // of the gains and defect rows likewise.
-template <typename T>
-__device__ __forceinline__ void ring_fetch(const Team<T>& tm, const Problem<T>& P,
+template <typename T, class M>
+__device__ __forceinline__ void ring_fetch(const Team<T, M>& tm, const Problem<T>& P,
                                            const RingSrc<T>& src, int n, T* slot) {
+  using S = Slot<M>;
+  constexpr int kStage = M::kStage, kPitch = M::kGainsPitch;
   const int B = P.B, b = tm.b;
   for (int e = tm.lane; e < 2 * kStage; e += kTeamLanes) {
-    const T* g = e < kStage ? traj_elem(src.x, B, n, e, b) : des_elem(P, n, e - kStage, b);
-    __pipeline_memcpy_async(slot + kSlotLive + e, g, sizeof(T));
+    const T* g =
+        e < kStage ? traj_elem<M>(src.x, B, n, e, b) : des_elem<M>(P, n, e - kStage, b);
+    __pipeline_memcpy_async(slot + S::kLive + e, g, sizeof(T));
   }
   if (src.gains != nullptr) {
-    const T* row = src.gains + (static_cast<size_t>(n) * B + b) * 52;
-    for (int c = tm.lane; c < 52 / kChunk<T>; c += kTeamLanes) {
-      __pipeline_memcpy_async(slot + kSlotGains + c * kChunk<T>, row + c * kChunk<T>, 16);
+    const T* row = src.gains + (static_cast<size_t>(n) * B + b) * kPitch;
+    for (int c = tm.lane; c < kPitch / kChunk<T>; c += kTeamLanes) {
+      __pipeline_memcpy_async(slot + S::kGains + c * kChunk<T>, row + c * kChunk<T>, 16);
     }
   }
   if (src.d != nullptr) {
     const T* row = src.d + (static_cast<size_t>(n) * B + b) * 12;
     for (int c = tm.lane; c < 12 / kChunk<T>; c += kTeamLanes) {
-      __pipeline_memcpy_async(slot + kSlotD + c * kChunk<T>, row + c * kChunk<T>, 16);
+      __pipeline_memcpy_async(slot + S::kD + c * kChunk<T>, row + c * kChunk<T>, 16);
     }
   }
   // the stage weight rides with the desired stage, as element 2 kStage
   if (src.w != nullptr && tm.lane == (2 * kStage) % kTeamLanes) {
-    __pipeline_memcpy_async(slot + kSlotW, src.w + n * (src.s_w ? B : 1) + b * src.s_w,
+    __pipeline_memcpy_async(slot + S::kW, src.w + n * (src.s_w ? B : 1) + b * src.s_w,
                             sizeof(T));
   }
 }
@@ -401,8 +421,8 @@ __device__ __forceinline__ void ring_drain() {
 // A sweep over the N stages, forward or in reverse, through the ring: the
 // operands of the next kRing - 1 stages are in flight while body(n, slot)
 // computes stage n. A body that returns false ends the sweep there.
-template <typename T, class Body>
-__device__ __forceinline__ void ring_sweep(const Team<T>& tm, const Problem<T>& P,
+template <typename T, class M, class Body>
+__device__ __forceinline__ void ring_sweep(const Team<T, M>& tm, const Problem<T>& P,
                                            const RingSrc<T>& src, bool reverse, Body&& body) {
   const int N = P.N;
   const Tile tile = team_tile();
@@ -553,37 +573,39 @@ __device__ __forceinline__ T team_quad12(const Tile& tile, int lane, const T* A,
 
 // (dx'Q dx, du'R du) of (q, t, v, u) against the desired stage `des`
 // (rollout.py's stage cost, with Q dx split over the team)
-template <typename T>
+template <typename T, class M>
 __device__ __forceinline__ void team_cost_terms(const Tile& tile, int lane,
-                                                const CostConsts<T>* cc, const T* des, const T* q,
-                                                const T* t, const T* v, const T* u, T* xq, T* ur) {
-  T dq[4], dtr[3], dv[6], du[4], dx[12];
-  read_stage(des, dq, dtr, dv, du);
+                                                const CostConsts<T, M>* cc, const T* des,
+                                                const T* q, const T* t, const T* v, const T* u,
+                                                T* xq, T* ur) {
+  constexpr int NU = M::kNu;
+  T dq[4], dtr[3], dv[6], du[NU], dx[12];
+  read_stage<M>(des, dq, dtr, dv, du);
   state_minus(q, t, v, dq, dtr, dv, dx);
   *xq = team_quad12(tile, lane, cc->Q, dx);
-  T e[4], rdu[4];
+  T e[NU], rdu[NU];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) e[i] = u[i] - du[i];
+  for (int i = 0; i < NU; ++i) e[i] = u[i] - du[i];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    T acc = cc->R[r * 4] * e[0];
+  for (int r = 0; r < NU; ++r) {
+    T acc = cc->R[r * NU] * e[0];
 #pragma unroll
-    for (int k = 1; k < 4; ++k) acc += cc->R[r * 4 + k] * e[k];
+    for (int k = 1; k < NU; ++k) acc += cc->R[r * NU + k] * e[k];
     rdu[r] = acc;
   }
-  *ur = dot<4>(e, rdu);
+  *ur = dot<NU>(e, rdu);
 }
 
-template <typename T>
+template <typename T, class M>
 struct StageVals {
-  T q[4], t[3], v[6], u[4];
+  T q[4], t[3], v[6], u[M::kNu];
 };
 
 // dx'Q dx + du'R du of one stage: never inlined, so the FDDP seed sweep and
 // every probe evaluate it with the same instructions (fddp.py stage_cost)
-template <typename T>
-__device__ __noinline__ T team_fddp_stage_cost(const CostConsts<T>* cc, const T* des,
-                                               StageVals<T> x) {
+template <typename T, class M>
+__device__ __noinline__ T team_fddp_stage_cost(const CostConsts<T, M>* cc, const T* des,
+                                               StageVals<T, M> x) {
   const Tile tile = team_tile();
   T xq, ur;
   team_cost_terms(tile, static_cast<int>(tile.thread_rank()), cc, des, x.q, x.t, x.v, x.u, &xq,
@@ -606,10 +628,10 @@ __device__ __forceinline__ void team_jx_blocks(const Problem<T>& Ps, const T* q,
 
 // The exact c_xx pose-block correction (backward.py _cxx_corr_lanes) into
 // S.qxx, from dx, S.W and z = S.qdx[0:6].
-template <typename T>
-__device__ __forceinline__ void team_cxx_correction(const Team<T>& tm, const Tile& tile,
+template <typename T, class M>
+__device__ __forceinline__ void team_cxx_correction(const Team<T, M>& tm, const Tile& tile,
                                                     const T* dx) {
-  TeamState<T>& S = *tm.s;
+  TeamState<T, M>& S = *tm.s;
   T wt[6];
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
@@ -663,16 +685,17 @@ __device__ __forceinline__ void team_cxx_correction(const Team<T>& tm, const Til
 // _stage_cost_diffs): S.c_x, c_xx into S.qxx (S.X is scratch for Q J_d),
 // c_u into registers. With kW each is scaled by the stage weight w (c_u
 // through w 2R, backward.py _riccati_stage's order).
-template <typename T, bool kExact, bool kW = false>
-__device__ __forceinline__ void team_cost_diffs(const Team<T>& tm, const Tile& tile,
+template <typename T, bool kExact, bool kW = false, class M>
+__device__ __forceinline__ void team_cost_diffs(const Team<T, M>& tm, const Tile& tile,
                                                 const T* slot, const T* q, const T* t,
                                                 const T* v, const T* u, T* c_u, T w = T(1)) {
   static_assert(!(kExact && kW), "the exact cost Hessian takes no stage weight yet");
-  TeamState<T>& S = *tm.s;
+  constexpr int NU = M::kNu;
+  TeamState<T, M>& S = *tm.s;
   const T* Q = tm.cc->Q;
   const T* R = tm.cc->R;
-  T dq[4], dtr[3], dv[6], dud[4], dx[12];
-  read_stage(slot + kSlotDes, dq, dtr, dv, dud);
+  T dq[4], dtr[3], dv[6], dud[NU], dx[12];
+  read_stage<M>(slot + Slot<M>::kDes, dq, dtr, dv, dud);
   state_minus(q, t, v, dq, dtr, dv, dx);
   {
     T W[36];
@@ -722,24 +745,24 @@ __device__ __forceinline__ void team_cost_diffs(const Team<T>& tm, const Tile& t
   });
   tile.sync();
   if constexpr (kExact) team_cxx_correction(tm, tile, dx);
-  T e[4];
+  T e[NU];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) e[i] = u[i] - dud[i];
+  for (int i = 0; i < NU; ++i) e[i] = u[i] - dud[i];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    T acc = weigh<kW>(w, T(2) * R[r * 4]) * e[0];
+  for (int r = 0; r < NU; ++r) {
+    T acc = weigh<kW>(w, T(2) * R[r * NU]) * e[0];
 #pragma unroll
-    for (int k = 1; k < 4; ++k) acc += weigh<kW>(w, T(2) * R[r * 4 + k]) * e[k];
+    for (int k = 1; k < NU; ++k) acc += weigh<kW>(w, T(2) * R[r * NU + k]) * e[k];
     c_u[r] = acc;
   }
 }
 
 // sum_i (v_x)_i f_xx[i] into S.qxx (backward.py _vfxx_lanes), from S.v_x
 // and S.J
-template <typename T>
-__device__ __forceinline__ void team_add_vfxx(const Team<T>& tm, const Tile& tile,
+template <typename T, class M>
+__device__ __forceinline__ void team_add_vfxx(const Team<T, M>& tm, const Tile& tile,
                                               const Problem<T>& Ps, const T* q, const T* vel) {
-  TeamState<T>& S = *tm.s;
+  TeamState<T, M>& S = *tm.s;
   const JxBlocks<T>& J = S.J;
   const T dt = Ps.dt;
   T vx[12];
@@ -901,39 +924,42 @@ __device__ __forceinline__ void boxqp_gains(const T* q_uu, const T* q_u, const T
 }
 
 // One reverse Riccati stage (backward.py _riccati_stage, the exact path:
-// j_u contracted over its nonzero rows 8:12 only, the 4x4 Cholesky gains
-// plus quu_reg * I, the symmetrized value update) of the live stage in `slot`
-// against S.v_x, S.vxx, which it updates; k|K into S.gains, and the stage's
-// Qu.k and k.Quu.k. Ps is the problem with its constants in shared memory.
-// The variants (compile-time; without them this is the exact path as it
-// was): kW scales the stage's cost terms by its weight slot[kSlotW]
-// (c_x, c_xx, c_u and the 2R of Q_uu; not quu_reg); kBox solves the gains
-// as the box-QP (boxqp_gains) within var's bounds less the stage's control,
-// and updates the value with the general gains (backward.py :550-571).
-template <typename T, bool kDdp, bool kBox = false, bool kW = false>
-__device__ __forceinline__ void team_riccati_stage(const Team<T>& tm, const Problem<T>& Ps,
+// j_u contracted over its nonzero rows M::kJuLo:12 only, the u x u Cholesky
+// gains plus quu_reg * I, the symmetrized value update) of the live stage in
+// `slot` against S.v_x, S.vxx, which it updates; k|K into S.gains, and the
+// stage's Qu.k and k.Quu.k. Ps is the problem with its constants in shared
+// memory. The variants (compile-time, the quadrotor's only; without them
+// this is the exact path as it was): kW scales the stage's cost terms by its
+// weight slot[kW] (c_x, c_xx, c_u and the 2R of Q_uu; not quu_reg); kBox
+// solves the gains as the box-QP (boxqp_gains) within var's bounds less the
+// stage's control, and updates the value with the general gains
+// (backward.py :550-571).
+template <typename T, bool kDdp, bool kBox = false, bool kW = false, class M>
+__device__ __forceinline__ void team_riccati_stage(const Team<T, M>& tm, const Problem<T>& Ps,
                                                    T quu_reg, const T* slot, T* qutk_inc,
                                                    T* ktquuk_inc,
                                                    const VariantOps<T>& var = VariantOps<T>{}) {
-  TeamState<T>& S = *tm.s;
+  static_assert(!kBox || M::kNu == 4, "the box-QP gains are the quadrotor's (u = 4)");
+  constexpr int NU = M::kNu, LO = M::kJuLo, NJ = 12 - M::kJuLo;
+  TeamState<T, M>& S = *tm.s;
   const Tile tile = team_tile();
   const int lane = tm.lane;
-  T q[4], t[3], v[6], u[4];
-  read_stage(slot + kSlotLive, q, t, v, u);
+  T q[4], t[3], v[6], u[NU];
+  read_stage<M>(slot + Slot<M>::kLive, q, t, v, u);
   team_jx_blocks(Ps, q, v, &S.J);
-  T c_u[4];
-  const T w = kW ? slot[kSlotW] : T(1);
+  T c_u[NU];
+  const T w = kW ? slot[Slot<M>::kW] : T(1);
   team_cost_diffs<T, kDdp, kW>(tm, tile, slot, q, t, v, u, c_u, w);
 
   // --- Q-expansion ---
-  const T* ju = tm.pc->ju + 32;  // j_u rows 8:12
+  const T* ju = tm.pc->ju + LO * NU;  // j_u rows LO:12
   team_each<12>(lane, [&](int r) { S.q_x[r] = S.c_x[r] + jxt_entry<1>(S.J, S.v_x, r, 0); });
-  T q_u[4];
+  T q_u[NU];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    T acc = ju[a] * S.v_x[8];
+  for (int a = 0; a < NU; ++a) {
+    T acc = ju[a] * S.v_x[LO];
 #pragma unroll
-    for (int r = 1; r < 4; ++r) acc += ju[r * 4 + a] * S.v_x[8 + r];
+    for (int r = 1; r < NJ; ++r) acc += ju[r * NU + a] * S.v_x[LO + r];
     q_u[a] = c_u[a] + acc;
   }
   team_each_col(lane, [&](int r, int c) { S.X[r * 12 + c] = matjx_entry(S.J, S.vxx, r, c); });
@@ -941,35 +967,35 @@ __device__ __forceinline__ void team_riccati_stage(const Team<T>& tm, const Prob
   team_each_row(lane, [&](int r, int c) {
     S.qxx[r * 12 + c] = S.qxx[r * 12 + c] + jxt_entry<12>(S.J, S.X, r, c);
   });
-  // V_xx[:, 8:12] ju_lo (12 x 4)
-  team_each<48>(lane, [&](int e) {
-    const int r = e / 4, c = e % 4;
-    T acc = S.vxx[r * 12 + 8] * ju[c];
+  // V_xx[:, LO:12] ju_lo (12 x u)
+  team_each<12 * NU>(lane, [&](int e) {
+    const int r = e / NU, c = e % NU;
+    T acc = S.vxx[r * 12 + LO] * ju[c];
 #pragma unroll
-    for (int k = 1; k < 4; ++k) acc += S.vxx[r * 12 + 8 + k] * ju[k * 4 + c];
+    for (int k = 1; k < NJ; ++k) acc += S.vxx[r * 12 + LO + k] * ju[k * NU + c];
     S.vxx_ju[e] = acc;
   });
   tile.sync();
   if constexpr (kDdp) team_add_vfxx(tm, tile, Ps, q, v);
-  T q_uu[16];
+  T q_uu[NU * NU];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < NU; ++a) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      T acc = ju[a] * S.vxx_ju[32 + c];
+    for (int c = 0; c < NU; ++c) {
+      T acc = ju[a] * S.vxx_ju[LO * NU + c];
 #pragma unroll
-      for (int r = 1; r < 4; ++r) acc += ju[r * 4 + a] * S.vxx_ju[(8 + r) * 4 + c];
-      q_uu[a * 4 + c] = (weigh<kW>(w, T(2) * tm.cc->R[a * 4 + c]) + acc) +
-                        quu_reg * ((a == c) ? T(1) : T(0));
+      for (int r = 1; r < NJ; ++r) acc += ju[r * NU + a] * S.vxx_ju[(LO + r) * NU + c];
+      q_uu[a * NU + c] = (weigh<kW>(w, T(2) * tm.cc->R[a * NU + c]) + acc) +
+                         quu_reg * ((a == c) ? T(1) : T(0));
     }
   }
-  team_each<48>(lane, [&](int e) { S.q_xu[e] = jxt_entry<4>(S.J, S.vxx_ju, e / 4, e % 4); });
+  team_each<12 * NU>(lane, [&](int e) { S.q_xu[e] = jxt_entry<NU>(S.J, S.vxx_ju, e / NU, e % NU); });
 #pragma unroll
-  for (int i = 0; i < 16; ++i) S.quu[i] = q_uu[i];
+  for (int i = 0; i < NU * NU; ++i) S.quu[i] = q_uu[i];
   tile.sync();
 
   // --- gains: [k | K] = -Quu^-1 [Qu | Qxu^T], solved in every lane ---
-  T k[4];
+  T k[NU];
   if constexpr (kBox) {
     T lo_d[4], hi_d[4], big_k[48];
 #pragma unroll
@@ -983,28 +1009,28 @@ __device__ __forceinline__ void team_riccati_stage(const Team<T>& tm, const Prob
 #pragma unroll
     for (int e = 0; e < 48; ++e) S.gains[4 + e] = big_k[e];
   } else {
-    T rhs[52], sol[52];
+    T rhs[NU * 13], sol[NU * 13];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
+    for (int a = 0; a < NU; ++a) {
       rhs[a * 13] = q_u[a];
 #pragma unroll
-      for (int c = 0; c < 12; ++c) rhs[a * 13 + 1 + c] = S.q_xu[c * 4 + a];
+      for (int c = 0; c < 12; ++c) rhs[a * 13 + 1 + c] = S.q_xu[c * NU + a];
     }
-    chol_solve<4, 13>(q_uu, rhs, sol);
+    chol_solve<NU, 13>(q_uu, rhs, sol);
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
+    for (int a = 0; a < NU; ++a) {
       k[a] = -sol[a * 13];
       S.gains[a] = k[a];
 #pragma unroll
-      for (int c = 0; c < 12; ++c) S.gains[4 + a * 12 + c] = -sol[a * 13 + 1 + c];
+      for (int c = 0; c < 12; ++c) S.gains[NU + a * 12 + c] = -sol[a * 13 + 1 + c];
     }
   }
-  T quu_k[4];
-  matvec<4, 4>(q_uu, k, quu_k);
+  T quu_k[NU];
+  matvec<NU, NU>(q_uu, k, quu_k);
   tile.sync();
 
   // --- value update ---
-  const T* K = S.gains + 4;
+  const T* K = S.gains + NU;
   if constexpr (kBox) {
     // the general gains: v_x' = q_x + K'Quu k + K'q_u + Q_xu k
     team_each<12>(lane, [&](int r) {
@@ -1021,15 +1047,15 @@ __device__ __forceinline__ void team_riccati_stage(const Team<T>& tm, const Prob
     team_each<12>(lane, [&](int r) {
       T acc = K[r] * quu_k[0];
 #pragma unroll
-      for (int a = 1; a < 4; ++a) acc += K[a * 12 + r] * quu_k[a];
+      for (int a = 1; a < NU; ++a) acc += K[a * 12 + r] * quu_k[a];
       S.v_x[r] = S.q_x[r] - acc;
     });
   }
-  team_each<48>(lane, [&](int e) {
+  team_each<NU * 12>(lane, [&](int e) {
     const int a = e / 12, c = e % 12;
-    T acc = S.quu[a * 4] * K[c];
+    T acc = S.quu[a * NU] * K[c];
 #pragma unroll
-    for (int j = 1; j < 4; ++j) acc += S.quu[a * 4 + j] * K[j * 12 + c];
+    for (int j = 1; j < NU; ++j) acc += S.quu[a * NU + j] * K[j * 12 + c];
     S.quuK[e] = acc;
   });
   tile.sync();
@@ -1049,7 +1075,7 @@ __device__ __forceinline__ void team_riccati_stage(const Team<T>& tm, const Prob
     team_each_row(lane, [&](int r, int c) {
       T acc = K[r] * S.quuK[c];
 #pragma unroll
-      for (int a = 1; a < 4; ++a) acc += K[a * 12 + r] * S.quuK[a * 12 + c];
+      for (int a = 1; a < NU; ++a) acc += K[a * 12 + r] * S.quuK[a * 12 + c];
       S.qxx[r * 12 + c] = S.qxx[r * 12 + c] - acc;
     });
   }
@@ -1059,13 +1085,13 @@ __device__ __forceinline__ void team_riccati_stage(const Team<T>& tm, const Prob
     S.vxx[r * 12 + c] = T(0.5) * (S.qxx[r * 12 + c] + S.qxx[c * 12 + r]);
   });
   tile.sync();
-  *qutk_inc = dot<4>(q_u, k);
-  *ktquuk_inc = dot<4>(k, quu_k);
+  *qutk_inc = dot<NU>(q_u, k);
+  *ktquuk_inc = dot<NU>(k, quu_k);
 }
 
 // V_x = 0, V_xx = 0 before a reverse sweep
-template <typename T>
-__device__ __forceinline__ void team_zero_value(const Team<T>& tm) {
+template <typename T, class M>
+__device__ __forceinline__ void team_zero_value(const Team<T, M>& tm) {
   team_each<144>(tm.lane, [&](int e) { tm.s->vxx[e] = T(0); });
   team_each<12>(tm.lane, [&](int e) { tm.s->v_x[e] = T(0); });
   team_tile().sync();
@@ -1074,46 +1100,47 @@ __device__ __forceinline__ void team_zero_value(const Team<T>& tm) {
 // The exact quadratic model's terms at the live stage in `slot`
 // (fddp.py mstage): w = k + K p, L1 += c_x'p + c_u'w, L2 += (p'c_xx p +
 // w'2R w) / 2, and p2 = J_x p + J_u w.
-template <typename T, bool kDdp>
-__device__ __forceinline__ void team_model_stage(const Team<T>& tm, const Problem<T>& Ps,
+template <typename T, bool kDdp, class M>
+__device__ __forceinline__ void team_model_stage(const Team<T, M>& tm, const Problem<T>& Ps,
                                                  const T* slot, const T* p, T* p2, T* l1, T* l2) {
-  TeamState<T>& S = *tm.s;
+  constexpr int NU = M::kNu, LO = M::kJuLo;
+  TeamState<T, M>& S = *tm.s;
   const Tile tile = team_tile();
-  T lq[4], lt[3], lv[6], lu[4], c_u[4];
-  read_stage(slot + kSlotLive, lq, lt, lv, lu);
+  T lq[4], lt[3], lv[6], lu[NU], c_u[NU];
+  read_stage<M>(slot + Slot<M>::kLive, lq, lt, lv, lu);
   team_jx_blocks(Ps, lq, lv, &S.J);
   team_cost_diffs<T, kDdp>(tm, tile, slot, lq, lt, lv, lu, c_u);
-  const T* g = slot + kSlotGains;
-  T wv[4];
+  const T* g = slot + Slot<M>::kGains;
+  T wv[NU];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    T acc = g[4 + a * 12] * p[0];
+  for (int a = 0; a < NU; ++a) {
+    T acc = g[NU + a * 12] * p[0];
 #pragma unroll
-    for (int j = 1; j < 12; ++j) acc += g[4 + a * 12 + j] * p[j];
+    for (int j = 1; j < 12; ++j) acc += g[NU + a * 12 + j] * p[j];
     wv[a] = g[a] + acc;
   }
   T c_x[12];
 #pragma unroll
   for (int i = 0; i < 12; ++i) c_x[i] = S.c_x[i];
-  *l1 = *l1 + dot<12>(c_x, p) + dot<4>(c_u, wv);
+  *l1 = *l1 + dot<12>(c_x, p) + dot<NU>(c_u, wv);
   const T pcp = team_quad12(tile, tm.lane, S.qxx, p);
-  T r2w[4];
+  T r2w[NU];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    T acc = (T(2) * tm.cc->R[r * 4]) * wv[0];
+  for (int r = 0; r < NU; ++r) {
+    T acc = (T(2) * tm.cc->R[r * NU]) * wv[0];
 #pragma unroll
-    for (int j = 1; j < 4; ++j) acc += (T(2) * tm.cc->R[r * 4 + j]) * wv[j];
+    for (int j = 1; j < NU; ++j) acc += (T(2) * tm.cc->R[r * NU + j]) * wv[j];
     r2w[r] = acc;
   }
-  *l2 = *l2 + T(0.5) * (pcp + dot<4>(wv, r2w));
+  *l2 = *l2 + T(0.5) * (pcp + dot<NU>(wv, r2w));
   jx_vec(S.J, p, p2);
-  const T* ju = tm.pc->ju + 32;
+  const T* ju = tm.pc->ju + LO * NU;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    T acc = ju[r * 4] * wv[0];
+  for (int r = 0; r < 12 - LO; ++r) {
+    T acc = ju[r * NU] * wv[0];
 #pragma unroll
-    for (int a = 1; a < 4; ++a) acc += ju[r * 4 + a] * wv[a];
-    p2[8 + r] = p2[8 + r] + acc;
+    for (int a = 1; a < NU; ++a) acc += ju[r * NU + a] * wv[a];
+    p2[LO + r] = p2[LO + r] + acc;
   }
 }
 
@@ -1155,18 +1182,20 @@ inline int with_variant(const VariantOps<T>& v, Launch&& launch) {
                         : launch(std::false_type{}, std::false_type{});
 }
 
-// The launch geometry of this team size: out = (lanes per scenario, teams per
-// block, threads per block, shared bytes per block, ring slots, shared bytes
-// of one team's state) for float64 (f64 != 0) or float32 and the operand
-// groups' B-strides.
+// The launch geometry of this team size and model family: out = (lanes per
+// scenario, teams per block, threads per block, shared bytes per block, ring
+// slots, shared bytes of one team's state) for float64 (f64 != 0) or float32
+// and the operand groups' B-strides.
+template <class M>
 inline int team_info(int f64, int s_qr, int s_par, long long* out) {
   out[0] = kTeamLanes;
   out[1] = kTeamsPerBlock;
   out[2] = kTeamThreads;
-  out[3] = static_cast<long long>(f64 ? team_block_bytes<double>(s_qr, s_par)
-                                      : team_block_bytes<float>(s_qr, s_par));
+  out[3] = static_cast<long long>(f64 ? team_block_bytes<double, M>(s_qr, s_par)
+                                      : team_block_bytes<float, M>(s_qr, s_par));
   out[4] = kRing;
-  out[5] = static_cast<long long>(f64 ? sizeof(TeamState<double>) : sizeof(TeamState<float>));
+  out[5] = static_cast<long long>(f64 ? sizeof(TeamState<double, M>)
+                                      : sizeof(TeamState<float, M>));
   return 0;
 }
 

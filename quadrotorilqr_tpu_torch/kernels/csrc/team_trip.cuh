@@ -20,6 +20,7 @@
 // the candidate stores are runtime flags), and the two kernels agree bit for
 // bit in float64 where their arithmetic is the same. Each entry's sum order
 // does not depend on the team size, so they agree across team sizes too.
+// Every piece takes the model family M from the team's type, Team<T, M>.
 #pragma once
 
 #include "team.cuh"
@@ -38,8 +39,8 @@ inline namespace QILQR_TEAM_NS(QILQR_TEAM_LANES) {
 // behind a never-inlined call the compiler loses that the team's pointers
 // address shared memory, and a variant's sweep took up to twice as long
 // (PERF.md section 6).
-template <typename T, bool kBox = false, bool kW = false>
-__device__ __forceinline__ void team_backward(const Team<T>& tm, const Problem<T>& P,
+template <typename T, bool kBox = false, bool kW = false, class M>
+__device__ __forceinline__ void team_backward(const Team<T, M>& tm, const Problem<T>& P,
                                               const Problem<T>& Ps, T quu_reg, const Traj<T>& src,
                                               bool merge, const Traj<T>& live, T* gains, T* qutk,
                                               T* ktquuk,
@@ -53,7 +54,8 @@ __device__ __forceinline__ void team_backward(const Team<T>& tm, const Problem<T
     team_riccati_stage<T, false, kBox, kW>(tm, Ps, quu_reg, slot, &a, &c, var);
     sum_qutk = sum_qutk + a;
     sum_ktquuk = sum_ktquuk + c;
-    team_put_row(tm, tm.s->gains, scratch_row(gains, P.B, n, tm.b, 52), 52);
+    team_put_row(tm, tm.s->gains, scratch_row(gains, P.B, n, tm.b, M::kGainsPitch),
+                 M::kGainsPitch);
     return true;
   });
   *qutk = sum_qutk;
@@ -69,18 +71,19 @@ __device__ __forceinline__ void team_backward(const Team<T>& tm, const Problem<T
 // sweep that stores its candidate run the same instructions. The variants:
 // kBox clamps u_n into var's [lo, hi]; kW sums c + w_n (dx'Q dx + du'R du)
 // (rollout.py :108-128; without it the sum keeps its unweighted order).
-template <typename T, bool kBox = false, bool kW = false>
-__device__ __noinline__ T team_rollout(Team<T> tm, Problem<T> P, Traj<T> x, Traj<T> out,
+template <typename T, bool kBox = false, bool kW = false, class M>
+__device__ __noinline__ T team_rollout(Team<T, M> tm, Problem<T> P, Traj<T> x, Traj<T> out,
                                        const T* gains, T alpha, bool store,
                                        VariantOps<T> var = VariantOps<T>{}) {
+  constexpr int NU = M::kNu;
   const Problem<T> Ps = smem_problem(P, tm);
   const Tile tile = team_tile();
   T q[4], t[3], v[6];
   T cost = T(0);
   const RingSrc<T> ring{x, gains, nullptr, kW ? var.w : nullptr, var.s_w};
   ring_sweep(tm, P, ring, false, [&](int n, const T* slot) {
-    T qo[4], to[3], vo[6], uo[4], dx[12], u[4];
-    read_stage(slot + kSlotLive, qo, to, vo, uo);
+    T qo[4], to[3], vo[6], uo[NU], dx[12], u[NU];
+    read_stage<M>(slot + Slot<M>::kLive, qo, to, vo, uo);
     if (n == 0) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) q[i] = qo[i];
@@ -90,26 +93,26 @@ __device__ __noinline__ T team_rollout(Team<T> tm, Problem<T> P, Traj<T> x, Traj
       for (int i = 0; i < 6; ++i) v[i] = vo[i];
     }
     state_minus(q, t, v, qo, to, vo, dx);
-    const T* g = slot + kSlotGains;
+    const T* g = slot + Slot<M>::kGains;
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      T fb = g[4 + a * 12] * dx[0];
+    for (int a = 0; a < NU; ++a) {
+      T fb = g[NU + a * 12] * dx[0];
 #pragma unroll
-      for (int j = 1; j < 12; ++j) fb += g[4 + a * 12 + j] * dx[j];
+      for (int j = 1; j < 12; ++j) fb += g[NU + a * 12 + j] * dx[j];
       u[a] = (uo[a] + alpha * g[a]) + fb;
       if constexpr (kBox) {
         u[a] = clip(u[a], var.bound(var.lo, a, P.B, tm.b), var.bound(var.hi, a, P.B, tm.b));
       }
     }
     T xq, ur;
-    team_cost_terms(tile, tm.lane, tm.cc, slot + kSlotDes, q, t, v, u, &xq, &ur);
+    team_cost_terms(tile, tm.lane, tm.cc, slot + Slot<M>::kDes, q, t, v, u, &xq, &ur);
     if constexpr (kW) {
-      cost = cost + slot[kSlotW] * (xq + ur);
+      cost = cost + slot[Slot<M>::kW] * (xq + ur);
     } else {
       cost = cost + xq + ur;
     }
     if (store) team_store_stage(tm, out, P.B, n, q, t, v, u);
-    dynamics_step(Ps, 0, q, t, v, u);
+    dynamics_step<M>(Ps, 0, q, t, v, u);
     return true;
   });
   return cost;
@@ -117,19 +120,19 @@ __device__ __noinline__ T team_rollout(Team<T> tm, Problem<T> P, Traj<T> x, Traj
 
 // The cost of the team's trajectory x, summed stage by stage as the rollout
 // sums it (solve.py's seed cost), weighted with kW.
-template <typename T, bool kW = false>
-__device__ __forceinline__ T team_trajectory_cost(const Team<T>& tm, const Problem<T>& P,
+template <typename T, bool kW = false, class M>
+__device__ __forceinline__ T team_trajectory_cost(const Team<T, M>& tm, const Problem<T>& P,
                                                   const Traj<T>& x,
                                                   const VariantOps<T>& var = VariantOps<T>{}) {
   const Tile tile = team_tile();
   T cost = T(0);
   const RingSrc<T> ring{x, nullptr, nullptr, kW ? var.w : nullptr, var.s_w};
   ring_sweep(tm, P, ring, false, [&](int n, const T* slot) {
-    T q[4], t[3], v[6], u[4], xq, ur;
-    read_stage(slot + kSlotLive, q, t, v, u);
-    team_cost_terms(tile, tm.lane, tm.cc, slot + kSlotDes, q, t, v, u, &xq, &ur);
+    T q[4], t[3], v[6], u[M::kNu], xq, ur;
+    read_stage<M>(slot + Slot<M>::kLive, q, t, v, u);
+    team_cost_terms(tile, tm.lane, tm.cc, slot + Slot<M>::kDes, q, t, v, u, &xq, &ur);
     if constexpr (kW) {
-      cost = cost + slot[kSlotW] * (xq + ur);
+      cost = cost + slot[Slot<M>::kW] * (xq + ur);
     } else {
       cost = cost + xq + ur;
     }
@@ -144,8 +147,8 @@ __device__ __forceinline__ T team_trajectory_cost(const Team<T>& tm, const Probl
 // that runs out ends on the alpha it last tried. With `store` each probe
 // writes its candidate into `out`; otherwise the probes sum costs only. The
 // probes are team_rollout's (kBox, kW) instantiation.
-template <typename T, bool kBox = false, bool kW = false>
-__device__ __forceinline__ LineSearch<T> team_line_search(const Team<T>& tm, const Problem<T>& P,
+template <typename T, bool kBox = false, bool kW = false, class M>
+__device__ __forceinline__ LineSearch<T> team_line_search(const Team<T, M>& tm, const Problem<T>& P,
                                                           const Traj<T>& x, const Traj<T>& out,
                                                           bool store, const T* gains, T qutk,
                                                           T ktquuk, T current, bool force,
@@ -178,21 +181,21 @@ __device__ __forceinline__ LineSearch<T> team_line_search(const Team<T>& tm, con
 // gradient across its gap, v_x + V_xx d_n, and runs the Riccati stage with
 // quu_reg (exact DDP curvature when kDdp); the gains go to the gains
 // scratch. Never inlined: both FDDP kernels compile it alike.
-template <typename T, bool kDdp>
-__device__ __noinline__ T team_fddp_reverse(Team<T> tm, Problem<T> P, T quu_reg, Traj<T> src,
+template <typename T, bool kDdp, class M>
+__device__ __noinline__ T team_fddp_reverse(Team<T, M> tm, Problem<T> P, T quu_reg, Traj<T> src,
                                             bool merge, Traj<T> live, bool stale, T* gains, T* d,
                                             T gap) {
   const Problem<T> Ps = smem_problem(P, tm);
   const Tile tile = team_tile();
-  TeamState<T>& S = *tm.s;
+  TeamState<T, M>& S = *tm.s;
   if (stale) gap = T(0);
   team_zero_value(tm);
   T q1[4], t1[3], v1[6];  // stage n + 1, from the step before
   ring_sweep(tm, P, RingSrc<T>{src, nullptr, stale ? nullptr : d}, true,
              [&](int n, const T* slot) {
     if (merge) team_merge_stage(tm, live, P.B, n, slot);
-    T q[4], t[3], v[6], u[4], dk[12];
-    read_stage(slot + kSlotLive, q, t, v, u);
+    T q[4], t[3], v[6], u[M::kNu], dk[12];
+    read_stage<M>(slot + Slot<M>::kLive, q, t, v, u);
     if (stale) {
       if (n < P.N - 1) {
         T qn[4], tn[3], vn[6];
@@ -202,7 +205,7 @@ __device__ __noinline__ T team_fddp_reverse(Team<T> tm, Problem<T> P, T quu_reg,
         for (int j = 0; j < 3; ++j) tn[j] = t[j];
 #pragma unroll
         for (int j = 0; j < 6; ++j) vn[j] = v[j];
-        dynamics_step(Ps, 0, qn, tn, vn, u);
+        dynamics_step<M>(Ps, 0, qn, tn, vn, u);
         state_minus(qn, tn, vn, q1, t1, v1, dk);
 #pragma unroll
         for (int j = 0; j < 12; ++j) gap = nan_max(gap, f_abs(dk[j]));
@@ -216,7 +219,7 @@ __device__ __noinline__ T team_fddp_reverse(Team<T> tm, Problem<T> P, T quu_reg,
       team_put_row(tm, S.dk, scratch_row(d, P.B, n, tm.b, 12), 12);
     } else {
 #pragma unroll
-      for (int j = 0; j < 12; ++j) dk[j] = slot[kSlotD + j];
+      for (int j = 0; j < 12; ++j) dk[j] = slot[Slot<M>::kD + j];
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) q1[j] = q[j];
@@ -234,7 +237,8 @@ __device__ __noinline__ T team_fddp_reverse(Team<T> tm, Problem<T> P, T quu_reg,
     tile.sync();
     T qutk, ktquuk;
     team_riccati_stage<T, kDdp>(tm, Ps, quu_reg, slot, &qutk, &ktquuk);
-    team_put_row(tm, S.gains, scratch_row(gains, P.B, n, tm.b, 52), 52);
+    team_put_row(tm, S.gains, scratch_row(gains, P.B, n, tm.b, M::kGainsPitch),
+                 M::kGainsPitch);
     return true;
   });
   return gap;
@@ -258,8 +262,8 @@ struct GapSweep {
 // the fold freezes: nothing later can change it. Never inlined, and the
 // flags are runtime values: the probes and an apply sweep run the same
 // instructions.
-template <typename T, bool kDdp>
-__device__ __noinline__ GapSweep<T> team_gap_sweep(Team<T> tm, Problem<T> P, Traj<T> x,
+template <typename T, bool kDdp, class M>
+__device__ __noinline__ GapSweep<T> team_gap_sweep(Team<T, M> tm, Problem<T> P, Traj<T> x,
                                                    Traj<T> out, const T* gains, const T* d,
                                                    T alpha, bool model, bool sat, T gdj, T current,
                                                    T cap, bool store) {
@@ -270,8 +274,8 @@ __device__ __noinline__ GapSweep<T> team_gap_sweep(Team<T> tm, Problem<T> P, Tra
   for (int j = 0; j < 12; ++j) p[j] = T(0);
   ring_sweep(tm, P, RingSrc<T>{x, gains, d}, false, [&](int n, const T* slot) {
     if (sat && (o.c - current) > gdj) return false;  // frozen
-    T qo[4], to[3], vo[6], uo[4], dx[12];
-    read_stage(slot + kSlotLive, qo, to, vo, uo);
+    T qo[4], to[3], vo[6], uo[M::kNu], dx[12];
+    read_stage<M>(slot + Slot<M>::kLive, qo, to, vo, uo);
     if (n == 0) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) q[i] = qo[i];
@@ -283,14 +287,14 @@ __device__ __noinline__ GapSweep<T> team_gap_sweep(Team<T> tm, Problem<T> P, Tra
     // model terms at the live stage (not the rollout carry)
     T p2[12];
     if (model) team_model_stage<T, kDdp>(tm, Ps, slot, p, p2, &o.l1, &o.l2);
-    StageVals<T> sv;
+    StageVals<T, M> sv;
     state_minus(q, t, v, qo, to, vo, dx);
-    const T* g = slot + kSlotGains;
+    const T* g = slot + Slot<M>::kGains;
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      T fb = g[4 + a * 12] * dx[0];
+    for (int a = 0; a < M::kNu; ++a) {
+      T fb = g[M::kNu + a * 12] * dx[0];
 #pragma unroll
-      for (int j = 1; j < 12; ++j) fb += g[4 + a * 12 + j] * dx[j];
+      for (int j = 1; j < 12; ++j) fb += g[M::kNu + a * 12 + j] * dx[j];
       sv.u[a] = (uo[a] + alpha * g[a]) + fb;
     }
 #pragma unroll
@@ -299,7 +303,7 @@ __device__ __noinline__ GapSweep<T> team_gap_sweep(Team<T> tm, Problem<T> P, Tra
     for (int i = 0; i < 3; ++i) sv.t[i] = t[i];
 #pragma unroll
     for (int i = 0; i < 6; ++i) sv.v[i] = v[i];
-    const T cs = team_fddp_stage_cost(tm.cc, slot + kSlotDes, sv);
+    const T cs = team_fddp_stage_cost(tm.cc, slot + Slot<M>::kDes, sv);
     if (sat) {
       const bool frozen = (o.c - current) > gdj;
       T c2 = o.c + cs;
@@ -309,11 +313,11 @@ __device__ __noinline__ GapSweep<T> team_gap_sweep(Team<T> tm, Problem<T> P, Tra
       o.c = o.c + cs;
     }
     if (store) team_store_stage(tm, out, P.B, n, q, t, v, sv.u);
-    dynamics_step(Ps, 0, q, t, v, sv.u);
+    dynamics_step<M>(Ps, 0, q, t, v, sv.u);
     T tau[12], qe[4], te[3], qn[4], tn[3];
     const T shrink = -(T(1) - alpha);
 #pragma unroll
-    for (int i = 0; i < 12; ++i) tau[i] = shrink * slot[kSlotD + i];
+    for (int i = 0; i < 12; ++i) tau[i] = shrink * slot[Slot<M>::kD + i];
     se3_exp(tau, qe, te);
     se3_multiply(q, t, qe, te, qn, tn);
 #pragma unroll
@@ -324,7 +328,7 @@ __device__ __noinline__ GapSweep<T> team_gap_sweep(Team<T> tm, Problem<T> P, Tra
     for (int i = 0; i < 6; ++i) v[i] = v[i] + tau[6 + i];
     if (model) {
 #pragma unroll
-      for (int j = 0; j < 12; ++j) p[j] = p2[j] + slot[kSlotD + j];
+      for (int j = 0; j < 12; ++j) p[j] = p2[j] + slot[Slot<M>::kD + j];
     }
     ++o.stages;
     return true;
@@ -334,14 +338,14 @@ __device__ __noinline__ GapSweep<T> team_gap_sweep(Team<T> tm, Problem<T> P, Tra
 
 // The FDDP seed: the team's trajectory cost, stage costs summed from 0 up
 // (fddp.py cseed).
-template <typename T>
-__device__ __forceinline__ T team_fddp_cost(const Team<T>& tm, const Problem<T>& P,
+template <typename T, class M>
+__device__ __forceinline__ T team_fddp_cost(const Team<T, M>& tm, const Problem<T>& P,
                                             const Traj<T>& x) {
   T cost = T(0);
   ring_sweep(tm, P, RingSrc<T>{x, nullptr, nullptr}, false, [&](int n, const T* slot) {
-    StageVals<T> sv;
-    read_stage(slot + kSlotLive, sv.q, sv.t, sv.v, sv.u);
-    cost = cost + team_fddp_stage_cost(tm.cc, slot + kSlotDes, sv);
+    StageVals<T, M> sv;
+    read_stage<M>(slot + Slot<M>::kLive, sv.q, sv.t, sv.v, sv.u);
+    cost = cost + team_fddp_stage_cost(tm.cc, slot + Slot<M>::kDes, sv);
     return true;
   });
   return cost;
@@ -357,8 +361,8 @@ __device__ __forceinline__ T team_fddp_cost(const Team<T>& tm, const Problem<T>&
 // (an accepted probe always runs the whole horizon: a frozen fold rejects);
 // otherwise the probes sum costs only. With no probes the search rejects.
 // Never inlined: both FDDP kernels compile it alike.
-template <typename T, bool kDdp>
-__device__ __noinline__ LineSearch<T> team_fddp_line_search(Team<T> tm, Problem<T> P,
+template <typename T, bool kDdp, class M>
+__device__ __noinline__ LineSearch<T> team_fddp_line_search(Team<T, M> tm, Problem<T> P,
                                                             FddpKnobs<T> k, Traj<T> x,
                                                             Traj<T> out, bool store,
                                                             const T* gains, const T* d,

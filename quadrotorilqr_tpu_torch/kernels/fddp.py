@@ -18,19 +18,20 @@ tensors and takes `solve_fddp_whole_reference` (the plain loop
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
-from ..models.quadrotor import CONTROL_DIM
 from ..solver import fddp
 from ..solver.options import ILQROptions
 from . import _build
 from .backward import (
-    GAINS_WIDTH,
     _check_cuda,
     _on,
     _problem_operands,
     _traj_from_lanes,
     _traj_lanes,
+    count_launch,
 )
 
 
@@ -73,7 +74,7 @@ def solve_fddp_fused(
     whose reverse sweep computed the defects (B,) int32 (the first trip and
     each one after an accepted trip), both counted over this call."""
     fo = fddp.FDDPOptions() if fddp_options is None else fddp_options
-    fddp.check_supported(cost, model, limits)
+    fddp.check_supported(cost, model, limits, params=params)
     controls = traj.controls
     device = controls.device
     if device.type == "cpu":
@@ -84,7 +85,7 @@ def solve_fddp_fused(
         _check_cuda(device)
         out = _launch(params, cost, traj, dt_s, options, fo, ddp, initial_mu, initial_status,
                       initial_iters)
-        solve_fddp_fused.launches += 1
+        count_launch(solve_fddp_fused)
     return out[:4] + ((out[4],) if return_mu else ()) + (out[5:] if return_probes else ())
 
 
@@ -102,8 +103,9 @@ def _launch(
     cc = options.convergence_criteria
     ls = options.line_search_params
     ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device)
+    u = ops.lm.u_dim  # the quadrotor's: check_supported refuses the other families
     kw = dict(dtype=dtype, device=device)
-    live = [torch.empty((n, d, batch), **kw) for d in (4, 3, 6, CONTROL_DIM)]
+    live = [torch.empty((n, d, batch), **kw) for d in (4, 3, 6, u)]
     applies = [torch.empty((batch,), dtype=torch.int32, device=device)] if streamed else []
     cost_out, mu_out, probes = (torch.empty((batch,), **kw) for _ in range(3))
     iters, status, defect_trips = (
@@ -111,15 +113,15 @@ def _launch(
     )
     # one contiguous row per scenario and stage: k | K, and the defects
     # (csrc/team.cuh); fddp.cu also keeps the line search's candidate
-    gains, defects = (torch.empty((n, batch, w), **kw) for w in (GAINS_WIDTH, 12))
-    best = [] if streamed else [torch.empty((n, d, batch), **kw) for d in (4, 3, 6, CONTROL_DIM)]
+    gains, defects = (torch.empty((n, batch, w), **kw) for w in (ops.lm.gains_pitch(), 12))
+    best = [] if streamed else [torch.empty((n, d, batch), **kw) for d in (4, 3, 6, u)]
     rows = [
         _resume_row(initial_mu, batch, dtype, device),
         _resume_row(initial_status, batch, torch.int32, device),
         _resume_row(initial_iters, batch, torch.int32, device),
     ]
     ops = ops.extend(
-        [*_traj_lanes(traj, dtype, device), *rows, *live, cost_out, iters, status, mu_out,
+        [*_traj_lanes(traj, dtype, device, u), *rows, *live, cost_out, iters, status, mu_out,
          probes, gains, *best, defects, defect_trips, *applies],
         ints=[int(cc.max_iters), int(ls.max_iters), int(bool(ddp))],
         reals=[
@@ -137,4 +139,4 @@ def _launch(
     )
 
 
-solve_fddp_fused.launches = 0
+solve_fddp_fused.launches = collections.Counter()

@@ -9,8 +9,10 @@ with a per-scenario alpha, and the new trajectory's cost summed in the same
 sweep. `rollout_cost_fused` launches `csrc/rollout.cu` (one team of lanes
 of a warp per scenario, `csrc/team.cuh`) for CUDA tensors and takes
 `rollout_cost_reference` only for CPU tensors. The kernel reads the gains
-as the backward kernel writes them, one (N, B, 52) k|K buffer: gains that
-`backward_pass_fused` returned pass as that buffer, without a copy.
+as the backward kernel writes them, one (N, B, P) k|K buffer: gains that
+`backward_pass_fused` returned pass as that buffer, without a copy. The
+model family (its dynamics step and control width) comes from the params
+type or `model=`, as for the backward pass.
 
 With control limits (`limits=(lo, hi)`) the kernel clamps each control
 into [lo, hi] (JAX `use_box`); with stage weights on the cost it sums
@@ -25,9 +27,10 @@ prepared once.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
-from ..models.quadrotor import CONTROL_DIM
 from ..solver import constrained, ilqr
 from . import _build
 from . import backward as kb
@@ -39,54 +42,62 @@ from .backward import (
     _traj_from_lanes,
     _traj_lanes,
     backward_pass_fused,
+    count_launch,
     gains_buffer,
 )
 
 
-def rollout_cost_reference(params, cost, traj, ks, big_ks, alpha, dt_s, limits=None):
+def rollout_cost_reference(params, cost, traj, ks, big_ks, alpha, dt_s, limits=None,
+                           model=None):
     """Plain PyTorch version: `solver.ilqr.forward_sim` (clamped with
-    limits) and the new trajectory's cost, summed stage by stage in the
-    kernel's order."""
+    limits) on the params' model family (or `model`) and the new
+    trajectory's cost, summed stage by stage in the kernel's order."""
     box = None
     if limits is not None:
         controls = traj.controls
-        box = constrained.prep_limits(limits, controls.shape[0], controls.dtype, controls.device)
-    return ilqr.rollout_cost(params, cost, traj, ks, big_ks, alpha, dt_s, box)
+        box = constrained.prep_limits(
+            limits, controls.shape[0], controls.dtype, controls.device, controls.shape[-1]
+        )
+    return ilqr.rollout_cost(params, cost, traj, ks, big_ks, alpha, dt_s, box, model)
 
 
-def rollout_cost_fused(params, cost, traj, ks, big_ks, alpha, dt_s, active=None, limits=None):
-    """Batched rollout: traj leaves (B, N, ...), ks (B, N, 4),
-    Ks (B, N, 4, 12), alpha (B,). `active` (B,) bool marks the lanes whose
+def rollout_cost_fused(params, cost, traj, ks, big_ks, alpha, dt_s, active=None, limits=None,
+                       model=None):
+    """Batched rollout: traj leaves (B, N, ...), ks (B, N, u),
+    Ks (B, N, u, 12), alpha (B,). `active` (B,) bool marks the lanes whose
     outputs the caller reads (None: all). `limits=(lo, hi)` clamps the
     controls; stage weights come with the cost.
     Returns (Trajectory with (B, N, ...) leaves, cost (B,))."""
     controls = traj.controls
     device = controls.device
     if device.type == "cpu":
-        return rollout_cost_reference(params, cost, traj, ks, big_ks, alpha, dt_s, limits)
+        return rollout_cost_reference(params, cost, traj, ks, big_ks, alpha, dt_s, limits, model)
     _check_cuda(device)
     dtype = controls.dtype
     batch, n = controls.shape[0], controls.shape[1]
-    if ks.shape != (batch, n, CONTROL_DIM) or big_ks.shape != (batch, n, CONTROL_DIM, 12):
+    ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device, limits, True, model)
+    u = ops.lm.u_dim
+    if ks.shape != (batch, n, u) or big_ks.shape != (batch, n, u, 12):
         raise ValueError(f"gains of shapes {tuple(ks.shape)}, {tuple(big_ks.shape)}")
-    ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device, limits, True)
-    return _launch(ops, traj, gains_buffer(ks, big_ks, dtype, device), alpha, active)
+    return _launch(ops, traj, gains_buffer(ks, big_ks, dtype, device, ops.lm.gains_pitch()),
+                   alpha, active)
 
 
 def _launch(ops, traj, gains, alpha, active):
     """The kernel on CUDA tensors, with the Problem operands `ops` packed
-    by `_problem_operands` and the gains as one (N, B, 52) buffer."""
+    by `_problem_operands` and the gains as one (N, B, P) buffer."""
     controls = traj.controls
     dtype, device = controls.dtype, controls.device
     batch, n = controls.shape[0], controls.shape[1]
     if alpha.shape != (batch,):
         raise ValueError(f"alpha must be ({batch},), got {tuple(alpha.shape)}")
     kw = dict(dtype=dtype, device=device)
-    out = [torch.empty((n, d, batch), **kw) for d in (4, 3, 6, CONTROL_DIM)]
+    u = ops.lm.u_dim
+    out = [torch.empty((n, d, batch), **kw) for d in (4, 3, 6, u)]
     cost_out = torch.empty((batch,), **kw)
     ops = ops.extend(
         [
-            *_traj_lanes(traj, dtype, device),
+            *_traj_lanes(traj, dtype, device, u),
             gains,
             _on(alpha, dtype, device).contiguous(),
             _active_lanes(active, batch, device),
@@ -94,18 +105,19 @@ def _launch(ops, traj, gains, alpha, active):
             cost_out,
         ]
     )
-    _build.launch("qilqr_rollout", dtype, ops.ptrs, ops.ints, ops.reals, device)
-    rollout_cost_fused.launches += 1
+    _build.launch(ops.entry("rollout"), dtype, ops.ptrs, ops.ints, ops.reals, device)
+    count_launch(rollout_cost_fused, ops.lm.suffix)
     return _traj_from_lanes(traj.times, *out), cost_out
 
 
-rollout_cost_fused.launches = 0
+rollout_cost_fused.launches = collections.Counter()
 
 
-def per_pass_kernels(params, cost, traj, dt_s, quu_reg, limits=None):
+def per_pass_kernels(params, cost, traj, dt_s, quu_reg, limits=None, model=None):
     """(backward(t, active), rollout(t, ks, Ks, alpha, active), traj) for
-    `solver.ilqr.solve_loop` on the per-pass kernels (their box and weights
-    variants with limits and stage weights).
+    `solver.ilqr.solve_loop` on the per-pass kernels of the params' model
+    family (or `model`; the box and weights variants with limits and stage
+    weights).
 
     On a CUDA batch the Problem operands are packed once for every launch of
     the solve, and `traj` comes back with its leaves as views of the
@@ -117,21 +129,23 @@ def per_pass_kernels(params, cost, traj, dt_s, quu_reg, limits=None):
     device = controls.device
     if device.type == "cpu":
         return (
-            lambda t, act: backward_pass_fused(params, cost, t, dt_s, quu_reg, act, limits),
+            lambda t, act: backward_pass_fused(params, cost, t, dt_s, quu_reg, act, limits, model),
             lambda t, ks, big_ks, alpha, act: rollout_cost_fused(
-                params, cost, t, ks, big_ks, alpha, dt_s, act, limits
+                params, cost, t, ks, big_ks, alpha, dt_s, act, limits, model
             ),
             traj,
         )
     _check_cuda(device)
     dtype = controls.dtype
     batch, n = controls.shape[0], controls.shape[1]
-    ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device, limits, True)
+    ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device, limits, True, model)
+    pitch = ops.lm.gains_pitch()
 
     def backward(t, act):
         return kb._launch(ops, t, quu_reg, act)
 
     def rollout(t, ks, big_ks, alpha, act):
-        return _launch(ops, t, gains_buffer(ks, big_ks, dtype, device), alpha, act)
+        return _launch(ops, t, gains_buffer(ks, big_ks, dtype, device, pitch), alpha, act)
 
-    return backward, rollout, _traj_from_lanes(traj.times, *_traj_lanes(traj, dtype, device))
+    lanes = _traj_lanes(traj, dtype, device, ops.lm.u_dim)
+    return backward, rollout, _traj_from_lanes(traj.times, *lanes)

@@ -16,35 +16,37 @@ The JAX function's `chunk` sets the stages its TPU kernel streams through a
 VMEM window at a time. Here every stage lives in device memory and the
 kernel prefetches a fixed number of stages ahead into shared memory, so
 there is no `chunk` parameter; `interpret` and `supertile` are TPU options
-too.
+too. The model family comes from the params type or `model=`, as for
+`kernels/solve.py`.
 """
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
-from ..models.quadrotor import CONTROL_DIM
 from ..solver import ilqr
 from ..solver.options import ILQROptions
 from . import _build
 from .backward import (
-    GAINS_WIDTH,
     _check_cuda,
     _problem_operands,
     _traj_from_lanes,
     _traj_lanes,
+    count_launch,
 )
 from .solve import counted_plain_solve
 
 
-def solve_streamed_reference(params, cost, traj, dt_s, options: ILQROptions):
+def solve_streamed_reference(params, cost, traj, dt_s, options: ILQROptions, model=None):
     """Plain PyTorch version: `solver.ilqr.solve_loop` on the plain pieces
     with the streamed schedule (cost-only probes, one apply rollout at the
     last tried alpha). Returns (Trajectory, cost, iterations int32, status
     int32, backward passes int32, probe sweeps int32, apply sweeps int32),
     each (B,) after the trajectory, the counts per lane as the kernel counts
     them."""
-    r, counts = counted_plain_solve(params, cost, traj, dt_s, options, streamed=True)
+    r, counts = counted_plain_solve(params, cost, traj, dt_s, options, streamed=True, model=model)
     return (r.trajectory, r.cost, r.iterations, r.status, *counts)
 
 
@@ -72,37 +74,38 @@ def solve_fused_streamed(
         )
     device = traj.controls.device
     if device.type == "cpu":
-        out = solve_streamed_reference(params, cost, traj, dt_s, options)
+        out = solve_streamed_reference(params, cost, traj, dt_s, options, model)
     else:
         _check_cuda(device)
-        out = _launch(params, cost, traj, dt_s, options)
+        out = _launch(params, cost, traj, dt_s, options, model)
     return out if return_probes else out[:4]
 
 
-def _launch(params, cost, traj, dt_s, options):
+def _launch(params, cost, traj, dt_s, options, model=None):
     dtype = traj.controls.dtype
     device = traj.controls.device
     batch, n = traj.controls.shape[0], traj.controls.shape[1]
     cc = options.convergence_criteria
     ls = options.line_search_params
-    ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device)
+    ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device, model=model)
+    u = ops.lm.u_dim
     kw = dict(dtype=dtype, device=device)
-    live = [torch.empty((n, d, batch), **kw) for d in (4, 3, 6, CONTROL_DIM)]
+    live = [torch.empty((n, d, batch), **kw) for d in (4, 3, 6, u)]
     cost_out = torch.empty((batch,), **kw)
     iters, status, passes, probes, applies = (
         torch.empty((batch,), dtype=torch.int32, device=device) for _ in range(5)
     )
     # k | K of every stage, one contiguous row per scenario (csrc/team.cuh)
-    gains = torch.empty((n, batch, GAINS_WIDTH), **kw)
+    gains = torch.empty((n, batch, ops.lm.gains_pitch()), **kw)
     ops = ops.extend(
-        [*_traj_lanes(traj, dtype, device), *live, cost_out, iters, status, gains, passes,
+        [*_traj_lanes(traj, dtype, device, u), *live, cost_out, iters, status, gains, passes,
          probes, applies],
         ints=[int(cc.max_iters), int(ls.max_iters)],
         reals=[options.quu_reg, cc.rtol, cc.atol, ls.step_update, ls.desired_reduction_frac],
     )
-    _build.launch("qilqr_stream", dtype, ops.ptrs, ops.ints, ops.reals, device)
-    solve_fused_streamed.launches += 1
+    _build.launch(ops.entry("stream"), dtype, ops.ptrs, ops.ints, ops.reals, device)
+    count_launch(solve_fused_streamed, ops.lm.suffix)
     return _traj_from_lanes(traj.times, *live), cost_out, iters, status, passes, probes, applies
 
 
-solve_fused_streamed.launches = 0
+solve_fused_streamed.launches = collections.Counter()

@@ -24,9 +24,11 @@ too.
 
 from __future__ import annotations
 
+import collections
+
 from ..solver import fddp
 from ..solver.options import ILQROptions
-from .backward import _check_cuda
+from .backward import _check_cuda, count_launch
 from .fddp import _launch
 
 
@@ -56,7 +58,7 @@ def solve_fddp_streamed(
     probes ran / N), the trips that computed the defects (B,) int32 and the
     apply sweeps (B,) int32, all counted over this call."""
     fo = fddp.FDDPOptions() if fddp_options is None else fddp_options
-    fddp.check_supported(cost, model, limits)
+    fddp.check_supported(cost, model, limits, params=params)
     device = traj.controls.device
     if device.type == "cpu":
         out = solve_fddp_streamed_reference(
@@ -66,8 +68,8 @@ def solve_fddp_streamed(
         _check_cuda(device)
         out = _launch(params, cost, traj, dt_s, options, fo, ddp, initial_mu, initial_status,
                       initial_iters, streamed=True)
-        solve_fddp_streamed.launches += 1
+        count_launch(solve_fddp_streamed)
     return out[:4] + ((out[4],) if return_mu else ()) + (out[5:] if return_probes else ())
 
 
-solve_fddp_streamed.launches = 0
+solve_fddp_streamed.launches = collections.Counter()

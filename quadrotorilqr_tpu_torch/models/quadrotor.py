@@ -14,6 +14,7 @@ chain-ruled Jacobians J_x = J_lhs + dt J_rhs J_cont_x, J_u = dt J_rhs J_cont_u.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -67,25 +68,27 @@ class QuadrotorParams:
 
     def validate(self):
         """Host-side symmetric positive-definite check of the inertia."""
-        inertia = self.inertia.detach().cpu().numpy()
-        if not np.allclose(inertia, np.swapaxes(inertia, -1, -2)):
-            raise ValueError("Inertia matrix is not symmetric!")
-        if not (np.linalg.eigvalsh(inertia) > 0).all():
-            raise ValueError("Inertia matrix is not positive definite!")
+        validate_inertia(self.inertia)
         return self
 
 
-def params_over_stages(params: QuadrotorParams) -> QuadrotorParams:
+def validate_inertia(inertia):
+    """Raise unless the inertia (..., 3, 3) is symmetric positive definite."""
+    inertia = inertia.detach().cpu().numpy()
+    if not np.allclose(inertia, np.swapaxes(inertia, -1, -2)):
+        raise ValueError("Inertia matrix is not symmetric!")
+    if not (np.linalg.eigvalsh(inertia) > 0).all():
+        raise ValueError("Inertia matrix is not positive definite!")
+
+
+def params_over_stages(params):
     """Per-scenario params (B, ...) -> (B, 1, ...), so they broadcast
-    against (B, N, ...) stage-stacked states. Shared params pass through."""
+    against (B, N, ...) stage-stacked states; any model family's params
+    dataclass. Shared params pass through."""
     if not params.batched:
         return params
-    return QuadrotorParams(
-        mass_kg=params.mass_kg[:, None],
-        inertia=params.inertia[:, None],
-        arm_length_m=params.arm_length_m[:, None],
-        torque_to_thrust_ratio_m=params.torque_to_thrust_ratio_m[:, None],
-        g_mpss=params.g_mpss[:, None],
+    return dataclasses.replace(
+        params, **{f.name: getattr(params, f.name)[:, None] for f in dataclasses.fields(params)}
     )
 
 

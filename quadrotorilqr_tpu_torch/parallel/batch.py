@@ -9,7 +9,8 @@ from ..tree import tree_map
 def initial_trajectory_from_state(x0, desired: Trajectory) -> Trajectory:
     """The desired trajectory's times and controls with each scenario's
     initial state at stage 0. x0 leaves may carry a leading batch dim;
-    `desired` is shared. The solver's trip-0 full rollout makes it feasible."""
+    `desired` is shared, its controls (N, u) any model's width. The solver's
+    trip-0 full rollout makes it feasible."""
     batch = x0.vel.shape[:-1]
 
     def with_x0(leaf, x):

@@ -19,6 +19,15 @@ Counterpart of `quadrotorilqr_tpu/solver/batched.py`:
     streamed kernel has neither yet: a limited or weighted request past
     STREAM_HORIZON stages on `solve_batch_latency` raises (ROADMAP Queue 2
     item E), and so does one on the FDDP solvers (item F).
+  * Both exact routes take the model families: `model=`, or the family the
+    params type names (`solver.ilqr.resolve_model`): the quadrotor, the
+    SE(3) body wrench (u = 6) and the R-rotor multirotor (u = R; the
+    kernels take R = 4, which is the quadrotor's kernels, 6 and 8). Their
+    route point to the streamed kernel is the JAX package's for the
+    control width (`stream_horizon`). On the card the wrench and multirotor
+    kernels have no box, weights or record instantiation: those requests
+    raise (ROADMAP Queue 1 item 11c), as do other rotor counts (11d) and
+    the FDDP solvers with such a family (11b).
   * `solve_batch_fddp` runs the robust FDDP loop in one kernel launch:
     `kernels/fddp.py` up to STREAM_HORIZON_FDDP stages,
     `kernels/stream_fddp.py` past it; with `refine` it goes to
@@ -40,6 +49,7 @@ import torch
 
 from ..costs import quadratic as qc
 from ..kernels.fddp import solve_fddp_fused
+from ..kernels.models import lane_model_for
 from ..kernels.rollout import per_pass_kernels
 from ..kernels.solve import solve_fused_whole
 from ..kernels.stream import solve_fused_streamed
@@ -47,6 +57,7 @@ from ..kernels.stream_fddp import solve_fddp_streamed
 from . import fddp
 from .ilqr import (
     CONTINUATION_TODO,
+    FAMILY_VARIANTS_TODO,
     STREAM_VARIANTS_TODO,
     CostHistory,
     SolveResult,
@@ -56,15 +67,23 @@ from .ilqr import (
 )
 from .options import ILQROptions
 
-# The JAX package's switch points to its streamed kernels for the quadrotor
-# (u = 4): max_horizon_for(4) = 256 stages (quadrotorilqr_tpu/kernels/
-# solve.py:68-76) and max_horizon_for_fddp(4) = 231 (kernels/fddp.py:125-128).
+
+def stream_horizon(u_dim):
+    """The JAX package's switch point to its streamed exact kernel for a
+    control width u: max_horizon_for(u) = 256 * 112 // (48 + 16 u) stages
+    (quadrotorilqr_tpu/kernels/solve.py:70-75): 256 at u = 4, 199 at 6, 162
+    at 8."""
+    return 256 * 112 // (48 + 16 * u_dim)
+
+
+# The JAX package's switch points for the quadrotor (u = 4): max_horizon_for(4)
+# = 256 stages and max_horizon_for_fddp(4) = 231 (kernels/fddp.py:125-128).
 # There they are the VMEM budgets of the whole-solve kernels; here they are
 # route points only, so that each horizon runs the reference's engine. On
 # the H100 the streamed engines are a few percent slower than their
 # whole-solve twins at these horizons (PERF.md): the route costs time until
 # one engine per solver is at least as fast as both.
-STREAM_HORIZON = 256
+STREAM_HORIZON = stream_horizon(4)
 STREAM_HORIZON_FDDP = 231
 
 
@@ -85,11 +104,12 @@ def solve_batch_fused(
     limits=None,
 ) -> SolveResult:
     """Batched iLQR, one backward and one rollout launch at a time;
-    initial_trajs leaves are (B, N, ...), any N. With `limits` or stage
-    weights each launch is the kernel's box or weights variant."""
+    initial_trajs leaves are (B, N, ...), any N; the model family is the
+    params' (or `model=`). With `limits` or stage weights each launch is the
+    kernel's box or weights variant."""
     _refuse(continuation, model)
     backward, rollout, trajs = per_pass_kernels(
-        params, cost, initial_trajs, dt_s, options.quu_reg, limits
+        params, cost, initial_trajs, dt_s, options.quu_reg, limits, model
     )
     return solve_loop(
         backward,
@@ -111,11 +131,11 @@ def solve_batch_latency(
     limits=None,
 ) -> SolveResult:
     """Batched iLQR with the whole loop in one kernel launch (the streamed
-    kernel past STREAM_HORIZON stages); lane for lane the same result as
-    `solve_batch_fused`. Limits and stage weights run `solve.cu`'s box and
-    weights variants; past STREAM_HORIZON stages they raise
-    NotImplementedError (ROADMAP Queue 2 item E), never running without
-    them or on the batch loop.
+    kernel past `stream_horizon(u)` stages, STREAM_HORIZON for the
+    quadrotor); lane for lane the same result as `solve_batch_fused`. Limits
+    and stage weights run `solve.cu`'s box and weights variants; past the
+    route point they raise NotImplementedError (ROADMAP Queue 2 item E),
+    never running without them or on the batch loop.
 
     With `options.populate_debug` the whole-solve kernel records the
     per-trip cost history, and `debug` is a CostHistory: the costs and
@@ -123,16 +143,24 @@ def solve_batch_latency(
     snapshots. Past STREAM_HORIZON stages (the streamed kernel records no
     history) and for zero-probe line searches the request goes to
     `solve_batch_fused`, whose `debug` is the full IterDebug, as the JAX
-    package routes it."""
+    package routes it. On the card a wrench or multirotor model has no
+    recorded instantiation: `populate_debug` raises with it (ROADMAP Queue 1
+    item 11c)."""
     _refuse(continuation, model)
-    streamed = initial_trajs.controls.shape[1] > STREAM_HORIZON
+    lm = lane_model_for(params, model)
+    streamed = initial_trajs.controls.shape[1] > stream_horizon(lm.u_dim)
     if streamed and (limits is not None or cost.stage_weights is not None):
         raise NotImplementedError(STREAM_VARIANTS_TODO)
+    on_card = initial_trajs.controls.device.type != "cpu"
+    if options.populate_debug and on_card and lm.suffix != "":
+        raise NotImplementedError(FAMILY_VARIANTS_TODO)
     if options.line_search_params.max_iters < 1 or (options.populate_debug and streamed):
-        return solve_batch_fused(params, cost, initial_trajs, dt_s, options, limits=limits)
+        return solve_batch_fused(params, cost, initial_trajs, dt_s, options, model=model,
+                                 limits=limits)
     if options.populate_debug:
         traj, cost_v, iterations, status, hist = solve_fused_whole(
-            params, cost, initial_trajs, dt_s, options, limits=limits, return_history=True
+            params, cost, initial_trajs, dt_s, options, model=model, limits=limits,
+            return_history=True,
         )
         # a lane's executed updates are its first trips, so valid is
         # arange < iterations (the batch loop's valid buffer)
@@ -141,11 +169,11 @@ def solve_batch_latency(
         return SolveResult(traj, cost_v, iterations, status, debug)
     if streamed:
         traj, cost_v, iterations, status = solve_fused_streamed(
-            params, cost, initial_trajs, dt_s, options
+            params, cost, initial_trajs, dt_s, options, model=model
         )
     else:
         traj, cost_v, iterations, status = solve_fused_whole(
-            params, cost, initial_trajs, dt_s, options, limits=limits
+            params, cost, initial_trajs, dt_s, options, model=model, limits=limits
         )
     return SolveResult(trajectory=traj, cost=cost_v, iterations=iterations, status=status)
 
@@ -197,7 +225,7 @@ def solve_batch_fddp(
     (and, with ddp=False, the hybrid curvature); an int or tuple passes
     through as explicit phase boundaries (`solve_batch_fddp_refine`)."""
     fo = fddp.FDDPOptions() if fddp_options is None else fddp_options
-    fddp.check_supported(cost, model, limits)
+    fddp.check_supported(cost, model, limits, params=params)
     if refine is not None:
         bounds, ddp_r = refine, ddp
         if refine == "auto":
@@ -251,7 +279,7 @@ def solve_batch_fddp_refine(
     their work; a CUDA thread whose lane is frozen returns at once, so
     there is nothing to compact."""
     fo = fddp.FDDPOptions() if fddp_options is None else fddp_options
-    fddp.check_supported(cost, model, limits)
+    fddp.check_supported(cost, model, limits, params=params)
     if isinstance(ddp, tuple) and len(set(bool(f) for f in ddp)) == 1:
         ddp = bool(ddp[0])
     hybrid = isinstance(ddp, tuple)

@@ -17,8 +17,9 @@ DDP after Tassa, Mansard & Todorov, ICRA 2014):
 
 `backward_pass_box` with the clamped rollout makes the plain versions that
 the CUDA kernels' box variants (`csrc/backward.cu`, `rollout.cu`,
-`solve.cu` with `kBox`) are held against. Bounds are scalars, (4,) shared,
-or (B, 4) per scenario (`prep_limits`).
+`solve.cu` with `kBox`) are held against. Bounds are scalars, (u,) shared,
+or (B, u) per scenario (`prep_limits`), u the control width; the kernels'
+box variants are the quadrotor's (u = 4).
 """
 
 from __future__ import annotations
@@ -41,15 +42,17 @@ def _bound(b, dtype, device):
     return torch.as_tensor(b, dtype=dtype, device=device)
 
 
-def prep_limits(limits, batch, dtype, device):
-    """(lo, hi) as tensors: both (4,) when each bound is a scalar or (4,)
-    shared by the batch, both (B, 4) when either is per scenario (a shared
-    one is broadcast up), as the JAX package's `_prep_limits`."""
+def prep_limits(limits, batch, dtype, device, u_dim):
+    """(lo, hi) as tensors: both (u,) when each bound is a scalar or (u,)
+    shared by the batch, both (B, u) when either is per scenario (a shared
+    one is broadcast up), as the JAX package's `_prep_limits`; u = u_dim."""
     lo, hi = (_bound(b, dtype, device) for b in limits)
-    shape = (batch, 4) if lo.ndim == 2 or hi.ndim == 2 else (4,)
+    shape = (batch, u_dim) if lo.ndim == 2 or hi.ndim == 2 else (u_dim,)
     for b in (lo, hi):
         if b.ndim > 2 or (b.ndim == 2 and b.shape[0] != batch):
-            raise ValueError(f"a bound of shape {tuple(b.shape)}: expected (), (4,) or ({batch}, 4)")
+            raise ValueError(
+                f"a bound of shape {tuple(b.shape)}: expected (), ({u_dim},) or ({batch}, {u_dim})"
+            )
     return lo.expand(shape).contiguous(), hi.expand(shape).contiguous()
 
 
@@ -106,9 +109,9 @@ def box_gains_update(q_x, q_u, q_xx, q_uu, q_xu, lo_d, hi_d):
     return k, big_k, v_x_new, v_xx_new, (q_u * k).sum(-1), (k * quu_k).sum(-1)
 
 
-def backward_pass_box(params, cost, traj: Trajectory, dt_s, limits, quu_reg=0.0):
+def backward_pass_box(params, cost, traj: Trajectory, dt_s, limits, quu_reg=0.0, model=None):
     """Riccati recursion with per-stage box-QP gains over (..., N, ...)
-    trajectories; `limits` = (lo, hi) broadcasting against (..., 4).
+    trajectories; `limits` = (lo, hi) broadcasting against (..., u).
     Returns (ks, Ks, QuTk, kTQuuk), as `solver.ilqr.backward_pass`."""
     lo, hi = limits
 
@@ -116,4 +119,4 @@ def backward_pass_box(params, cost, traj: Trajectory, dt_s, limits, quu_reg=0.0)
         u = traj.controls[..., n, :]
         return box_gains_update(q_x, q_u, q_xx, q_uu, q_xu, lo - u, hi - u)
 
-    return backward_pass(params, cost, traj, dt_s, quu_reg, gains_update=gains)
+    return backward_pass(params, cost, traj, dt_s, quu_reg, gains_update=gains, model=model)

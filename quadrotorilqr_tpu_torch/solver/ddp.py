@@ -28,7 +28,7 @@ DDP_PASS_TODO = (
 )
 NESTED_CURVATURE_TODO = (
     "the nested-autodiff curvature tensors are not ported; the quadrotor uses the "
-    "closed forms (ROADMAP Queue 1 item 11, model families)"
+    "closed forms (ROADMAP Queue 1 item 11e, model families)"
 )
 
 

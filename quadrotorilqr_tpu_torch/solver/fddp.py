@@ -40,8 +40,8 @@ from ..models import quadrotor as qm
 from ..tree import tree_map
 from . import ddp as ddp_mod
 from .ilqr import (
+    FAMILY_FDDP_TODO,
     FDDP_VARIANTS_TODO,
-    MODEL_TODO,
     STATUS_CONVERGED,
     STATUS_LINE_SEARCH_FAILED,
     SolveResult,
@@ -49,6 +49,7 @@ from .ilqr import (
     _where_lanes,
     is_converged,
     quadratize,
+    resolve_model,
     riccati_gains_update,
 )
 from .options import ILQROptions
@@ -141,11 +142,19 @@ def defects(params, traj: Trajectory, dt_s):
     return torch.cat([d, torch.zeros_like(d[..., :1, :])], -2)
 
 
-def check_supported(cost, model=None, limits=None, penalty_fns=None):
-    """Refuse every option outside the ported slice, naming its ROADMAP item."""
+def _check_quadrotor(params, model):
+    """The FDDP solvers take the quadrotor model only: `model=`, or the
+    family the params type names."""
+    if (model is not None or params is not None) and resolve_model(params, model) is not qm:
+        raise NotImplementedError(FAMILY_FDDP_TODO)
+
+
+def check_supported(cost, model=None, limits=None, penalty_fns=None, params=None):
+    """Refuse every option outside the ported slice, naming its ROADMAP item
+    (a model family other than the quadrotor's: `model=`, or the params
+    type when `params` is given)."""
     qc.refuse_weights(cost, FDDP_VARIANTS_TODO)
-    if model is not None and model is not qm:
-        raise NotImplementedError(MODEL_TODO)
+    _check_quadrotor(params, model)
     if limits is not None:
         raise NotImplementedError(FDDP_VARIANTS_TODO)
     if penalty_fns is not None:
@@ -225,7 +234,7 @@ def _backward_from_derivs(derivs, d, quu_reg):
 def backward_pass_fddp(params, cost, traj, dt_s, d, quu_reg, model=None, ddp=False, limits=None):
     """Gap-transported Riccati recursion plus the exact quadratic line-search
     model over (B, N, ...) trajectories. Returns (ks, Ks, L1, L2)."""
-    check_supported(cost, model, limits)
+    check_supported(cost, model, limits, params=params)
     return _backward_from_derivs(_stage_derivs(params, cost, traj, dt_s, ddp), d, quu_reg)
 
 
@@ -233,8 +242,7 @@ def rollout_gap(params, traj: Trajectory, d, ks, big_ks, alpha, dt_s, model=None
     """Gap-contracting closed-loop rollout over (B, N, ...) with a per-lane
     alpha (B,): u_n = u_old_n + alpha k_n + K_n (x_n (-) x_old_n),
     x_{n+1} = f(x_n, u_n) (+) (-(1 - alpha) d_n)."""
-    if model is not None and model is not qm:
-        raise NotImplementedError(MODEL_TODO)
+    _check_quadrotor(params, model)
     if limits is not None:
         raise NotImplementedError(FDDP_VARIANTS_TODO)
     state = tree_map(lambda leaf: leaf[..., 0, :], traj.states)
@@ -422,7 +430,7 @@ def solve_fddp(
     `ddp=True` adds the exact curvature (closed form), with the adaptive mu
     absorbing the indefiniteness it can bring. `options.populate_debug` is
     ignored: FDDP has no debug record (debug is None)."""
-    check_supported(cost, model, limits, penalty_fns)
+    check_supported(cost, model, limits, penalty_fns, params)
     single = initial_traj.controls.ndim == 2
     traj = tree_map(lambda a: a[None], initial_traj) if single else initial_traj
     traj, cost_v, iters, status, *_ = fddp_loop(

@@ -19,8 +19,12 @@ from dataclasses import dataclass
 import torch
 
 from ..costs import quadratic as qc
+from ..models import multirotor as mr
 from ..models import quadrotor as qm
+from ..models import se3_wrench as wm
+from ..models.multirotor import MultirotorParams
 from ..models.quadrotor import QuadrotorParams, State
+from ..models.se3_wrench import WrenchParams
 from ..ops.linalg import chol_solve_small
 from ..tree import tree_map
 from .options import ILQROptions
@@ -35,7 +39,22 @@ ASSOCIATIVE_TODO = (
     "associative=True is not ported yet "
     "(ROADMAP Queue 1 item 15, solver/parallel_riccati.py)"
 )
-MODEL_TODO = "only the quadrotor model is ported (ROADMAP Queue 1 item 11, model families)"
+MODEL_TODO = (
+    "only the quadrotor, SE(3) wrench and multirotor models are ported; drag and substeps "
+    "are not (ROADMAP Queue 1 item 11a, model families)"
+)
+FAMILY_FDDP_TODO = (
+    "the wrench and multirotor families on the FDDP solvers are not ported yet "
+    "(ROADMAP Queue 1 item 11b)"
+)
+FAMILY_VARIANTS_TODO = (
+    "control limits, stage weights and the debug record with a wrench or multirotor model "
+    "are not ported to the CUDA kernels yet (ROADMAP Queue 1 item 11c)"
+)
+FAMILY_ROTORS_TODO = (
+    "the CUDA kernels take multirotors of 4, 6 or 8 rotors; other rotor counts are not "
+    "ported yet (ROADMAP Queue 1 item 11d)"
+)
 STREAM_VARIANTS_TODO = (
     "control limits and stage weights on the streamed exact kernel (stream.cu, past 256 "
     "stages) are not ported yet (ROADMAP Queue 2 item E)"
@@ -52,7 +71,8 @@ CONTINUATION_TODO = (
 @dataclass
 class Trajectory:
     """Stacked trajectory: times (..., N), states (leaves (..., N, d)),
-    controls (..., N, 4)."""
+    controls (..., N, u), u the model's control width (4 rotor thrusts for
+    the quadrotor, 6 for the wrench, R for an R-rotor multirotor)."""
 
     times: torch.Tensor
     states: State
@@ -94,19 +114,42 @@ class SolveResult:
     debug: IterDebug | CostHistory | None = None
 
 
+# the ported model modules: the solvers' `model=` (JAX's `template <class
+# ModelT>`), or resolved from the params type
+FAMILIES = (qm, wm, mr)
+_FAMILY_OF_PARAMS = ((QuadrotorParams, qm), (WrenchParams, wm), (MultirotorParams, mr))
+
+
+def resolve_model(params, model=None):
+    """The model module of a solve: `model` when given (one of FAMILIES),
+    else the one the params type names (QuadrotorParams -> quadrotor,
+    WrenchParams -> se3_wrench, MultirotorParams -> multirotor), as the JAX
+    package's `lane_model_for` resolves it."""
+    if model is not None:
+        if not any(model is f for f in FAMILIES):
+            raise NotImplementedError(MODEL_TODO)
+        return model
+    for cls, module in _FAMILY_OF_PARAMS:
+        if isinstance(params, cls):
+            return module
+    raise TypeError(f"no model family for params of type {type(params).__name__}")
+
+
 def check_supported(model=None, ddp=False, associative=False):
     """Refuse every option outside the ported slice, naming its ROADMAP item."""
     if ddp:
         raise NotImplementedError(DDP_TODO)
     if associative:
         raise NotImplementedError(ASSOCIATIVE_TODO)
-    if model is not None and model is not qm:
-        raise NotImplementedError(MODEL_TODO)
+    if model is not None:
+        resolve_model(None, model)
 
 
-def quadratize(params: QuadrotorParams, cost, traj: Trajectory, dt_s):
-    """Stage-stacked (j_x, j_u, c_x, c_u, c_xx, c_uu) for all N stages."""
-    _, j_x, j_u = qm.discrete_dynamics_jacobians(
+def quadratize(params, cost, traj: Trajectory, dt_s, model=None):
+    """Stage-stacked (j_x, j_u, c_x, c_u, c_xx, c_uu) for all N stages, on the
+    model's dynamics (`resolve_model`)."""
+    model = resolve_model(params, model)
+    _, j_x, j_u = model.discrete_dynamics_jacobians(
         qm.params_over_stages(params), traj.states, traj.controls, dt_s
     )
     _, c_x, c_u, c_xx, c_uu = qc.stage_cost_with_diffs(
@@ -133,13 +176,14 @@ def riccati_gains_update(q_x, q_u, q_xx, q_uu, q_xu):
     return k, big_k, v_x_new, v_xx_new, (q_u * k).sum(-1), (k * quu_k).sum(-1)
 
 
-def backward_pass(params, cost, traj: Trajectory, dt_s, quu_reg=0.0, gains_update=None):
+def backward_pass(params, cost, traj: Trajectory, dt_s, quu_reg=0.0, gains_update=None,
+                  model=None):
     """Riccati recursion over (..., N, ...) trajectories. `gains_update(q_x,
     q_u, q_xx, q_uu, q_xu, n)` replaces `riccati_gains_update` at stage n
     (the box-QP stage of solver/constrained.py).
 
-    Returns (ks (..., N, 4), Ks (..., N, 4, 12), QuTk (...), kTQuuk (...))."""
-    j_x, j_u, c_x, c_u, c_xx, c_uu = quadratize(params, cost, traj, dt_s)
+    Returns (ks (..., N, u), Ks (..., N, u, 12), QuTk (...), kTQuuk (...))."""
+    j_x, j_u, c_x, c_u, c_xx, c_uu = quadratize(params, cost, traj, dt_s, model)
     batch = traj.controls.shape[:-2]
     kw = dict(dtype=traj.controls.dtype, device=traj.controls.device)
     v_x = torch.zeros(batch + (12,), **kw)
@@ -183,11 +227,12 @@ def _stage(leaf, n):
     return leaf[..., n, :]
 
 
-def forward_sim(params, traj: Trajectory, ks, big_ks, alpha, dt_s, limits=None):
+def forward_sim(params, traj: Trajectory, ks, big_ks, alpha, dt_s, limits=None, model=None):
     """Closed-loop rollout u_n = u_old_n + alpha k_n + K_n (x_n (-) x_old_n),
-    x_{n+1} = f(x_n, u_n); `alpha` is per lane (...). With `limits=(lo, hi)`
-    (tensors broadcasting against (..., 4)) each u_n is clamped into
-    [lo, hi] first (solver/constrained.py)."""
+    x_{n+1} = f(x_n, u_n) on the model's dynamics; `alpha` is per lane (...).
+    With `limits=(lo, hi)` (tensors broadcasting against (..., u)) each u_n
+    is clamped into [lo, hi] first (solver/constrained.py)."""
+    model = resolve_model(params, model)
     state = tree_map(lambda leaf: _stage(leaf, 0), traj.states)
     states, controls = [], []
     for n in range(traj.horizon):
@@ -202,14 +247,15 @@ def forward_sim(params, traj: Trajectory, ks, big_ks, alpha, dt_s, limits=None):
             u = torch.clamp(u, *limits)
         states.append(state)
         controls.append(u)
-        state = qm.discrete_dynamics(params, state, u, dt_s)
+        state = model.discrete_dynamics(params, state, u, dt_s)
     stacked = tree_map(lambda *leaves: torch.stack(leaves, -2), *states)
     return Trajectory(times=traj.times, states=stacked, controls=torch.stack(controls, -2))
 
 
-def rollout_cost(params, cost, traj: Trajectory, ks, big_ks, alpha, dt_s, limits=None):
+def rollout_cost(params, cost, traj: Trajectory, ks, big_ks, alpha, dt_s, limits=None,
+                 model=None):
     """forward_sim plus the new trajectory's cost: (Trajectory, cost (...))."""
-    new_traj = forward_sim(params, traj, ks, big_ks, alpha, dt_s, limits)
+    new_traj = forward_sim(params, traj, ks, big_ks, alpha, dt_s, limits, model)
     return new_traj, qc.trajectory_cost(cost, new_traj.states, new_traj.controls)
 
 
@@ -276,7 +322,9 @@ def line_search(
     lift = (lambda a: a[None]) if single else (lambda a: a)
     current = lift(torch.as_tensor(current_cost, dtype=traj.controls.dtype))
     new_traj, new_cost, ok, _ = backtrack(
-        lambda t, k, big_k, alpha, act: rollout_cost(params, cost, t, k, big_k, alpha, dt_s),
+        lambda t, k, big_k, alpha, act: rollout_cost(
+            params, cost, t, k, big_k, alpha, dt_s, model=model
+        ),
         tree_map(lift, traj), current, lift(ks), lift(big_ks), lift(qutk), lift(ktquuk),
         torch.ones_like(current, dtype=torch.bool), options.line_search_params,
     )
@@ -405,13 +453,17 @@ def solve(
 ) -> SolveResult:
     """Exact iLQR on the plain pieces of this module. `initial_traj` leaves
     are (B, N, ...) or one unbatched (N, ...) trajectory; params and cost
-    leaves are shared or carry the same leading B."""
+    leaves are shared or carry the same leading B. `model` is the model
+    module (None: the one the params type names, `resolve_model`)."""
     check_supported(model, ddp, associative)
+    model = resolve_model(params, model)
     single = initial_traj.controls.ndim == 2
     traj = tree_map(lambda a: a[None], initial_traj) if single else initial_traj
     result = solve_loop(
-        lambda t, act: backward_pass(params, cost, t, dt_s, options.quu_reg),
-        lambda t, ks, big_ks, alpha, act: rollout_cost(params, cost, t, ks, big_ks, alpha, dt_s),
+        lambda t, act: backward_pass(params, cost, t, dt_s, options.quu_reg, model=model),
+        lambda t, ks, big_ks, alpha, act: rollout_cost(
+            params, cost, t, ks, big_ks, alpha, dt_s, model=model
+        ),
         lambda t: qc.trajectory_cost(cost, t.states, t.controls),
         traj,
         options,

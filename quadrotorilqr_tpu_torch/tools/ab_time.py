@@ -264,10 +264,13 @@ def _perpass(api, trajs):
 
     out = {}
     b_params, b_cost = api.params, api.cost
-    kb.backward_pass_fused.launches = kr.rollout_cost_fused.launches = 0
+    wrappers = (kb.backward_pass_fused, kr.rollout_cost_fused)
+    for fn in wrappers:  # an int in checkouts before the per-family Counters
+        fn.launches = type(fn.launches)()
     res = api.solve_batch(trajs, fused=True)
-    out["perpass_route_launches"] = [kb.backward_pass_fused.launches,
-                                     kr.rollout_cost_fused.launches]
+    out["perpass_route_launches"] = [
+        fn.launches if isinstance(fn.launches, int) else fn.launches.total() for fn in wrappers
+    ]
     out["perpass_route_digest"] = digest(res)
     out["perpass_route_mean_iterations"] = float(res.iterations.float().mean())
     out["perpass_route_ms"] = time_ms(lambda: api.solve_batch(trajs, fused=True))

@@ -21,7 +21,12 @@ whole-solve routes against the plain loop's. The box and weights variants
 at float64, B=300, N=40 against their plain versions, their per-pass route
 against solve.cu, unit weights against none, and BASELINE config 4 through
 `app.mpc.run_mpc`: both routes in float64, and the quality checks of its
-constrained variant in float32 at fleet 128.
+constrained variant in float32 at fleet 128. The model families (the SE(3)
+wrench, u = 6, and the 6- and 8-rotor multirotors): each family's
+instantiation of backward.cu, rollout.cu, solve.cu and stream.cu against
+its plain version at the bars above, stream.cu and the per-pass route
+bit-equal to solve.cu, the team edges, a 4-rotor multirotor bit-equal to the
+quadrotor, and the requests their kernels refuse.
 
 This file imports no JAX, so the card machine runs it without the JAX
 package's conftest:
@@ -44,6 +49,7 @@ from quadrotorilqr_tpu_torch.kernels import solve as ks
 from quadrotorilqr_tpu_torch.kernels import stream as kst
 from quadrotorilqr_tpu_torch.kernels import stream_fddp as ksf
 from quadrotorilqr_tpu_torch.kernels import _build
+from quadrotorilqr_tpu_torch.models.multirotor import MultirotorParams
 from quadrotorilqr_tpu_torch.solver import constrained
 from quadrotorilqr_tpu_torch.solver.batched import (
     _with_max_iters,
@@ -729,7 +735,7 @@ def variant_case(variant_problem, case):
 
 
 def assert_in_box(u, limits):
-    lo, hi = constrained.prep_limits(limits, u.shape[0], u.dtype, u.device)
+    lo, hi = constrained.prep_limits(limits, u.shape[0], u.dtype, u.device, u.shape[-1])
     lo, hi = (b[:, None] if b.ndim == 2 else b for b in (lo, hi))
     assert bool(((u >= lo) & (u <= hi)).all())
 
@@ -845,3 +851,173 @@ def test_cuda_config4_constrained_quality(card):
     err = lambda o: float(o["x_final"].pose.trans.norm(dim=-1).mean())
     assert err(out) < 0.8 * float(pb.x0.pose.trans.norm(dim=-1).mean())
     assert err(out) < 1.5 * err(base)
+
+
+# ---- the wider-control model families: the wrench (u = 6) and the 6- and
+# 8-rotor multirotors on backward.cu, rollout.cu, solve.cu and stream.cu ----
+
+# the C entries' suffixes of the families other than the quadrotor
+FAMILY_SUFFIXES = [sfx for sfx in _build.FAMILIES if sfx]
+
+
+def family_problem(device, suffix, batch=B, n=N, seed=3, shared=False):
+    """A problem of the family of a kernel suffix: random stages around the
+    family's hover control, per-scenario params (masses, inertias, and the
+    rotors' yaw ratios) or shared ones, an R with off-diagonal terms."""
+    rng = np.random.default_rng(seed)
+    q = np.concatenate([np.ones((batch, n, 1)), 0.3 * rng.normal(size=(batch, n, 3))], -1)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    des_q = np.zeros((n, 4))
+    des_q[:, 0] = 1.0
+    scale = 1.0 + 0.2 * rng.uniform(-1, 1, size=batch)
+    p = dict(inertia=(np.diag([0.4, 0.5, 0.6]) + 0.03) * scale[:, None, None],
+             g_mpss=np.full(batch, 9.81))
+    if suffix == "_wrench":
+        u, hover = 6, np.array([0.0, 0.0, 1.3 * 9.81, 0.0, 0.0, 0.0])
+        p["mass_kg"] = 1.3 * scale
+    else:
+        u = int(suffix[len("_rotor"):])
+        hover = np.full(u, 1.5 * 9.81 / u)
+        ang = 2.0 * np.pi * np.arange(u) / u
+        ring = np.stack([0.3 * np.cos(ang), 0.3 * np.sin(ang), np.zeros(u)], -1)
+        p.update(mass_kg=1.5 * scale, rotor_positions_m=np.broadcast_to(ring, (batch, u, 3)),
+                 rotor_spin=np.broadcast_to(np.where(np.arange(u) % 2 == 0, -1.0, 1.0), (batch, u)),
+                 torque_to_thrust_ratio_m=0.01 + 0.02 * rng.uniform(size=batch))
+    if shared:
+        p = {k: np.asarray(v)[0] for k, v in p.items()}
+    cost = SimpleNamespace(
+        Q=np.diag(np.concatenate([100.0 * np.ones(6), np.ones(6)])),
+        R=np.eye(u) + 0.1 * np.ones((u, u)),
+        desired_states=SimpleNamespace(
+            pose=SimpleNamespace(quat=des_q, trans=np.zeros((n, 3))), vel=np.zeros((n, 6))
+        ),
+        desired_controls=np.tile(hover, (n, 1)),
+    )
+    traj = SimpleNamespace(
+        times=np.broadcast_to(np.arange(n) * DT, (batch, n)),
+        states=SimpleNamespace(
+            pose=SimpleNamespace(quat=q, trans=0.4 * rng.normal(size=(batch, n, 3))),
+            vel=0.2 * rng.normal(size=(batch, n, 6)),
+        ),
+        controls=hover + 0.5 * rng.normal(size=(batch, n, u)),
+    )
+    return (
+        convert.params_from_numpy(SimpleNamespace(**p), device=device),
+        convert.cost_from_numpy(cost, device=device),
+        convert.trajectory_from_numpy(traj, device=device),
+    )
+
+
+def assert_lanes(got, ref, rtol=1e-8, atol=1e-7):
+    """Status and iterations equal, cost within rtol, controls within atol."""
+    torch.testing.assert_close(got[3], ref[3], rtol=0, atol=0)
+    torch.testing.assert_close(got[2], ref[2], rtol=0, atol=0)
+    torch.testing.assert_close(got[1], ref[1], rtol=rtol, atol=0)
+    torch.testing.assert_close(got[0].controls, ref[0].controls, rtol=0, atol=atol)
+
+
+def bit_equal(got, ref):
+    """Status, iterations, cost and every trajectory leaf identical."""
+    t = lambda r: (r.trajectory, r.cost, r.iterations, r.status) if hasattr(r, "cost") else r[:4]
+    (gt, *g), (rt, *r) = t(got), t(ref)
+    leaves = lambda x: (x.controls, x.states.pose.quat, x.states.pose.trans, x.states.vel)
+    return all(torch.equal(a, b) for a, b in zip(list(g) + list(leaves(gt)),
+                                                  list(r) + list(leaves(rt))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("suffix", FAMILY_SUFFIXES)
+def test_cuda_family_kernels_match_plain(card, suffix):
+    """Each family's backward.cu, rollout.cu, solve.cu and stream.cu
+    instantiation against its plain version, float64 lane for lane, with
+    per-scenario params; the launches run the family's C entries."""
+    params, cost, traj = family_problem("cuda", suffix)
+    before = {w: w.launches[suffix] for w in (kb.backward_pass_fused,
+              kr.rollout_cost_fused, ks.solve_fused_whole, kst.solve_fused_streamed)}
+    got = kb.backward_pass_fused(params, cost, traj, DT)
+    ref = kb.backward_pass_reference(params, cost, traj, DT)
+    for g, r in zip(got[:2], ref[:2]):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-9)
+    for g, r in zip(got[2:], ref[2:]):
+        torch.testing.assert_close(g, r, rtol=1e-9, atol=0)
+    alpha = torch.linspace(0.1, 1.0, B, dtype=torch.float64, device="cuda")
+    g_t, g_c = kr.rollout_cost_fused(params, cost, traj, ref[0], ref[1], alpha, DT)
+    r_t, r_c = kr.rollout_cost_reference(params, cost, traj, ref[0], ref[1], alpha, DT)
+    for g, r in ((g_t.states.pose.quat, r_t.states.pose.quat),
+                 (g_t.states.pose.trans, r_t.states.pose.trans), (g_t.states.vel, r_t.states.vel),
+                 (g_t.controls, r_t.controls)):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-10)
+    torch.testing.assert_close(g_c, r_c, rtol=1e-10, atol=0)
+    assert_lanes(ks.solve_fused_whole(params, cost, traj, DT, OPTIONS),
+                 ks.solve_whole_reference(params, cost, traj, DT, OPTIONS))
+    assert_lanes(kst.solve_fused_streamed(params, cost, traj, DT, OPTIONS),
+                 kst.solve_streamed_reference(params, cost, traj, DT, OPTIONS))
+    assert all(w.launches[suffix] > n for w, n in before.items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("suffix", FAMILY_SUFFIXES)
+def test_cuda_family_routes_bit_equal(card, suffix):
+    """stream.cu equals solve.cu bit for bit, and so does the per-pass route
+    (solve_batch_fused), as for the quadrotor; also on a starved line search
+    that fails lanes."""
+    params, cost, traj = family_problem("cuda", suffix, n=40)
+    starved = ILQROptions(LineSearchParams(0.5, 2.0, 1), ConvergenceCriteria(1e-12, 1e-12, 4))
+    for opts in (OPTIONS, starved):
+        whole = ks.solve_fused_whole(params, cost, traj, DT, opts)
+        assert bit_equal(kst.solve_fused_streamed(params, cost, traj, DT, opts), whole)
+        assert bit_equal(solve_batch_fused(params, cost, traj, DT, opts), whole)
+    assert bool((whole[3] == 2).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n", [(1, 1), (37, 2), (33, 40)])
+@pytest.mark.parametrize("suffix", FAMILY_SUFFIXES)
+def test_cuda_family_team_edges(card, suffix, batch, n):
+    """solve.cu and stream.cu of each family at the team design's edges
+    (one scenario, a ragged last block, one- and two-stage horizons), with
+    shared params (B-stride 0), against the plain loop."""
+    params, cost, traj = family_problem("cuda", suffix, batch=batch, n=n, shared=True)
+    ref = ks.solve_whole_reference(params, cost, traj, DT, OPTIONS)
+    assert_lanes(ks.solve_fused_whole(params, cost, traj, DT, OPTIONS), ref)
+    assert_lanes(kst.solve_fused_streamed(params, cost, traj, DT, OPTIONS), ref)
+
+
+@pytest.mark.cuda
+def test_cuda_four_rotor_multirotor_is_the_quadrotor(card_problem):
+    """A multirotor of the reference airframe runs the quadrotor's kernels
+    and gives its results bit for bit on both exact routes."""
+    params, cost, traj = card_problem
+    arm = float(params.arm_length_m[0])
+    ring = torch.tensor([[-arm, 0, 0], [0, -arm, 0], [arm, 0, 0], [0, arm, 0]],
+                        dtype=torch.float64, device="cuda")
+    spin = torch.tensor([-1.0, 1.0, -1.0, 1.0], dtype=torch.float64, device="cuda")
+    multi = MultirotorParams(
+        mass_kg=params.mass_kg, inertia=params.inertia,
+        rotor_positions_m=ring.expand(B, 4, 3).contiguous(), rotor_spin=spin.expand(B, 4).contiguous(),
+        torque_to_thrust_ratio_m=params.torque_to_thrust_ratio_m, g_mpss=params.g_mpss,
+    )
+    for route in (solve_batch_latency, solve_batch_fused):
+        assert bit_equal(route(multi, cost, traj, DT, OPTIONS), route(params, cost, traj, DT, OPTIONS))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("request_", ["limits", "weights", "populate_debug", "rotors5", "fddp"])
+def test_cuda_family_refusals(card, request_):
+    """On the card a family without the instantiation raises, naming its
+    ROADMAP item: never the plain loop or the quadrotor kernel."""
+    suffix = "_rotor5" if request_ == "rotors5" else "_wrench"
+    params, cost, traj = family_problem("cuda", suffix, batch=4, n=5)
+    calls = {
+        "limits": lambda: solve_batch_latency(params, cost, traj, DT, OPTIONS, limits=(0.0, 20.0)),
+        "weights": lambda: solve_batch_fused(
+            params, dataclasses.replace(cost, stage_weights=torch.ones(5, dtype=torch.float64,
+                                                                       device="cuda")),
+            traj, DT, OPTIONS),
+        "populate_debug": lambda: solve_batch_latency(
+            params, cost, traj, DT, dataclasses.replace(OPTIONS, populate_debug=True)),
+        "rotors5": lambda: solve_batch_latency(params, cost, traj, DT, OPTIONS),
+        "fddp": lambda: solve_batch_fddp(params, cost, traj, DT, FDDP_OPTIONS),
+    }
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
+        calls[request_]()
