@@ -79,12 +79,35 @@ trips; then the families' main path, counted: the three families through both ex
 routes at N=100 and through `solve_batch_latency` at N=512 (past their
 route points: `stream.cu`), each new instantiation launched at least once.
 
+Control limits and stage weights on the robust and long paths (phase 6d):
+the box, weights and both instantiations of `fddp.cu` and `stream_fddp.cu`
+(Gauss-Newton and exact DDP) against the plain FDDP loop with the same
+bounds and weights in float64 (B=300, N=40, the mixed benign and tumbling
+problem, for their first VARIANT_GN_TRIPS / VARIANT_DDP_TRIPS trips; exact
+DDP at the DDP engines' bar; a lane that ends on the same cost with other
+bookkeeping, a tie, is held to its cost), `stream_fddp.cu` against
+`fddp.cu`; `stream.cu`'s at B=128, N=300 against its plain loop and
+bit-equal to `solve.cu`'s at N=256; then the main path at full width in float32,
+counted by instantiation: `QuadrotorILQR(solver="fddp",
+stage_weights=[1, ..., 1, 20])` on config 6, the long-horizon problem with
+rotor limits (0, 1.3 x hover) and w_T = 20 (exact N=1024 on `stream.cu`,
+robust N=512 on `stream_fddp.cu`), `run_mpc(solver="fddp")` on config 4
+with its limits and terminal weight at fleets 32 and 128, and the tumbling
+fleet of 128 (`workloads.tumble_mpc_problem`) through the robust and the
+exact MPC loop; each launch against its plain loop for a trip budget,
+every control in its box, the tumbling fleet's bars (the JAX package's
+tests/test_mpc.py:154-189); the times (CUDA events, medians of 5; ms and
+host syncs a tick and the `mpc_step` loop's p50, p99 and max for the MPC
+run).
+
 Output: progress lines (with each compiled kernel's and never-inlined
 function's ptxas registers, spill stores and stack, and the team kernels'
 geometry: lanes per scenario, teams per block, shared
 bytes), the card's `nvidia-smi` name and power limit, a JSON line
 `{"kernels": [...]}` with each kernel's launches, error and times (the
-model families' instantiations as `backward_wrench`, ..., `stream_rotor8`),
+model families' instantiations as `backward_wrench`, ..., `stream_rotor8`;
+the box and weights variants as `*_box_weights`, fddp.cu's weights variant
+on config 6 as `fddp_weights`),
 and as the last line `{"ok": true, "device": {...}}`. Any failed check
 raises, so the exit code is not 0. Without a CUDA device, or without the
 repository beside it, it exits with code 2 and prints no result.
@@ -115,7 +138,7 @@ LONG_PLAIN_TRIPS = 2
 # The float64 FDDP kernels' exact-DDP curvature is held against the plain
 # DDP loop for its first trips only: the plain loop's second-order terms
 # take ~5 s a trip at B=300, N=40 (125 s for 25 trips on an H100 host)
-FDDP_DDP_PLAIN_TRIPS = 12
+FDDP_DDP_PLAIN_TRIPS = 6
 # Config 6's exact-DDP launch (its trips 16-40) is held against the plain
 # loop for its first trips only: the plain loop took 145-310 s for all 24
 C6_DDP_PLAIN_TRIPS = 8
@@ -150,6 +173,7 @@ FLOPS = dict(
     riccati=12074, ddp_extra=6840, rollout=1202, gap_rollout=1412, model=696,
     defect=560, transport=288, stage_cost=566,
     box_extra=3592, weights_extra=188, rollout_box_extra=8, rollout_weights_extra=1,
+    model_weights_extra=16,
 )
 # The box and weights variants (kBox, kW; counted from team.cuh the same way):
 #   box: the box-QP gains (boxqp_gains: the clipped Newton step 78, four
@@ -160,6 +184,11 @@ FLOPS = dict(
 #     simplified one (1914): +2496; 3592 in all;
 #   weights: w times c_x (12), c_xx (144), 2R in c_u (16) and in Q_uu (16);
 #   rollout: the clamp, 8 comparisons; the weight, 1 multiply a stage.
+# The FDDP kernels' box and weights variants (the same pieces): a reverse
+# stage is the gap transport 288 and the Riccati stage with both, 15,854
+# (16,142); a probe stage 1,412 + 8 + 1 = 1,421; the probe-0 model terms
+# 696 + 16 (w times 2R in L2's w'2R w: the weighted c_x and c_xx come with
+# the recomputed cost diffs, not counted); the seed cost 566 + 1 a stage.
 # BASELINE config 4 (benchmarks/mpc_device_loop.py): warm-started 50-step
 # solves at 100 Hz, 100 ticks, fleets 1, 32 and 128; its constrained variant
 # adds rotor limits (0, 2.9) N and the terminal weight 20.
@@ -316,13 +345,15 @@ def ptxas_summary(build_log):
         bits = re.findall(r"Lb([01])E", args.group(2))
         # the bool template flags after the type, by function: solve_kernel
         # <T, kRecord, kBox, kW>, backward_kernel / rollout_kernel /
-        # team_rollout <T, kBox, kW>, the FDDP pieces <T, kDdp>
+        # stream_kernel / team_rollout <T, kBox, kW>, the FDDP kernels and
+        # pieces <T, kDdp, kBox, kW>
+        box = (("box", "no box"), ("weights", "no weights"))
         if name.endswith("solve_kernel"):
-            names = (("record", "no record"), ("box", "no box"), ("weights", "no weights"))
-        elif name.endswith(("backward_kernel", "rollout_kernel", "team_rollout")):
-            names = (("box", "no box"), ("weights", "no weights"))
+            names = (("record", "no record"),) + box
+        elif name.endswith(("backward_kernel", "rollout_kernel", "stream_kernel", "team_rollout")):
+            names = box
         else:
-            names = (("ddp", "gauss-newton"),)
+            names = (("ddp", "gauss-newton"),) + box
         parts += [on if bit == "1" else off for bit, (on, off) in zip(bits, names)]
         # the model family (csrc/quadrotor.cuh), the last template argument
         fam = re.search(r"\d+(Quadrotor|Wrench|Multirotor)(?:ILi(\d+)E)?", mangled[i + args.end():])
@@ -1084,6 +1115,575 @@ def families_phase(env):
         entries[name]["launches"] = fam[name]
     e.log(f"model families phase took {time.perf_counter() - t_phase:.1f} s")
     return entries
+
+
+# Phase 6d's plain checks, cut in depth (the plain loops set the script's
+# time; with a box a plain trip costs ~5x an unconstrained one, the box-QP
+# in every stage): the float64 FDDP variants for their first trips (box and
+# weights together for more: (box, weights, both)), stream.cu's float64
+# variant and the full-width float32 launches for a trip budget each
+VARIANT_GN_TRIPS = (2, 2, 3)
+VARIANT_DDP_TRIPS = 1
+VARIANT_STREAM_TRIPS = 1
+C6W_PLAIN_TRIPS = (4, 2)  # config 6 with w_T: the Gauss-Newton launch, the exact-DDP one
+BOX_LONG_PLAIN_TRIPS = 1  # the long paths with limits (N=1024, N=512)
+# the tumbling fleet the robust MPC recovers (tests/test_mpc.py:154-189 of
+# the JAX package): fleet, ticks, horizon
+TUMBLE_FLEET, TUMBLE_TICKS, TUMBLE_HORIZON = 128, 6, 16
+
+
+def robust_variants_phase(env):
+    """Phase 6d: control limits and stage weights on fddp.cu, stream_fddp.cu
+    and stream.cu. Each new instantiation against its plain version in
+    float64 lane for lane up to ties (the FDDP kernels' box, weights and
+    both at B=300, N=40, Gauss-Newton for VARIANT_GN_TRIPS trips, exact DDP
+    for VARIANT_DDP_TRIPS at the DDP engines' bar; stream.cu's box and
+    weights at B=128, N=300 for VARIANT_STREAM_TRIPS), stream_fddp.cu
+    against fddp.cu and stream.cu bit-equal to solve.cu at N=256; then the
+    main path at full width,
+    float32, counted: `QuadrotorILQR(solver="fddp", stage_weights=...)` on
+    config 6 with w_T = 20, the long-horizon problem with rotor limits and
+    w_T = 20 (exact N=1024 on stream.cu, robust N=512 on stream_fddp.cu),
+    `run_mpc(solver="fddp")` on config 4 with its limits and terminal
+    weight at fleets 32 and 128, and the tumbling fleet; each launch held
+    against its plain loop for a trip budget (BOX_LONG_PLAIN_TRIPS for the
+    long paths), every control in its box, the tumbling fleet's bars; the
+    times. Returns the new rows' fields and the phase's numbers."""
+    import numpy as np
+    import torch
+
+    from quadrotorilqr_tpu_torch import convert
+    from quadrotorilqr_tpu_torch.api import QuadrotorILQR
+    from quadrotorilqr_tpu_torch.app import mpc, workloads
+    from quadrotorilqr_tpu_torch.costs.quadratic import QuadraticTrackingCost
+    from quadrotorilqr_tpu_torch.kernels import fddp as kf
+    from quadrotorilqr_tpu_torch.kernels import solve as ks
+    from quadrotorilqr_tpu_torch.kernels import stream as kst
+    from quadrotorilqr_tpu_torch.kernels import stream_fddp as ksf
+    from quadrotorilqr_tpu_torch.parallel.batch import initial_trajectory_from_state
+    from quadrotorilqr_tpu_torch.solver import constrained, fddp, ilqr
+    from quadrotorilqr_tpu_torch.solver.batched import (
+        _with_max_iters,
+        resolve_refine_auto,
+        solve_batch_fddp,
+        solve_batch_latency,
+    )
+    from quadrotorilqr_tpu_torch.solver.options import (
+        ConvergenceCriteria,
+        ILQROptions,
+        LineSearchParams,
+    )
+
+    e = env
+    dev, card = e.dev, e.card
+    f64, f32 = torch.float64, torch.float32
+    t_phase = time.perf_counter()
+    fo = fddp.FDDPOptions()
+    rows = {}  # JSON row name -> its fields
+    f, word = FLOPS, 4  # float32 at full width
+
+    def stream_work(n_, b_, passes, probes, applies):
+        """stream.cu with limits and weights: every backward pass, probe
+        sweep and apply sweep; (flops, bytes), the bounds and weights read
+        once."""
+        riccati = f["riccati"] + f["box_extra"] + f["weights_extra"]
+        rollout = f["rollout"] + f["rollout_box_extra"] + f["rollout_weights_extra"]
+        return ((passes * riccati + (probes + applies) * rollout) * n_,
+                2 * 17 * b_ * n_ * word + 6 * b_ * word + (8 + n_) * word)
+
+    def fddp_work(n_, b_, launches_, box, weights, outputs):
+        """An FDDP launch (or launches) with the variants: every trip
+        transports the gradient and runs the Riccati stage and the model
+        terms; defects on the trips that computed them; every probe and
+        apply sweep; the seed cost once. `launches_` lists (trips, probe
+        sweeps, defect trips, apply sweeps), Gauss-Newton only."""
+        riccati = f["riccati"] + (f["box_extra"] if box else 0) + (f["weights_extra"] if weights else 0)
+        model = f["model"] + (f["model_weights_extra"] if weights else 0)
+        gap = f["gap_rollout"] + (f["rollout_box_extra"] if box else 0) + (
+            f["rollout_weights_extra"] if weights else 0)
+        flops = sum(n_ * (trips * (f["transport"] + riccati + model) + defect_trips * f["defect"]
+                          + (sweeps + applies) * gap)
+                    for trips, sweeps, defect_trips, applies in launches_)
+        flops += b_ * n_ * (f["stage_cost"] + (1 if weights else 0))
+        extra = ((8 if box else 0) + (n_ if weights else 0)) * word
+        return flops, 2 * 17 * b_ * n_ * word + outputs * b_ * word + extra
+
+    def rel(a, b):
+        return (a - b).abs() / b.abs()
+
+    def lanes(got, ref):
+        """(statuses and iterations equal, max rel cost, max |du|)."""
+        same = bool((got[3] == ref[3]).all() and (got[2] == ref[2]).all())
+        return same, float(rel(got[1], ref[1]).max()), max_abs(got[0].controls, ref[0].controls)
+
+    def ddp_bar(got, ref):
+        """The JAX package's bar between its DDP engines
+        (tests/test_fddp_fused.py:382-416), a tie (`ties`) counted as
+        agreeing."""
+        same, tie = ties(got, ref)
+        strict = same & (ref[3] == ilqr.STATUS_CONVERGED)
+        r = rel(got[1], ref[1])
+        du = (got[0].controls - ref[0].controls).abs().amax((1, 2))
+        return (float(((got[3] == ref[3]) | tie).float().mean()) >= 0.98
+                and float((same | tie).float().mean()) >= 0.95 and float(r.max()) < 2e-4
+                and (not bool(strict.any()) or (float(r[strict].max()) <= 1e-8
+                                                and float(du[strict].max()) <= 1e-4)))
+
+    def in_box(u, limits):
+        """(every control in its box, controls on a bound)."""
+        lo, hi = constrained.prep_limits(limits, u.shape[0], u.dtype, u.device, 4)
+        lo, hi = (b[:, None] if b.ndim == 2 else b for b in (lo, hi))
+        return bool(((u >= lo) & (u <= hi)).all()), int(((u == lo) | (u == hi)).sum())
+
+    def lanes_finite(r):
+        """(B,) bool: the lanes whose cost and controls are finite."""
+        cost, controls = (r.cost, r.trajectory.controls) if hasattr(r, "cost") else (r[1], r[0].controls)
+        return torch.isfinite(cost) & torch.isfinite(controls).flatten(1).all(1)
+
+    def ties(got, ref):
+        """(same, tie), (B,) bool each: status and iterations equal, or not
+        with the final cost equal to 1e-12. With a box (and with exact DDP)
+        a lane can reach a step whose predicted change is at the rounding of
+        its cost; whether the search takes it is the rounding's call, in the
+        plain loop as in the kernels (PERF.md section 6): the lane
+        ends on the same solution, its status, iterations, mu and counts
+        told differently."""
+        same = (got[3] == ref[3]) & (got[2] == ref[2])
+        return same, ~same & ((got[1] - ref[1]).abs() <= 1e-12 * ref[1].abs())
+
+    def cut_bars(got, ref, lanes_=None):
+        """PERF.md section 2's bars for runs cut at a trip budget: the 99th
+        percentiles of the relative cost and of each lane's max |du| over
+        the largest |u| within 1e-3. Returns (ok, median, q99, du q99,
+        status agreement)."""
+        keep = slice(None) if lanes_ is None else lanes_
+        r = rel(got[1], ref[1])[keep].double()
+        du = (got[0].controls - ref[0].controls).abs().flatten(1).amax(1)[keep].double()
+        du = du / float(ref[0].controls.abs().max())
+        finite = bool(torch.isfinite(got[1]).all() and torch.isfinite(got[0].controls).all())
+        q99, dq99 = float(torch.quantile(r, 0.99)), float(torch.quantile(du, 0.99))
+        agree = float((got[3] == ref[3])[keep].float().mean())
+        return finite and q99 <= 1e-3 and dq99 <= 1e-3, float(r.median()), q99, dq99, agree
+
+    # ---- float64, lane for lane: the FDDP kernels' variants at B=300, N=40 ----
+    # tests/test_fddp_fused.py's mixed problem (even lanes benign at scale
+    # 0.4, odd lanes an aggressive tumble at 1.8), dt 0.12, with per-scenario
+    # bounds around the hover thrust and per-scenario weights U(0.5, 2) with
+    # a terminal weight of 20
+    mix_dt, batch, n = 0.12, 300, 40
+    gen = torch.Generator(device=dev).manual_seed(1)
+    scale = torch.where(torch.arange(batch, device=dev) % 2 == 0, 0.4, 1.8)[:, None]
+    m_params, m_q, m_r, x0, desired = workloads.aggressive_tumble(
+        gen, batch, n=n, dt_s=mix_dt, scale=scale.double(), dtype=f64, device=dev)
+    m_trajs = initial_trajectory_from_state(x0, desired)
+    rng = np.random.default_rng(11)
+    hover = 9.81 / 4
+    bounds = (torch.as_tensor(hover - rng.uniform(0.5, 1.5, size=(batch, 4)), device=dev),
+              torch.as_tensor(hover + rng.uniform(0.5, 1.5, size=(batch, 4)), device=dev))
+    w = rng.uniform(0.5, 2.0, size=(batch, n))
+    w[:, -1] = 20.0
+    w = torch.as_tensor(w, device=dev)
+    f_cases = {"box": (bounds, None), "weights": (None, w), "box and weights": (bounds, w)}
+    f_err = {}
+    for (name, (limits, weights)), gn_trips in zip(f_cases.items(), VARIANT_GN_TRIPS):
+        cost = QuadraticTrackingCost(Q=m_q, R=m_r, desired_states=desired.states,
+                                     desired_controls=desired.controls, stage_weights=weights)
+        for ddp, trips in ((False, gn_trips), (True, VARIANT_DDP_TRIPS)):
+            opts = ILQROptions(LineSearchParams(0.5, 0.5, 20), ConvergenceCriteria(1e-9, 1e-9, trips))
+            args = (m_params, cost, m_trajs, mix_dt, opts, fo)
+            ref, plain_ms = e.time_once(
+                lambda: kf.solve_fddp_whole_reference(*args, ddp, limits=limits))
+            got = kf.solve_fddp_fused(*args, ddp=ddp, limits=limits, return_mu=True,
+                                      return_probes=True)
+            got_s = ksf.solve_fddp_streamed(*args, ddp=ddp, limits=limits, return_mu=True,
+                                            return_probes=True)
+            torch.cuda.synchronize()
+            # a tie (`ties`) ends on the same cost with other bookkeeping;
+            # every other lane is held lane for lane
+            same, tie = ties(got, ref)
+            r_max = float(rel(got[1], ref[1]).max())
+            du = max_abs(got[0].controls, ref[0].controls)
+            counts = int(((got[5] != ref[5]) | (got[6] != ref[6])).sum())
+            t_same, t_tie = ties(got_s, got)
+            twin_r, twin_du = float(rel(got_s[1], got[1]).max()), max_abs(got_s[0].controls,
+                                                                          got[0].controls)
+            twins = bit_equal(got_s, got)
+            boxed = [in_box(k[0].controls, limits) for k in (got, got_s)] if limits else []
+            # the box lets controls along directions the cost barely sees
+            # settle ~1e-7 apart with the costs equal to the rounding:
+            # controls within 1e-6 (1e-7 without the variants)
+            ok = (ddp_bar(got, ref) if ddp else
+                  bool((same | tie).all()) and r_max <= 1e-8 and du <= 1e-6)
+            # the twins: bit-equal in Gauss-Newton; with exact DDP (whose
+            # closed forms the two team sizes evaluate in different orders)
+            # every lane the same or a tie, cost within 1e-12
+            twin_ok = twins if not ddp else (bool((t_same | t_tie).all()) and twin_r <= 1e-12
+                                             and twin_du <= 1e-6)
+            e.log(f"f64 fddp.cu, {name}, {'exact DDP' if ddp else 'Gauss-Newton'} (B={batch}, "
+                  f"N={n}, {trips} trips) vs plain: statuses and iterations equal on "
+                  f"{int(same.sum())} lanes, ties {int(tie.sum())}, max rel cost {r_max:.3e} (rtol "
+                  f"1e-8), max |du| {du:.3e} (atol 1e-6){' (held at the DDP engines bar)' if ddp else ''}"
+                  f": {ok}; lanes with other probe sweeps or defect trips {counts}; stream_fddp.cu "
+                  f"vs fddp.cu: bit-equal {twins}, same {int(t_same.sum())}, ties {int(t_tie.sum())}, "
+                  f"({twin_r:.3e}, {twin_du:.3e}): {twin_ok}; every control in its box, on a bound "
+                  f"{boxed}; statuses {torch.bincount(ref[3], minlength=3).tolist()}; plain loop "
+                  f"{plain_ms:.1f} ms")
+            e.check(ok and twin_ok and all(b[0] for b in boxed),
+                    f"f64 FDDP kernels with {name} (ddp={ddp}) disagree with plain or each other")
+            f_err[(name, ddp)] = du
+    # ---- float64: stream.cu's variant at B=128, N=300 and N=256 ----
+    def exact_problem(seed, b_, n_):
+        p_np, c_np, t_np = np_problem(seed, b_, n_)
+        return (convert.params_from_numpy(p_np, f64, dev), convert.cost_from_numpy(c_np, f64, dev),
+                convert.trajectory_from_numpy(t_np, f64, dev))
+
+    s_batch, s_n = 128, 300
+    s_params, s_cost, s_traj = exact_problem(12, s_batch, s_n)
+    rng = np.random.default_rng(13)
+    s_hover = 1.3 * 9.81 / 4
+    s_bounds = (torch.as_tensor(s_hover - rng.uniform(0.3, 0.8, size=(s_batch, 4)), device=dev),
+                torch.as_tensor(s_hover + rng.uniform(0.3, 0.8, size=(s_batch, 4)), device=dev))
+    s_w = torch.as_tensor(rng.uniform(0.5, 2.0, size=(s_batch, s_n)), device=dev)
+    s_w[:, -1] = 20.0
+    s_opts = ILQROptions(LineSearchParams(0.5, 0.5, 20), ConvergenceCriteria(1e-8, 1e-8, 10))
+    c = dataclasses.replace(s_cost, stage_weights=s_w)
+    opts = _with_max_iters(s_opts, VARIANT_STREAM_TRIPS)
+    got = kst.solve_fused_streamed(s_params, c, s_traj, DT, opts, limits=s_bounds,
+                                   return_probes=True)
+    ref, plain_ms = e.time_once(
+        lambda: kst.solve_streamed_reference(s_params, c, s_traj, DT, opts, limits=s_bounds))
+    torch.cuda.synchronize()
+    strict, r_max, du = lanes(got, ref)
+    counts = all(bool((g == r).all()) for g, r in zip(got[4:], ref[4:]))
+    boxed = in_box(got[0].controls, s_bounds)
+    e.log(f"f64 stream.cu, box and weights (B={s_batch}, N={s_n}, {VARIANT_STREAM_TRIPS} trips) "
+          f"vs plain: statuses and iterations equal {strict}, max rel cost {r_max:.3e} (rtol "
+          f"1e-8), max |du| {du:.3e} (atol 1e-7), backward passes, probe and apply sweeps equal "
+          f"{counts}; every control in its box {boxed[0]}, {boxed[1]} on a bound; plain loop "
+          f"{plain_ms:.1f} ms")
+    e.check(strict and r_max <= 1e-8 and du <= 1e-7 and counts and boxed[0],
+            "f64 stream.cu with limits and weights disagrees with plain")
+    rows["stream"] = dict(f64_err=du, f64_shape=(s_batch, s_n))
+    t_params, t_cost, t_traj = exact_problem(14, s_batch, 256)
+    t_cost = dataclasses.replace(t_cost, stage_weights=s_w[:, :256].contiguous())
+    got = kst.solve_fused_streamed(t_params, t_cost, t_traj, DT, s_opts, limits=s_bounds)
+    whole = ks.solve_fused_whole(t_params, t_cost, t_traj, DT, s_opts, limits=s_bounds)
+    torch.cuda.synchronize()
+    bits = bit_equal(got, whole)
+    e.log(f"f64 stream.cu with limits and weights bit-equal to solve.cu's at N=256 (B={s_batch}, "
+          f"10 iterations): {bits}; statuses {torch.bincount(whole[3], minlength=3).tolist()}")
+    e.check(bits, "f64 stream.cu with limits and weights differs from solve.cu's at N=256")
+    rows["fddp"] = dict(f64_err=f_err[("box and weights", False)], f64_shape=(batch, n))
+    rows["stream_fddp"] = dict(f64_err=f_err[("box and weights", False)], f64_shape=(batch, n))
+    rows["fddp_weights"] = dict(f64_err=f_err[("weights", False)], f64_shape=(batch, n))
+
+    # ---- float32 at full width: the main path, counted ----
+    # config 6 (the aggressive tumble, B=4096, N=50) with w_T = 20 through
+    # the robust API (refine="auto": a Gauss-Newton launch and an exact-DDP
+    # launch of fddp.cu's weights variant)
+    r_batch, r_n, r_dt = 4096, 50, 0.1
+    gen = torch.Generator(device=dev).manual_seed(0)
+    r_params, r_q, r_r, x0, r_desired = workloads.aggressive_tumble(
+        gen, r_batch, n=r_n, dt_s=r_dt, dtype=f32, device=dev)
+    r_opts = ILQROptions(LineSearchParams(0.5, 0.5, 20), ConvergenceCriteria(1e-6, 1e-6, 40))
+    w_t = workloads.terminal_weights(r_n, f32, dev)
+    robust = QuadrotorILQR(
+        float(r_params.mass_kg), r_params.inertia, float(r_params.arm_length_m),
+        float(r_params.torque_to_thrust_ratio_m), float(r_params.g_mpss), r_q, r_r, r_desired,
+        r_dt, r_opts, dtype=f32, device=dev, solver="fddp", stage_weights=w_t)
+    r_trajs = initial_trajectory_from_state(x0, r_desired)
+    bounds_, flags = resolve_refine_auto(40, False)
+    switch = ((0,) + bounds_)[flags.index(True)]
+    # the long-horizon problem with rotor limits (0, 1.3 x hover) and w_T = 20
+    lh_batch, lh_n, rl_n = 4096, 1024, 512
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lh_params, lh_cost, lh_trajs = workloads.long_horizon_problem(gen, lh_batch, lh_n, f32, DT, dev)
+    lh_cost = dataclasses.replace(lh_cost,
+                                  stage_weights=workloads.terminal_weights(lh_n, f32, dev))
+    lh_limits = workloads.long_horizon_limits()
+    lh_opts = ILQROptions(LineSearchParams(0.5, 0.5, 20), ConvergenceCriteria(1e-6, 1e-6, 10))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rl_params, rl_cost, rl_trajs = workloads.long_horizon_problem(gen, lh_batch, rl_n, f32, DT, dev)
+    rl_cost = dataclasses.replace(rl_cost,
+                                  stage_weights=workloads.terminal_weights(rl_n, f32, dev))
+    rl_opts = ILQROptions(LineSearchParams(0.5, 0.5, 20), ConvergenceCriteria(1e-6, 1e-6, 12))
+    r_fo = fddp.FDDPOptions(gap_tol=1e-5)
+    # config 4 with its limits and terminal weight through the robust MPC loop
+    def mpc_problem(fleet):
+        return workloads.mpc_hover_problem(np.random.default_rng(4), fleet, MPC_HORIZON, MPC_TICKS,
+                                           MPC_DT, f32, dev)
+
+    def run_robust_mpc(pb, ticks):
+        return mpc.run_mpc(pb.params, pb.q, pb.r, pb.desired, pb.x0, ticks, MPC_HORIZON, MPC_DT,
+                           pb.options, stage_weights=pb.stage_weights, limits=pb.limits,
+                           solver="fddp", plant_params=pb.plant)
+
+    tb = workloads.tumble_mpc_problem(torch.Generator(device=dev).manual_seed(2), TUMBLE_FLEET,
+                                      TUMBLE_TICKS, TUMBLE_HORIZON, device=dev)
+
+    def run_tumble(solver):
+        return mpc.run_mpc(tb.params, tb.q, tb.r, tb.desired, tb.x0, TUMBLE_TICKS, TUMBLE_HORIZON,
+                           0.1, tb.options, latency_kernel=True, solver=solver)
+
+    mpc_pbs = {fleet: mpc_problem(fleet) for fleet in MPC_FLEETS[1:]}
+    e.reset_counts()
+    res_c6 = robust.solve_batch(r_trajs)
+    res_long = solve_batch_latency(lh_params, lh_cost, lh_trajs, DT, lh_opts, limits=lh_limits)
+    res_rl = solve_batch_fddp(rl_params, rl_cost, rl_trajs, DT, rl_opts, r_fo, refine="auto",
+                              limits=lh_limits)
+    mpc_out = {fleet: run_robust_mpc(pb, MPC_TICKS) for fleet, pb in mpc_pbs.items()}
+    tumble_fddp = run_tumble("fddp")
+    torch.cuda.synchronize()
+    launches = e.family_counts()
+    e.log(f"robust and long variants main path launches, by instantiation: "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    want = {"fddp_weights": 2, "stream_box_weights": 1, "stream_fddp_box_weights": 2}
+    e.check(all(launches.get(k, 0) == v for k, v in want.items())
+            and launches.get("fddp_box_weights", 0) == MPC_TICKS * len(mpc_pbs)
+            and launches.get("fddp", 0) == TUMBLE_TICKS,
+            f"a variant of the robust and long paths did not run as scheduled: {launches}")
+    tumble_exact = run_tumble("ilqr")
+    torch.cuda.synchronize()
+
+    def conv(r):
+        s = r.status if hasattr(r, "status") else r[3]
+        return float((s == ilqr.STATUS_CONVERGED).float().mean())
+
+    def iters(r):
+        return float((r.iterations if hasattr(r, "iterations") else r[2]).float().mean())
+
+    # config 6 with w_T: finite, then each launch against the plain loop on
+    # the same inputs and resume rows for a trip budget
+    finite = all(bool(torch.isfinite(a).all()) for a in (res_c6.cost, res_c6.trajectory.controls))
+    e.log(f"config 6 with w_T = 20 via QuadrotorILQR(solver='fddp', stage_weights).solve_batch "
+          f"(f32, B={r_batch}, N={r_n}): finite {finite}, converged {conv(res_c6):.4f}, mean "
+          f"iterations {iters(res_c6):.3f}, statuses "
+          f"{torch.bincount(res_c6.status, minlength=3).tolist()}")
+    e.check(finite and res_c6.cost.shape == (r_batch,), "config 6 with w_T: non-finite or wrong shape")
+    c6_args = (robust.params, robust.cost)
+    gn_cut, ddp_cut = (_with_max_iters(r_opts, t) for t in C6W_PLAIN_TRIPS)
+    gn_k = kf.solve_fddp_fused(*c6_args, r_trajs, r_dt, _with_max_iters(r_opts, switch), r_fo,
+                               return_mu=True, return_probes=True)
+    gn_kc = kf.solve_fddp_fused(*c6_args, r_trajs, r_dt, gn_cut, r_fo, return_mu=True,
+                                return_probes=True)
+    gn_p, c6_gn_plain_ms = e.time_once(lambda: kf.solve_fddp_whole_reference(
+        *c6_args, r_trajs, r_dt, gn_cut, r_fo))
+    c6_rows = dict(initial_mu=gn_k[4], initial_status=gn_k[3], initial_iters=gn_k[2])
+    ddp_kc = kf.solve_fddp_fused(*c6_args, gn_k[0], r_dt, ddp_cut, r_fo, ddp=True, return_mu=True,
+                                 return_probes=True, **c6_rows)
+    ddp_p, c6_ddp_plain_ms = e.time_once(lambda: kf.solve_fddp_whole_reference(
+        *c6_args, gn_k[0], r_dt, ddp_cut, r_fo, True, gn_k[4], gn_k[3], gn_k[2]))
+    torch.cuda.synchronize()
+    live = gn_k[3] == 0
+    c6_err = 0.0
+    for what, k_out, p_out, keep in (("Gauss-Newton", gn_kc, gn_p, None),
+                                     ("exact-DDP", ddp_kc, ddp_p, live)):
+        ok, med, q99, dq99, agree = cut_bars(k_out, p_out, keep)
+        if keep is None:
+            c6_err = max_abs(k_out[0].controls, p_out[0].controls)
+        e.log(f"f32 fddp.cu weights variant, config 6 with w_T, its {what} launch's first "
+              f"{C6W_PLAIN_TRIPS[what != 'Gauss-Newton']} trips vs plain"
+              f"{' (resumed; the pending lanes)' if keep is not None else ''}: rel cost median "
+              f"{med:.3e}, 99th percentile {q99:.3e} (<= 1e-3), lanes' max |du| / max |u| 99th "
+              f"percentile {dq99:.3e} (<= 1e-3), status agreement {agree:.4f}")
+        e.check(ok, f"f32 fddp.cu weights variant ({what} launch) outside its bounds")
+    # the long exact path with limits and w_T on stream.cu. A lane whose line
+    # search runs out keeps the candidate of the alpha it last tried (the
+    # reference's semantics), non-finite where the float32 box-QP met an
+    # indefinite Q_uu: every finite lane's controls lie in the box, and
+    # every non-finite lane failed its search
+    finite_l = lanes_finite(res_long)
+    boxed = in_box(res_long.trajectory.controls[finite_l], lh_limits)
+    failed_ok = bool((res_long.status[~finite_l] == ilqr.STATUS_LINE_SEARCH_FAILED).all())
+    e.log(f"long horizon with limits {tuple(round(b, 4) for b in lh_limits)} and w_T = 20 via "
+          f"solve_batch_latency (stream.cu, f32, B={lh_batch}, N={lh_n}): {int((~finite_l).sum())} "
+          f"non-finite lanes, all LINE_SEARCH_FAILED {failed_ok}; every control of the others in "
+          f"its box {boxed[0]} ({boxed[1]} on a bound), converged {conv(res_long):.4f}, mean "
+          f"iterations {iters(res_long):.3f}, statuses "
+          f"{torch.bincount(res_long.status, minlength=3).tolist()}")
+    e.check(failed_ok and boxed[0], "long exact path with limits and w_T: out of box, or a "
+            "non-finite lane that did not fail its line search")
+    lp_opts = _with_max_iters(lh_opts, BOX_LONG_PLAIN_TRIPS)
+    lp_args = (lh_params, lh_cost, lh_trajs, DT, lp_opts)
+    lp_k = kst.solve_fused_streamed(*lp_args, limits=lh_limits, return_probes=True)
+    lp_p, long_plain_ms = e.time_once(
+        lambda: kst.solve_streamed_reference(*lp_args, limits=lh_limits))
+    torch.cuda.synchronize()
+    # float32 with a box over 1,024 stages: the box-QP's active sets flip
+    # with the rounding, and a few lanes of any two float32 engines depart
+    # by O(1) (PERF.md section 6; in float64 they agree lane for lane
+    # above), so the bar is the float32 whole-run one, status agreement and
+    # the median
+    _, med, q99, dq99, agree = cut_bars(lp_k, lp_p)
+    ok = agree >= 0.99 and med < 1e-3 and lanes_finite(lp_k).all()
+    boxed = in_box(lp_k[0].controls, lh_limits)
+    e.log(f"f32 stream.cu box and weights vs plain on the long exact path's inputs (first "
+          f"{BOX_LONG_PLAIN_TRIPS} trips): status agreement {agree:.4f} (>= 0.99), rel cost median "
+          f"{med:.3e} (< 1e-3), 99th percentile {q99:.3e}, lanes' max |du| / max |u| 99th "
+          f"percentile {dq99:.3e}; in its box {boxed[0]}; (backward passes, probe sweeps, apply "
+          f"sweeps) kernel {[int(a.sum()) for a in lp_k[4:]]}, plain "
+          f"{[int(a.sum()) for a in lp_p[4:]]}; plain loop {long_plain_ms:.1f} ms")
+    e.check(ok and boxed[0], "f32 stream.cu with limits and weights outside its bounds at N=1024")
+    rows["stream"].update(max_abs_err=max_abs(lp_k[0].controls, lp_p[0].controls),
+                          plain_ms=long_plain_ms, shape=(lh_batch, lh_n),
+                          work=stream_work(lh_n, lh_batch, *(int(a.sum()) for a in lp_k[4:])))
+    rows["fddp_weights"].update(max_abs_err=c6_err, plain_ms=c6_gn_plain_ms, shape=(r_batch, r_n),
+                                work=fddp_work(r_n, r_batch, [(int(gn_kc[2].sum()),
+                                                              float(gn_kc[5].sum()),
+                                                              int(gn_kc[6].sum()), 0)], False,
+                                               True, 6))
+    # the long robust path with limits and w_T on stream_fddp.cu
+    finite = all(bool(torch.isfinite(a).all()) for a in (res_rl.cost, res_rl.trajectory.controls))
+    boxed = in_box(res_rl.trajectory.controls, lh_limits)
+    e.log(f"long horizon with limits and w_T via solve_batch_fddp(refine='auto') (stream_fddp.cu, "
+          f"f32, B={lh_batch}, N={rl_n}): finite {finite}, every control in its box {boxed[0]} "
+          f"({boxed[1]} on a bound), converged {conv(res_rl):.4f}, mean iterations "
+          f"{iters(res_rl):.3f}")
+    e.check(finite and boxed[0], "long robust path with limits and w_T: non-finite or out of box")
+    lr_args = (rl_params, rl_cost, rl_trajs, DT, _with_max_iters(rl_opts, BOX_LONG_PLAIN_TRIPS),
+               r_fo)
+    lr_k = ksf.solve_fddp_streamed(*lr_args, limits=lh_limits, return_mu=True, return_probes=True)
+    lr_p, rl_plain_ms = e.time_once(
+        lambda: ksf.solve_fddp_streamed_reference(*lr_args, limits=lh_limits))
+    torch.cuda.synchronize()
+    ok, med, q99, dq99, agree = cut_bars(lr_k, lr_p)
+    boxed = in_box(lr_k[0].controls, lh_limits)
+    rl_work = (int(lr_k[2].sum()), float(lr_k[5].sum()), int(lr_k[6].sum()), int(lr_k[7].sum()))
+    e.log(f"f32 stream_fddp.cu box and weights vs plain on the long robust path's inputs (first "
+          f"{BOX_LONG_PLAIN_TRIPS} Gauss-Newton trips): rel cost median {med:.3e}, 99th percentile "
+          f"{q99:.3e} (<= 1e-3), lanes' max |du| / max |u| 99th percentile {dq99:.3e} (<= 1e-3), "
+          f"status agreement {agree:.4f}; in its box {boxed[0]}; (trips, probe sweeps, defect "
+          f"trips, apply sweeps) {rl_work}; plain loop {rl_plain_ms:.1f} ms")
+    e.check(ok and boxed[0], "f32 stream_fddp.cu with limits and weights outside its bounds")
+    rows["stream_fddp"].update(max_abs_err=max_abs(lr_k[0].controls, lr_p[0].controls),
+                               plain_ms=rl_plain_ms, shape=(lh_batch, rl_n),
+                               work=fddp_work(rl_n, lh_batch, [rl_work], True, True, 7))
+    # the robust MPC loop on config 4: controls in the box, then its first
+    # window's solve (fddp.cu's box and weights variant) against plain
+    for fleet, out in mpc_out.items():
+        u = out["u"]
+        boxed = in_box(u.reshape(fleet, -1, 4), mpc_pbs[fleet].limits)
+        x0_err = float(mpc_pbs[fleet].x0.pose.trans.norm(dim=-1).mean())
+        final_err = float(out["x_final"].pose.trans.norm(dim=-1).mean())
+        e.log(f"config 4 with limits and w_T via run_mpc(solver='fddp'), fleet {fleet}: controls "
+              f"in [{float(u.min()):.4f}, {float(u.max()):.4f}], every one in its box {boxed[0]} "
+              f"({boxed[1]} on a bound), mean iterations a tick "
+              f"{float(out['iterations'].float().mean()):.3f}, statuses "
+              f"{torch.bincount(out['status'].flatten(), minlength=3).tolist()}, mean final "
+              f"position error {final_err:.4f} m from {x0_err:.4f} m")
+        e.check(boxed[0] and bool(torch.isfinite(u).all()),
+                f"robust MPC at fleet {fleet}: non-finite or out-of-box controls")
+    pb = mpc_pbs[MPC_FLEETS[-1]]
+    win = mpc._window(pb.desired, 0, MPC_HORIZON)
+    w_cost = QuadraticTrackingCost(Q=pb.q, R=pb.r, desired_states=win.states,
+                                   desired_controls=win.controls, stage_weights=pb.stage_weights)
+    warm = mpc.mpc_warm_start(pb.desired, pb.x0, MPC_HORIZON)
+    m_args = (pb.params, w_cost, warm, MPC_DT, pb.options, fo)
+    m_k = kf.solve_fddp_fused(*m_args, limits=pb.limits, return_mu=True, return_probes=True)
+    m_p, m_plain_ms = e.time_once(lambda: kf.solve_fddp_whole_reference(*m_args,
+                                                                        limits=pb.limits))
+    torch.cuda.synchronize()
+    ok, med, q99, dq99, agree = cut_bars(m_k, m_p)
+    boxed = in_box(m_k[0].controls, pb.limits)
+    m_work = (int(m_k[2].sum()), float(m_k[5].sum()), int(m_k[6].sum()), 0)
+    e.log(f"f32 fddp.cu box and weights vs plain on config 4's first window (B={MPC_FLEETS[-1]}, "
+          f"N={MPC_HORIZON}, {pb.options.convergence_criteria.max_iters} trips): rel cost median "
+          f"{med:.3e}, 99th percentile {q99:.3e} (<= 1e-3), lanes' max |du| / max |u| 99th "
+          f"percentile {dq99:.3e} (<= 1e-3), status agreement {agree:.4f}; in its box {boxed[0]}; "
+          f"(trips, probe sweeps, defect trips) {m_work[:3]}; plain loop {m_plain_ms:.1f} ms")
+    e.check(ok and boxed[0], "f32 fddp.cu with limits and weights outside its bounds")
+    rows["fddp"].update(max_abs_err=max_abs(m_k[0].controls, m_p[0].controls), plain_ms=m_plain_ms,
+                        shape=(MPC_FLEETS[-1], MPC_HORIZON),
+                        work=fddp_work(MPC_HORIZON, MPC_FLEETS[-1], [m_work], True, True, 6))
+    # the tumbling fleet: the exact loop loses a share of it on the first
+    # window, the robust loop recovers it (the JAX package's bars)
+    exact_failed = float((tumble_exact["status"][:, 0] == ilqr.STATUS_LINE_SEARCH_FAILED)
+                         .float().mean())
+    rob_failed = int((tumble_fddp["status"] == ilqr.STATUS_LINE_SEARCH_FAILED).sum())
+    finite = bool(torch.isfinite(tumble_fddp["cost"]).all() and torch.isfinite(tumble_fddp["u"]).all())
+    w0 = float(tb.x0.vel[:, 3:6].norm(dim=-1).median())
+    w1 = float(tumble_fddp["x_final"].vel[:, 3:6].norm(dim=-1).median())
+    e.log(f"tumbling fleet ({TUMBLE_FLEET} vehicles, {TUMBLE_TICKS} ticks, H={TUMBLE_HORIZON}, dt "
+          f"0.1, f32): the exact loop fails its line search on {exact_failed:.4f} of the first "
+          f"window's lanes (> 0.1); run_mpc(solver='fddp'): {rob_failed} LINE_SEARCH_FAILED "
+          f"lane-ticks (0), costs and controls finite {finite}, median body rate {w1:.4f} rad/s "
+          f"from {w0:.4f} (lower); statuses "
+          f"{torch.bincount(tumble_fddp['status'].flatten(), minlength=3).tolist()}")
+    e.check(exact_failed > 0.1 and rob_failed == 0 and finite and w1 < w0,
+            "the tumbling fleet: the robust MPC loop misses the JAX package's bars")
+
+    # ---- the times (CUDA events, medians of 5) ----
+    def measure_mpc(pb):
+        """ms a tick over MPC_TICKS, host syncs a tick (torch's sync debug
+        mode, over MPC_CHUNK ticks), the host-driven mpc_step loop's per-tick
+        p50, p99, max (u0 read back each tick, the plant the model)."""
+        ms_run = e.time_ms(lambda: run_robust_mpc(pb, MPC_TICKS), repeats=3)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                run_robust_mpc(pb, MPC_CHUNK)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("synchroniz" in str(w.message) for w in caught) / MPC_CHUNK
+        x, warm_ = pb.x0, mpc.mpc_warm_start(pb.desired, pb.x0, MPC_HORIZON)
+        ticks = []
+        for k in range(MPC_TICKS):
+            t0 = time.perf_counter()
+            x, warm_, u0 = mpc.mpc_step(pb.params, pb.q, pb.r, pb.desired, x, warm_, k, MPC_HORIZON,
+                                        MPC_DT, pb.options, stage_weights=pb.stage_weights,
+                                        limits=pb.limits, solver="fddp")
+            u0.cpu()
+            if k:
+                ticks.append((time.perf_counter() - t0) * 1e3)
+        return dict(ms_tick=ms_run / MPC_TICKS, syncs=syncs,
+                    host=[float(np.percentile(ticks, 50)), float(np.percentile(ticks, 99)),
+                          max(ticks)])
+
+    mpc_numbers = {}
+    for fleet, pb_ in mpc_pbs.items():
+        m = mpc_numbers[fleet] = measure_mpc(pb_)
+        e.log(f"config 4 with limits and w_T via run_mpc(solver='fddp'), fleet {fleet}: "
+              f"{m['ms_tick']:.4f} ms a tick over {MPC_TICKS} ticks, {m['syncs']:.2f} host syncs a "
+              f"tick; host-driven mpc_step per tick p50 {m['host'][0]:.4f}, p99 "
+              f"{m['host'][1]:.4f}, max {m['host'][2]:.4f} ms (H={MPC_HORIZON}, f32) {card}")
+    times = {
+        "c6": e.time_ms(lambda: robust.solve_batch(r_trajs)),
+        "long": e.time_ms(lambda: solve_batch_latency(lh_params, lh_cost, lh_trajs, DT, lh_opts,
+                                                      limits=lh_limits)),
+        "long_robust": e.time_ms(lambda: solve_batch_fddp(rl_params, rl_cost, rl_trajs, DT, rl_opts,
+                                                          r_fo, refine="auto", limits=lh_limits)),
+        "fddp": e.time_ms(lambda: kf.solve_fddp_fused(*m_args, limits=pb.limits)),
+        "fddp_free": e.time_ms(lambda: kf.solve_fddp_fused(
+            pb.params, dataclasses.replace(w_cost, stage_weights=None), warm, MPC_DT, pb.options, fo)),
+        "stream": e.time_ms(lambda: kst.solve_fused_streamed(*lp_args, limits=lh_limits)),
+        "stream_free": e.time_ms(lambda: kst.solve_fused_streamed(
+            lh_params, dataclasses.replace(lh_cost, stage_weights=None), lh_trajs, DT, lp_opts)),
+        "stream_fddp": e.time_ms(lambda: ksf.solve_fddp_streamed(*lr_args, limits=lh_limits)),
+        "stream_fddp_free": e.time_ms(lambda: ksf.solve_fddp_streamed(
+            rl_params, dataclasses.replace(rl_cost, stage_weights=None), *lr_args[2:])),
+        "c6_gn_cut": e.time_ms(lambda: kf.solve_fddp_fused(*c6_args, r_trajs, r_dt, gn_cut, r_fo)),
+    }
+    e.log(f"config 6 with w_T through the robust API: {times['c6']:.3f} ms per batch solve "
+          f"(converged {conv(res_c6):.4f}, {r_batch / times['c6'] * 1e3:.1f} solves/s); its "
+          f"Gauss-Newton launch's first {C6W_PLAIN_TRIPS[0]} trips {times['c6_gn_cut']:.3f} ms "
+          f"(plain {c6_gn_plain_ms:.1f} ms); long exact with limits and w_T on stream.cu "
+          f"{times['long']:.3f} ms (converged {conv(res_long):.4f}); long robust on "
+          f"stream_fddp.cu {times['long_robust']:.3f} ms (converged {conv(res_rl):.4f}) {card}")
+    for name in ("fddp", "stream", "stream_fddp"):
+        shape = rows[name]["shape"]
+        e.log(f"{name}.cu with limits and weights (B={shape[0]}, N={shape[1]}, f32, the calls held "
+              f"against plain): {times[name]:.3f} ms, without either {times[name + '_free']:.3f} "
+              f"ms; plain {rows[name]['plain_ms']:.1f} ms {card}")
+        rows[name].update(ms=times[name], without_variants_ms=times[name + "_free"],
+                          launches=launches.get(f"{name}_box_weights", 0))
+    rows["fddp_weights"].update(ms=times["c6_gn_cut"], launches=launches.get("fddp_weights", 0))
+    e.log(f"robust and long variants phase took {time.perf_counter() - t_phase:.1f} s")
+    return rows, dict(mpc={str(k): v for k, v in mpc_numbers.items()},
+                      times=times, c6_converged=conv(res_c6), long_converged=conv(res_long),
+                      long_robust_converged=conv(res_rl), launches=launches,
+                      tumble=dict(exact_failed=exact_failed, fddp_failed=rob_failed,
+                                  body_rate=(w0, w1)))
 
 
 T0 = time.perf_counter()
@@ -2160,6 +2760,12 @@ def main() -> int:
         launch_ms=launch_ms, reset_counts=reset_counts, family_counts=family_counts,
     ))
 
+    # ---- 6d. limits and stage weights on the robust and long paths ----
+    robust_rows, robust_numbers = robust_variants_phase(SimpleNamespace(
+        dev=dev, card=card, log=log, check=check, time_once=time_once, time_ms=time_ms,
+        reset_counts=reset_counts, family_counts=family_counts,
+    ))
+
     # ---- 7. bounds: the work this run's inputs needed ----
     f = FLOPS
     word = 4  # float32
@@ -2232,6 +2838,13 @@ def main() -> int:
         (flops, nbytes), (b_ms, b_by) = v["work"], family_bounds[name]
         log(f"{name} bound ({v['shape']}): {flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB -> "
             f"{b_ms:.5f} ms ({b_by}); measured {v['ms']:.4f} ms")
+
+    robust_bounds = {name: bound(*v["work"]) for name, v in robust_rows.items()}
+    for name, v in robust_rows.items():
+        (flops, nbytes), (b_ms, b_by) = v["work"], robust_bounds[name]
+        log(f"{name} with its variants bound ({v['shape']}): {flops / 1e9:.4f} GFLOP, "
+            f"{nbytes / 1e6:.3f} MB -> {b_ms:.5f} ms ({b_by}); measured {v['ms']:.4f} ms")
+    log(f"robust and long variants numbers: {json.dumps(robust_numbers)}")
 
     pkg = "quadrotorilqr_tpu_torch/kernels/csrc"
     replaces = {
@@ -2312,6 +2925,25 @@ def main() -> int:
             "model": models["_" + sfx], "lane_model": lane_models["_" + sfx],
             "shape": v["shape"], "max_abs_err_shape": {"B": 300, "N": 40, "dtype": "float64"},
             **{k: v[k] for k in ("per_pass_route_ms", "full_width") if k in v},
+        })
+    # the box and weights instantiations of rows 4-6 on phase 6d's main path
+    # (launches there), error (float32) and times at the shapes in `shape`
+    # on the calls held against plain, beside the float64 error; and
+    # fddp.cu's weights variant on config 6 with w_T
+    for name, v in robust_rows.items():
+        kernel = "fddp" if name == "fddp_weights" else name
+        variant = "weights (kW)" if name == "fddp_weights" else "box and weights (kBox, kW)"
+        kernels.append({
+            "name": name if name == "fddp_weights" else f"{name}_box_weights", "route": "cuda",
+            "source": f"{pkg}/{kernel}.cu", "replaces": replaces[kernel],
+            "launches": v["launches"], "max_abs_err": v["max_abs_err"], "ms": v["ms"],
+            "plain_ms": v["plain_ms"], "bound_ms": robust_bounds[name][0],
+            "bound_by": robust_bounds[name][1], "library_ms": None, "variant": variant,
+            "shape": {"B": v["shape"][0], "N": v["shape"][1]},
+            **({"without_variants_ms": v["without_variants_ms"]}
+               if "without_variants_ms" in v else {}),
+            "f64_max_abs_err": v["f64_err"],
+            "f64_shape": {"B": v["f64_shape"][0], "N": v["f64_shape"][1]},
         })
     log(f"chip_smoke took {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

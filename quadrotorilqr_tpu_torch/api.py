@@ -16,12 +16,12 @@ streamed kernels, as the JAX class's routes do: `latency=True` runs
 `stream.cu`, and each FDDP launch `stream_fddp.cu`.
 
 `stage_weights` ((N,) per-stage cost multipliers, e.g. terminal emphasis
-[1, ..., 1, w_T]) weight the full stage cost on every exact route: the
-plain loop, the per-pass kernels and the whole-solve kernel run their
-weights variants up to 256 stages; `latency=True` past 256 stages (the
-streamed kernel) and the FDDP solvers do not take them yet and raise
-(ROADMAP Queue 2 items E and F). Control limits are not an argument of the
-class, as in the JAX package: they go to `solver.batched` and `app.mpc`.
+[1, ..., 1, w_T]) weight the full stage cost on every route: the plain
+loops, exact and FDDP, and every kernel's weights variant (the per-pass
+kernels, `solve.cu` and `stream.cu`, `fddp.cu` and `stream_fddp.cu` in each
+phase of `refine="auto"`, the exact-DDP one included). Control limits are
+not an argument of the class, as in the JAX package: they go to
+`solver.batched` and `app.mpc`.
 
 `options.populate_debug` fills `SolveResult.debug`: an IterDebug (one
 trajectory and cost per executed update) from `solve_pytree`, `fused=False`
@@ -97,8 +97,6 @@ class QuadrotorILQR:
             raise ValueError(f"unknown solver {solver!r}")
         if solver == "ddp":
             raise NotImplementedError(SOLVER_TODO)
-        if stage_weights is not None and solver != "ilqr":
-            raise NotImplementedError(ilqr.FDDP_VARIANTS_TODO)
         if not isinstance(options, ILQROptions):
             options = _io().options_from_proto(options)
         if options.populate_debug and solver != "ilqr":

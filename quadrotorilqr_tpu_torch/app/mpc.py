@@ -19,6 +19,10 @@ line-search probe, where the reference loop asks whether any lane is still
 running. `stage_weights` ((H,) or (B, H); terminal emphasis [1, ..., 1,
 w_T]) and `limits=(lo, hi)` (rotor saturation) run the kernels' weights and
 box variants, so the applied controls respect the box by construction.
+`solver="fddp"` solves each window with the robust multiple-shooting loop
+(`solver.batched.solve_batch_fddp`: one `fddp.cu` launch a tick, its plain
+loop on the CPU), for disturbance recovery where the exact loop's trip-0
+rollout can diverge; `fddp_options` tunes it (`solver.fddp.FDDPOptions`).
 """
 
 from __future__ import annotations
@@ -29,15 +33,10 @@ from ..costs.quadratic import QuadraticTrackingCost
 from ..models import quadrotor as qm
 from ..models.quadrotor import State
 from ..parallel.batch import initial_trajectory_from_state
-from ..solver.batched import solve_batch_fused, solve_batch_latency
+from ..solver.batched import solve_batch_fddp, solve_batch_fused, solve_batch_latency
 from ..solver.ilqr import Trajectory
 from ..solver.options import ILQROptions
 from ..tree import tree_map
-
-FDDP_MPC_TODO = (
-    "solver='fddp' in the MPC loop is not ported yet: the FDDP kernels take no "
-    "limits or stage weights (ROADMAP Queue 2 item F)"
-)
 
 
 def _window(tree, k, h):
@@ -73,14 +72,13 @@ def mpc_warm_start(desired_full: Trajectory, x0: State, horizon: int) -> Traject
 def _mpc_step_impl(
     params, q_weight, r_weight, desired_full, x, warm, k, horizon, dt_s, options,
     latency_kernel=False, stage_weights=None, limits=None, solver="ilqr",
-    plant_params=None,
+    fddp_options=None, plant_params=None,
 ):
     """One receding-horizon tick (shared by `run_mpc` and `mpc_step`):
     window the targets, solve warm-started, apply the first control, shift
     the solution. Returns (x_next, warm_next, u0, SolveResult)."""
-    if solver == "fddp":
-        raise NotImplementedError(FDDP_MPC_TODO)
-    if solver != "ilqr":
+    if solver not in ("ilqr", "fddp"):
+        # a typo (or "fddp-ddp") must not run the exact loop in its place
         raise ValueError(f"unknown MPC solver {solver!r} (use 'ilqr' or 'fddp')")
     win = _window(desired_full, k, horizon)
     cost_k = QuadraticTrackingCost(
@@ -93,8 +91,12 @@ def _mpc_step_impl(
     init_traj = Trajectory(
         times=warm.times, states=_set_first_state(warm.states, x), controls=warm.controls
     )
-    engine = solve_batch_latency if latency_kernel else solve_batch_fused
-    res = engine(params, cost_k, init_traj, dt_s, options, limits=limits)
+    if solver == "fddp":
+        res = solve_batch_fddp(params, cost_k, init_traj, dt_s, options, fddp_options,
+                               limits=limits)
+    else:
+        engine = solve_batch_latency if latency_kernel else solve_batch_fused
+        res = engine(params, cost_k, init_traj, dt_s, options, limits=limits)
     u0 = res.trajectory.controls[:, 0]
     # the plant may differ from the controller's model (parameter mismatch,
     # the condition a deployed loop runs under); None is the exact model
@@ -117,6 +119,7 @@ def mpc_step(
     stage_weights=None,
     limits=None,
     solver: str = "ilqr",
+    fddp_options=None,
 ):
     """One tick for host-driven loops, where the per-tick latency
     distribution (p99 and max against the control period) certifies a
@@ -124,7 +127,7 @@ def mpc_step(
     device and read only u0 back. The plant is the controller's model."""
     x_next, warm_next, u0, _ = _mpc_step_impl(
         params, q_weight, r_weight, desired_full, x, warm, k, horizon, dt_s, options,
-        latency_kernel, stage_weights, limits, solver,
+        latency_kernel, stage_weights, limits, solver, fddp_options,
     )
     return x_next, warm_next, u0
 
@@ -143,6 +146,7 @@ def run_mpc(
     stage_weights=None,
     limits=None,
     solver: str = "ilqr",
+    fddp_options=None,
     plant_params=None,
     warm0=None,
 ):
@@ -178,7 +182,7 @@ def run_mpc(
         out["x_trans"][:, k] = x.pose.trans
         x, warm, u0, res = _mpc_step_impl(
             params, q_weight, r_weight, desired_full, x, warm, k, horizon, dt_s, options,
-            latency_kernel, stage_weights, limits, solver, plant_params,
+            latency_kernel, stage_weights, limits, solver, fddp_options, plant_params,
         )
         out["u"][:, k] = u0
         out["iterations"][:, k] = res.iterations

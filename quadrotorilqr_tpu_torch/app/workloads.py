@@ -1,9 +1,10 @@
 """Canonical workloads: the reference demo's desired trajectory, vehicle
 and weights (BASELINE config 1), the hover-to-waypoint benchmark problem,
 the figure eight (BASELINE config 3), the MPC hover-regulation problem
-(BASELINE config 4), the long-horizon problem and the aggressive tumble
-(`quadrotorilqr_tpu/app/workloads.py`), and the wider-control families'
-waypoint problems: the SE(3) body wrench (`benchmarks/wrench_bench.py`) and
+(BASELINE config 4) and the tumbling fleet the robust MPC recovers, the
+long-horizon problem (with its rotor limits and terminal weight) and the
+aggressive tumble (`quadrotorilqr_tpu/app/workloads.py`), and the
+wider-control families' waypoint problems: the SE(3) body wrench (`benchmarks/wrench_bench.py`) and
 the hexarotor (`__graft_entry__.py`).
 
 The deterministic trajectories are built in float64 numpy, as the JAX
@@ -220,6 +221,20 @@ def long_horizon_problem(
     return params, cost, initial_trajectory_from_state(init_states, desired)
 
 
+def long_horizon_limits():
+    """Rotor limits (0, 1.3 x hover thrust) for `long_horizon_problem`'s
+    1.3 kg vehicle: (0, 4.14) N."""
+    return 0.0, 1.3 * 1.3 * 9.81 / 4.0
+
+
+def terminal_weights(n, dtype=torch.float32, device=None):
+    """(n,) stage weights [1, ..., 1, 20]: terminal emphasis (w_T = 20, the
+    JAX package's tests/test_mpc.py:118-140)."""
+    w = torch.ones(n, dtype=dtype, device=device)
+    w[-1] = 20.0
+    return w
+
+
 def aggressive_tumble(
     generator: torch.Generator, batch, n=50, dt_s=0.1, scale=1.8, dtype=torch.float32,
     device=None,
@@ -258,8 +273,9 @@ def aggressive_tumble(
 
 
 class MpcProblem(typing.NamedTuple):
-    """BASELINE config 4 (`mpc_hover_problem`): what `app.mpc.run_mpc`
-    takes, and the constrained variant's limits and terminal weights."""
+    """What `app.mpc.run_mpc` takes, and a constrained variant's limits and
+    terminal weights: BASELINE config 4 (`mpc_hover_problem`) or the
+    tumbling fleet (`tumble_mpc_problem`, which has neither)."""
 
     params: QuadrotorParams  # the controller's model
     plant: QuadrotorParams  # the plant: mass and inertia + mismatch
@@ -268,8 +284,8 @@ class MpcProblem(typing.NamedTuple):
     desired: Trajectory  # unbatched, ticks + horizon + 8 stages
     x0: State  # (fleet, ...)
     options: ILQROptions
-    limits: tuple  # (0.0, 2.9) N per rotor
-    stage_weights: torch.Tensor  # (horizon,): [1, ..., 1, 20]
+    limits: tuple | None  # (0.0, 2.9) N per rotor
+    stage_weights: torch.Tensor | None  # (horizon,): [1, ..., 1, 20]
 
 
 def mpc_hover_problem(
@@ -322,8 +338,6 @@ def mpc_hover_problem(
         controls=torch.full((n_full, 4), (1.0 + mismatch) * 9.81 / 4.0, dtype=dtype, device=device),
     )
     q, r = demo_weights(dtype, device)
-    weights = torch.ones(horizon, dtype=dtype, device=device)
-    weights[-1] = 20.0
     return MpcProblem(
         params=vehicle(1.0),
         plant=vehicle(1.0 + mismatch),
@@ -333,7 +347,37 @@ def mpc_hover_problem(
         x0=State(pose=se3.exp(as_t(tau)), vel=torch.zeros((fleet, 6), dtype=dtype, device=device)),
         options=ILQROptions(LineSearchParams(0.5, 0.5, 8), ConvergenceCriteria(1e-5, 1e-5, 3)),
         limits=(0.0, 2.9),
-        stage_weights=weights,
+        stage_weights=terminal_weights(horizon, dtype, device),
+    )
+
+
+def tumble_mpc_problem(
+    generator: torch.Generator, fleet, ticks=6, horizon=16, dtype=torch.float32, device=None,
+) -> MpcProblem:
+    """The tumbling fleet the robust MPC recovers (tests/test_mpc.py:154-189
+    of the JAX package): `aggressive_tumble`'s vehicle and weights (Q =
+    diag(100 1_6, 1_6), R = 1e-3 I_4) with start pose and body twist drawn
+    at scale 2.0 from `generator`, hover targets at the origin over 60
+    stages of dt 0.1, 8 iterations a tick at tolerance 1e-8 with the
+    default line search; the plant is the model, with no limits or
+    weights. The exact loop's first window fails its line search on a
+    share of the fleet; `app.mpc.run_mpc(solver="fddp")` recovers it.
+
+    Returns an MpcProblem (limits and stage_weights None)."""
+    params, q, r, x0, desired = aggressive_tumble(
+        generator, fleet, n=max(60, ticks + horizon), dt_s=0.1, scale=2.0, dtype=dtype,
+        device=device,
+    )
+    return MpcProblem(
+        params=params,
+        plant=params,
+        q=q,
+        r=r,
+        desired=desired,
+        x0=x0,
+        options=ILQROptions(convergence_criteria=ConvergenceCriteria(1e-8, 1e-8, 8)),
+        limits=None,
+        stage_weights=None,
     )
 
 

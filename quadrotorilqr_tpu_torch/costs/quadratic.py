@@ -39,13 +39,6 @@ class QuadraticTrackingCost:
     stage_weights: torch.Tensor | None = None
 
 
-def refuse_weights(cost: QuadraticTrackingCost, todo: str):
-    """Raise NotImplementedError(todo) for a weighted cost: the solvers whose
-    kernels take no stage weight yet name their ROADMAP item this way."""
-    if cost.stage_weights is not None:
-        raise NotImplementedError(todo)
-
-
 def cost_batched_flags(cost: QuadraticTrackingCost):
     """Same structure as `cost`, with bools marking the leaves that carry a
     leading per-scenario axis (every core is 2-dim except stage_weights)."""

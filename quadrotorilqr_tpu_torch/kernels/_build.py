@@ -3,7 +3,8 @@
 On first use, `load()` compiles every `kernels/csrc/*.cu` with nvcc for
 Hopper (`sm_90a`): the exact kernels' sources (FAMILY_SOURCES) once per
 model family (FAMILIES: `-DQILQR_FAMILY_T`, `-DQILQR_FAMILY`,
-csrc/quadrotor.cuh), the others once, one nvcc process per object, all started together, and links
+csrc/quadrotor.cuh), the FDDP sources once per box and weights variant
+(VARIANTS), one nvcc process per object, all started together, and links
 the objects into one shared library with a plain C interface, under
 `build/torch_kernels/` at the repository root. The library's name carries a
 hash of the sources and flags, so an edited source never reuses a stale
@@ -43,10 +44,17 @@ FAMILIES = {"": "Quadrotor", "_wrench": "Wrench", "_rotor6": "Multirotor<6>",
             "_rotor8": "Multirotor<8>"}
 # the sources built once per family; the FDDP kernels are the quadrotor's alone
 FAMILY_SOURCES = ("backward", "rollout", "solve", "stream")
-# the kernels built on csrc/team.cuh (every kernel and family), each with a
-# qilqr_<name>_team_info entry
-TEAM_KERNELS = tuple(f"{k}{fam}" for k in FAMILY_SOURCES for fam in FAMILIES) + (
-    "fddp", "stream_fddp",
+# The FDDP sources are built once per box and weights variant instead: the C
+# entries' suffix (kernels.backward.variant_key; nvcc's -DQILQR_VARIANT) ->
+# (-DQILQR_BOX, -DQILQR_WEIGHTS). Each object holds its variant's kernels
+# with and without exact DDP, in both dtypes, so that the sixteen kernels of
+# a source compile in four nvcc processes side by side.
+VARIANTS = {"": (0, 0), "_box": (1, 0), "_weights": (0, 1), "_box_weights": (1, 1)}
+VARIANT_SOURCES = ("fddp", "stream_fddp")
+# the kernels built on csrc/team.cuh (every kernel, family and variant
+# object), each with a qilqr_<name>_team_info entry
+TEAM_KERNELS = tuple(f"{k}{fam}" for k in FAMILY_SOURCES for fam in FAMILIES) + tuple(
+    f"{k}{var}" for k in VARIANT_SOURCES for var in VARIANTS
 )
 ENTRIES = tuple(f"qilqr_{name}" for name in TEAM_KERNELS)
 
@@ -72,6 +80,11 @@ def _objects():
     """(source, defines, object stem) of every object the library links."""
     out = []
     for src in (p for p in _sources() if p.suffix == ".cu"):
+        if src.stem in VARIANT_SOURCES:
+            out += [(src, [f"-DQILQR_VARIANT={var}", f"-DQILQR_BOX={box}",
+                           f"-DQILQR_WEIGHTS={w}"] if var else [], f"{src.stem}{var}")
+                    for var, (box, w) in VARIANTS.items()]
+            continue
         families = FAMILIES.items() if src.stem in FAMILY_SOURCES else (("", ""),)
         out += [(src, [f"-DQILQR_FAMILY_T={t}", f"-DQILQR_FAMILY={fam}"] if fam else [],
                  f"{src.stem}{fam}") for fam, t in families]
@@ -81,6 +94,7 @@ def _objects():
 def source_digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(repr(sorted(FAMILIES.items())).encode())
+    h.update(repr(sorted(VARIANTS.items())).encode())
     for path in _sources():
         h.update(path.name.encode())
         h.update(path.read_bytes())

@@ -104,7 +104,9 @@ class Operands(typing.NamedTuple):
     """Packed kernel arguments; `tensors` keeps the device buffers alive.
     `variant` holds the box and weights variants' (tensors, ptrs, ints),
     which go after the kernel's own operands; `lm` is the model family's
-    lane model, which names the kernel instantiation."""
+    lane model, which names the kernel instantiation; `key` names the
+    instantiation a launch runs, for the launch counters: the family's
+    suffix, then "_box", "_weights" or "_box_weights" for the variants."""
 
     tensors: list
     ptrs: list
@@ -112,6 +114,7 @@ class Operands(typing.NamedTuple):
     reals: list
     variant: tuple = ((), (), ())
     lm: LaneModel = QUADROTOR
+    key: str = ""
 
     def extend(self, tensors=(), ints=(), reals=()):
         """Append kernel-specific operands (None for a null pointer), then
@@ -123,6 +126,7 @@ class Operands(typing.NamedTuple):
             self.ints + list(ints) + list(v_ints),
             self.reals + [float(r) for r in reals],
             lm=self.lm,
+            key=self.key,
         )
 
     def entry(self, kernel):
@@ -157,26 +161,29 @@ def _variant_operands(cost, limits, batch, n, dtype, device, u_dim):
     )
 
 
+def variant_key(limits, cost):
+    """The launch counters' name of the variants a launch runs: "", "_box",
+    "_weights" or "_box_weights"."""
+    return ("_box" if limits is not None else "") + (
+        "_weights" if cost.stage_weights is not None else "")
+
+
 def _problem_operands(
-    params, cost, batch, n, dt_s, dtype, device, limits=None, variants=False, model=None
+    params, cost, batch, n, dt_s, dtype, device, limits=None, model=None
 ) -> Operands:
     """The operands every kernel reads, in csrc/quadrotor.cuh's order:
     ptrs dq dtr dv du Q R g minv ju iinv_ma inertia inertia_inv (iinv_ma
-    null for the wrench); ints B N s_des s_qr s_par; reals dt; and the
-    model family's lane model (`lane_model_for(params, model)`). With
-    `variants` (the kernels that have box and weights variants: backward,
-    rollout, solve) also the variants' operands for `limits` and the cost's
-    stage weights; the other kernels refuse both before they get here.
-    Only the quadrotor kernels have those variants: with another family
-    limits and weights raise, as does a rotor count without kernels."""
+    null for the wrench); ints B N s_des s_qr s_par; reals dt; the model
+    family's lane model (`lane_model_for(params, model)`); and the box and
+    weights variants' operands for `limits` and the cost's stage weights,
+    which every kernel reads after its own. Only the quadrotor kernels have
+    those variants: with another family limits and weights raise, as does
+    a rotor count without kernels."""
     lm = lane_model_for(params, model)
     if lm.suffix is None:
         raise NotImplementedError(ilqr.FAMILY_ROTORS_TODO)
-    if limits is not None or cost.stage_weights is not None:
-        if not variants:
-            raise NotImplementedError("this kernel has no box or weights variant")
-        if lm.suffix:
-            raise NotImplementedError(ilqr.FAMILY_VARIANTS_TODO)
+    if (limits is not None or cost.stage_weights is not None) and lm.suffix:
+        raise NotImplementedError(ilqr.FAMILY_VARIANTS_TODO)
     if n * lm.gains_pitch() * batch >= 2**31:
         raise ValueError(f"B={batch} x N={n} overflows the kernels' 32-bit buffer offsets")
     *cost_ops, cb = _prep_cost(cost, batch, dtype, device)
@@ -195,8 +202,9 @@ def _problem_operands(
         [0 if t is None else t.data_ptr() for t in tensors],
         [batch, n, int(cb.des), int(cb.qr), int(params_batched)],
         [float(dt_s)],
-        _variant_operands(cost, limits, batch, n, dtype, device, lm.u_dim) if variants else ((), (), ()),
+        _variant_operands(cost, limits, batch, n, dtype, device, lm.u_dim),
         lm,
+        lm.suffix + variant_key(limits, cost),
     )
 
 
@@ -248,11 +256,11 @@ def gains_buffer(ks, big_ks, dtype, device, pitch):
     return packed.transpose(0, 1).contiguous()
 
 
-def count_launch(wrapper, suffix=""):
+def count_launch(wrapper, key=""):
     """One launch of `wrapper`'s kernel: each wrapper counts its launches per
-    model family, by the C entries' suffix ("" for the quadrotor), in its
-    Counter `launches`."""
-    wrapper.launches[suffix] += 1
+    instantiation in its Counter `launches`, by `Operands.key` (the C
+    entries' family suffix, "" for the quadrotor, then the variants')."""
+    wrapper.launches[key] += 1
 
 
 def _active_lanes(active, batch, device):
@@ -294,7 +302,7 @@ def backward_pass_fused(params, cost, traj, dt_s, quu_reg=0.0, active=None, limi
     _check_cuda(device)
     batch, n = controls.shape[0], controls.shape[1]
     ops = _problem_operands(
-        params, cost, batch, n, dt_s, controls.dtype, device, limits, True, model
+        params, cost, batch, n, dt_s, controls.dtype, device, limits, model
     )
     return _launch(ops, traj, quu_reg, active)
 
@@ -313,7 +321,7 @@ def _launch(ops, traj, quu_reg, active):
         reals=[quu_reg],
     )
     _build.launch(ops.entry("backward"), dtype, ops.ptrs, ops.ints, ops.reals, device)
-    count_launch(backward_pass_fused, ops.lm.suffix)
+    count_launch(backward_pass_fused, ops.key)
     return (*gains_views(gains, u), red[0], red[1])
 
 

@@ -55,6 +55,14 @@
 // the launch ends on a few straggler scenarios' long line searches, whose
 // serial probe stages gain nothing from a wider team, and 4 lanes won both
 // launches (PERF.md section 6).
+//
+// The box and weights variants (fddp.py's use_box, use_weights) are the
+// instantiations (kBox, kW), each with and without kDdp: the reverse sweep
+// runs the Riccati stage's box-QP gains and weighted cost terms, the gap
+// sweeps clamp every control and weight each stage cost and the quadratic
+// model's terms, the seed cost is weighted. The trip logic is the same. The
+// source is compiled once per variant (team.cuh QILQR_VARIANT), and the host
+// calls the entry of the variant its bounds and weights ask for.
 #define QILQR_TEAM_LANES 4  // lanes per scenario (PERF.md section 6)
 #include "team_trip.cuh"
 
@@ -77,9 +85,10 @@ struct FddpIO {
   Traj<T> best;       // scratch (N, d, B): the line search's candidate
   T* d;               // scratch (N, B, 12): the defects
   FddpKnobs<T> k;
+  VariantOps<T> var;  // bounds and weights of the variants
 };
 
-template <typename T, bool kDdp>
+template <typename T, bool kDdp, bool kBox, bool kW>
 __global__ void __launch_bounds__(kTeamThreads) fddp_kernel(Problem<T> P, FddpIO<T> io) {
   Team<T, Quadrotor> tm;
   if (!team_setup(P, &tm)) return;
@@ -90,7 +99,7 @@ __global__ void __launch_bounds__(kTeamThreads) fddp_kernel(Problem<T> P, FddpIO
   int iters = io.iiter != nullptr ? io.iiter[b] : 0;
   bool done = status != 0;
   // FDDP seeds from the true (possibly infeasible) trajectory's cost
-  T cost = team_fddp_cost(tm, P, io.live);
+  T cost = team_fddp_cost<T, kW>(tm, P, io.live, io.var);
   bool take = false;  // the last trip accepted a candidate not yet merged
   bool stale = true;  // the defects need computing (trip 0, or after an accept)
   T gap = T(0);
@@ -99,11 +108,12 @@ __global__ void __launch_bounds__(kTeamThreads) fddp_kernel(Problem<T> P, FddpIO
     const T current = cost;
     // ---- fused merge + defects + gap-transported backward pass ----
     defect_trips += stale ? 1 : 0;
-    gap = team_fddp_reverse<T, kDdp>(tm, P, io.k.quu_reg + mu, take ? io.best : io.live, take,
-                                     io.live, stale, io.gains, io.d, gap);
+    gap = team_fddp_reverse<T, kDdp, kBox, kW>(tm, P, io.k.quu_reg + mu,
+                                               take ? io.best : io.live, take, io.live, stale,
+                                               io.gains, io.d, gap, io.var);
     // ---- the line search, each probe stored as the candidate ----
-    const LineSearch<T> ls = team_fddp_line_search<T, kDdp>(tm, P, io.k, io.live, io.best, true,
-                                                            io.gains, io.d, current);
+    const LineSearch<T> ls = team_fddp_line_search<T, kDdp, kBox, kW>(
+        tm, P, io.k, io.live, io.best, true, io.gains, io.d, current, io.var);
     stages_run += ls.stages;
     // ---- trip close (fddp.py _fddp_trip_close) ----
     done = fddp_trip_close(io.k, ls, current, gap, &cost, &mu, &status);
@@ -126,11 +136,11 @@ __global__ void __launch_bounds__(kTeamThreads) fddp_kernel(Problem<T> P, FddpIO
 
 // packed operands after the Problem block:
 //   ptrs:  q t v u  imu istat iiter  oq ot ov ou  cost iters status mu probes
-//          gains  bq bt bv bu  d  defect_trips
-//   ints:  max_iters ls_max_iters ddp
+//          gains  bq bt bv bu  d  defect_trips  lo hi w
+//   ints:  max_iters ls_max_iters ddp  s_box s_w
 //   reals: quu_reg rtol atol ls_step ls_jump goldstein_frac goldstein_ub gap_tol
 //          reg_init reg_scale_up reg_scale_down reg_min reg_max alpha_dec alpha_inc
-template <typename T>
+template <typename T, bool kBox, bool kW>
 int launch_fddp(const void* const* ptrs, const long long* ints, const double* reals,
                 void* stream) {
   Problem<T> P = make_problem<T>(ptrs, ints, reals);
@@ -152,27 +162,33 @@ int launch_fddp(const void* const* ptrs, const long long* ints, const double* re
   io.d = static_cast<T*>(out(21));
   io.defect_trips = static_cast<int*>(out(22));
   io.k = fddp_knobs<T>(ints + kProblemInts, reals + kProblemReals);
+  io.var = variant_from<T>(p + 23, ints + kProblemInts + 3);
+  // the variant of this object's entries (QILQR_BOX, QILQR_WEIGHTS): the
+  // host picks the entry by the operands it passes
+  if ((io.var.lo != nullptr) != kBox || (io.var.w != nullptr) != kW) return cudaErrorNotSupported;
   const size_t smem = team_block_bytes<T, Quadrotor>(P.s_qr, P.s_par);
-  if (io.k.ddp) return team_launch(fddp_kernel<T, true>, P.B, smem, stream, P, io);
-  return team_launch(fddp_kernel<T, false>, P.B, smem, stream, P, io);
+  return io.k.ddp ? team_launch(fddp_kernel<T, true, kBox, kW>, P.B, smem, stream, P, io)
+                  : team_launch(fddp_kernel<T, false, kBox, kW>, P.B, smem, stream, P, io);
 }
 
 }  // namespace qilqr
 
+#if !QILQR_BOX && !QILQR_WEIGHTS  // once in the library
 extern "C" const char* qilqr_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+#endif
 
-extern "C" int qilqr_fddp_f32(const void* const* ptrs, const long long* ints,
+extern "C" int QILQR_VENTRY(fddp, f32)(const void* const* ptrs, const long long* ints,
                               const double* reals, void* stream) {
-  return qilqr::launch_fddp<float>(ptrs, ints, reals, stream);
+  return qilqr::launch_fddp<float, QILQR_BOX, QILQR_WEIGHTS>(ptrs, ints, reals, stream);
 }
 
-extern "C" int qilqr_fddp_f64(const void* const* ptrs, const long long* ints,
+extern "C" int QILQR_VENTRY(fddp, f64)(const void* const* ptrs, const long long* ints,
                               const double* reals, void* stream) {
-  return qilqr::launch_fddp<double>(ptrs, ints, reals, stream);
+  return qilqr::launch_fddp<double, QILQR_BOX, QILQR_WEIGHTS>(ptrs, ints, reals, stream);
 }
 
-extern "C" int qilqr_fddp_team_info(int f64, int s_qr, int s_par, long long* out) {
+extern "C" int QILQR_VENTRY(fddp, team_info)(int f64, int s_qr, int s_par, long long* out) {
   return qilqr::team_info<qilqr::Quadrotor>(f64, s_qr, s_par, out);
 }

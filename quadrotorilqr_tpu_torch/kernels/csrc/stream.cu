@@ -30,9 +30,17 @@
 // It reports the backward passes, probe sweeps and apply sweeps each
 // scenario ran.
 //
+// The box and weights variants (stream.py's use_box, use_weights; its
+// weights ride the desired stream, here the operand ring) are the
+// instantiations (kBox, kW), picked when the bounds or the weights are
+// passed: solve.cu's backward pass, probes and seed cost with the variants,
+// and the apply sweep is the probes' (kBox, kW) rollout, so the two kernels
+// still agree bit for bit.
+//
 // The model families (JAX stream.py's lane models): compiled once per family
 // (kernels/_build.py FAMILIES), as solve.cu; the batch solver routes a
-// family here past its max_horizon_for(u) stages.
+// family here past its max_horizon_for(u) stages. The wrench and the 6- and
+// 8-rotor multirotors have the instantiation without box or weights alone.
 #define QILQR_TEAM_LANES 8  // lanes per scenario (PERF.md section 6)
 #include "team_trip.cuh"
 
@@ -51,9 +59,10 @@ struct StreamIO {
   int* applies;  // out (B,): apply sweeps run
   int max_iters, ls_max_iters;
   T quu_reg, rtol, atol, ls_step, ls_frac;
+  VariantOps<T> var;  // bounds and weights of the variants
 };
 
-template <typename T, class M>
+template <typename T, bool kBox, bool kW, class M>
 __global__ void __launch_bounds__(kTeamThreads) stream_kernel(Problem<T> P, StreamIO<T> io) {
   Team<T, M> tm;
   if (!team_setup(P, &tm)) return;
@@ -61,12 +70,13 @@ __global__ void __launch_bounds__(kTeamThreads) stream_kernel(Problem<T> P, Stre
   const int N = P.N;
   team_copy_traj(tm, P, io.x0, io.live);
   // the loop never runs: report the initial trajectory's true cost
-  T cost = io.max_iters == 0 ? team_trajectory_cost(tm, P, io.live) : T(0);
+  T cost = io.max_iters == 0 ? team_trajectory_cost<T, kW>(tm, P, io.live, io.var) : T(0);
   int status = 0, iters = 0, passes = 0, stages = 0, applies = 0;
   for (int i = 0; i < io.max_iters; ++i) {
     // ---- backward pass ----
     T qutk, ktquuk;
-    team_backward(tm, P, Ps, io.quu_reg, io.live, false, io.live, io.gains, &qutk, &ktquuk);
+    team_backward<T, kBox, kW>(tm, P, Ps, io.quu_reg, io.live, false, io.live, io.gains, &qutk,
+                               &ktquuk, io.var);
     ++passes;
 
     // ---- trip gate (solve.py _trip_gate): pre-check on the expected cost ----
@@ -78,10 +88,11 @@ __global__ void __launch_bounds__(kTeamThreads) stream_kernel(Problem<T> P, Stre
     // ---- cost-only probes; trip 0 force-accepts; then the apply sweep ----
     LineSearch<T> ls{false, current, T(1), 0};
     if (active) {
-      ls = team_line_search(tm, P, io.live, io.live, false, io.gains, qutk, ktquuk, current,
-                            i == 0, io.ls_max_iters, io.ls_step, io.ls_frac);
+      ls = team_line_search<T, kBox, kW>(tm, P, io.live, io.live, false, io.gains, qutk, ktquuk,
+                                         current, i == 0, io.ls_max_iters, io.ls_step,
+                                         io.ls_frac, io.var);
       stages += ls.stages;
-      team_rollout(tm, P, io.live, io.live, io.gains, ls.alpha, true);
+      team_rollout<T, kBox, kW>(tm, P, io.live, io.live, io.gains, ls.alpha, true, io.var);
       ++applies;
     }
     if (exact_trip_close(i == 0, pre_conv, active, ls, current, io.rtol, io.atol, &cost,
@@ -102,8 +113,8 @@ __global__ void __launch_bounds__(kTeamThreads) stream_kernel(Problem<T> P, Stre
 }
 
 // packed operands after the Problem block:
-//   ptrs:  q t v u  oq ot ov ou  cost iters status  gains  passes probes applies
-//   ints:  max_iters ls_max_iters
+//   ptrs:  q t v u  oq ot ov ou  cost iters status  gains  passes probes applies  lo hi w
+//   ints:  max_iters ls_max_iters  s_box s_w
 //   reals: quu_reg rtol atol ls_step ls_frac
 template <typename T, class M>
 int launch_stream(const void* const* ptrs, const long long* ints, const double* reals,
@@ -130,8 +141,18 @@ int launch_stream(const void* const* ptrs, const long long* ints, const double* 
   io.atol = static_cast<T>(rp[2]);
   io.ls_step = static_cast<T>(rp[3]);
   io.ls_frac = static_cast<T>(rp[4]);
-  return team_launch(stream_kernel<T, M>, P.B, team_block_bytes<T, M>(P.s_qr, P.s_par), stream,
-                     P, io);
+  io.var = variant_from<T>(p + 15, ip + 2);
+  const size_t bytes = team_block_bytes<T, M>(P.s_qr, P.s_par);
+  if constexpr (std::is_same_v<M, Quadrotor>) {
+    return with_variant(io.var, [&](auto box, auto w) {
+      constexpr bool kBox = decltype(box)::value, kW = decltype(w)::value;
+      return team_launch(stream_kernel<T, kBox, kW, M>, P.B, bytes, stream, P, io);
+    });
+  } else {
+    // the other families have no variant instantiation (the host refuses them)
+    if (io.var.lo != nullptr || io.var.w != nullptr) return cudaErrorNotSupported;
+    return team_launch(stream_kernel<T, false, false, M>, P.B, bytes, stream, P, io);
+  }
 }
 
 }  // namespace qilqr

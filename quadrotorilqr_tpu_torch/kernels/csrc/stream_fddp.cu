@@ -37,6 +37,10 @@
 // the desired stage) arrive through a cp.async ring kRing - 1 stages ahead,
 // and a probe sweep stops at its scenario's freeze. It reports the probe
 // sweeps, defect trips and apply sweeps each scenario ran.
+//
+// The box and weights variants (stream_fddp.py's use_box, use_weights) are
+// the instantiations (kBox, kW), each with and without kDdp, one variant an
+// object, as fddp.cu's: the same never-inlined sweeps.
 #define QILQR_TEAM_LANES 8  // lanes per scenario (PERF.md section 6)
 #include "team_trip.cuh"
 
@@ -59,9 +63,10 @@ struct StreamFddpIO {
   T* gains;           // scratch (N, B, 52): k | K (the quadrotor's row)
   T* d;               // scratch (N, B, 12): the defects
   FddpKnobs<T> k;
+  VariantOps<T> var;  // bounds and weights of the variants
 };
 
-template <typename T, bool kDdp>
+template <typename T, bool kDdp, bool kBox, bool kW>
 __global__ void __launch_bounds__(kTeamThreads) stream_fddp_kernel(Problem<T> P,
                                                                    StreamFddpIO<T> io) {
   Team<T, Quadrotor> tm;
@@ -73,7 +78,7 @@ __global__ void __launch_bounds__(kTeamThreads) stream_fddp_kernel(Problem<T> P,
   int iters = io.iiter != nullptr ? io.iiter[b] : 0;
   bool done = status != 0;
   // FDDP seeds from the true (possibly infeasible) trajectory's cost
-  T cost = team_fddp_cost(tm, P, io.live);
+  T cost = team_fddp_cost<T, kW>(tm, P, io.live, io.var);
   bool stale = true;  // the defects need computing (trip 0, or after an accept)
   T gap = T(0);
   int stages_run = 0, defect_trips = 0, applies = 0;
@@ -81,16 +86,16 @@ __global__ void __launch_bounds__(kTeamThreads) stream_fddp_kernel(Problem<T> P,
     const T current = cost;
     // ---- defects (when stale) + gap-transported backward pass ----
     defect_trips += stale ? 1 : 0;
-    gap = team_fddp_reverse<T, kDdp>(tm, P, io.k.quu_reg + mu, io.live, false, io.live, stale,
-                                     io.gains, io.d, gap);
+    gap = team_fddp_reverse<T, kDdp, kBox, kW>(tm, P, io.k.quu_reg + mu, io.live, false,
+                                               io.live, stale, io.gains, io.d, gap, io.var);
     // ---- the line search, cost-only probes ----
-    const LineSearch<T> ls = team_fddp_line_search<T, kDdp>(tm, P, io.k, io.live, io.live, false,
-                                                            io.gains, io.d, current);
+    const LineSearch<T> ls = team_fddp_line_search<T, kDdp, kBox, kW>(
+        tm, P, io.k, io.live, io.live, false, io.gains, io.d, current, io.var);
     stages_run += ls.stages;
     // ---- apply sweep: the accepted candidate into the live trajectory ----
     if (ls.accepted) {
-      team_gap_sweep<T, kDdp>(tm, P, io.live, io.live, io.gains, io.d, ls.alpha, false, false,
-                              T(0), T(0), T(0), true);
+      team_gap_sweep<T, kDdp, kBox, kW>(tm, P, io.live, io.live, io.gains, io.d, ls.alpha,
+                                        false, false, T(0), T(0), T(0), true, io.var);
       ++applies;
     }
     // ---- trip close (fddp.py _fddp_trip_close) ----
@@ -112,9 +117,9 @@ __global__ void __launch_bounds__(kTeamThreads) stream_fddp_kernel(Problem<T> P,
 
 // packed operands after the Problem block:
 //   ptrs:  q t v u  imu istat iiter  oq ot ov ou  cost iters status mu probes
-//          gains d  defect_trips applies
-//   ints and reals: as fddp.cu (FddpKnobs)
-template <typename T>
+//          gains d  defect_trips applies  lo hi w
+//   ints and reals: as fddp.cu (FddpKnobs, then s_box s_w)
+template <typename T, bool kBox, bool kW>
 int launch_stream_fddp(const void* const* ptrs, const long long* ints, const double* reals,
                        void* stream) {
   Problem<T> P = make_problem<T>(ptrs, ints, reals);
@@ -136,23 +141,26 @@ int launch_stream_fddp(const void* const* ptrs, const long long* ints, const dou
   io.defect_trips = static_cast<int*>(out(18));
   io.applies = static_cast<int*>(out(19));
   io.k = fddp_knobs<T>(ints + kProblemInts, reals + kProblemReals);
+  io.var = variant_from<T>(p + 20, ints + kProblemInts + 3);
+  // the variant of this object's entries, as fddp.cu's
+  if ((io.var.lo != nullptr) != kBox || (io.var.w != nullptr) != kW) return cudaErrorNotSupported;
   const size_t smem = team_block_bytes<T, Quadrotor>(P.s_qr, P.s_par);
-  if (io.k.ddp) return team_launch(stream_fddp_kernel<T, true>, P.B, smem, stream, P, io);
-  return team_launch(stream_fddp_kernel<T, false>, P.B, smem, stream, P, io);
+  return io.k.ddp ? team_launch(stream_fddp_kernel<T, true, kBox, kW>, P.B, smem, stream, P, io)
+                  : team_launch(stream_fddp_kernel<T, false, kBox, kW>, P.B, smem, stream, P, io);
 }
 
 }  // namespace qilqr
 
-extern "C" int qilqr_stream_fddp_f32(const void* const* ptrs, const long long* ints,
+extern "C" int QILQR_VENTRY(stream_fddp, f32)(const void* const* ptrs, const long long* ints,
                                      const double* reals, void* stream) {
-  return qilqr::launch_stream_fddp<float>(ptrs, ints, reals, stream);
+  return qilqr::launch_stream_fddp<float, QILQR_BOX, QILQR_WEIGHTS>(ptrs, ints, reals, stream);
 }
 
-extern "C" int qilqr_stream_fddp_f64(const void* const* ptrs, const long long* ints,
+extern "C" int QILQR_VENTRY(stream_fddp, f64)(const void* const* ptrs, const long long* ints,
                                      const double* reals, void* stream) {
-  return qilqr::launch_stream_fddp<double>(ptrs, ints, reals, stream);
+  return qilqr::launch_stream_fddp<double, QILQR_BOX, QILQR_WEIGHTS>(ptrs, ints, reals, stream);
 }
 
-extern "C" int qilqr_stream_fddp_team_info(int f64, int s_qr, int s_par, long long* out) {
+extern "C" int QILQR_VENTRY(stream_fddp, team_info)(int f64, int s_qr, int s_par, long long* out) {
   return qilqr::team_info<qilqr::Quadrotor>(f64, s_qr, s_par, out);
 }

@@ -126,6 +126,20 @@ inline size_t team_block_bytes(int s_qr, int s_par) {
   return blk + kTeamsPerBlock * team;
 }
 
+// The FDDP sources (fddp.cu, stream_fddp.cu) are compiled once per box and
+// weights variant (kernels/_build.py VARIANTS): QILQR_BOX and QILQR_WEIGHTS
+// pick the object's instantiations, QILQR_VARIANT names its C entries
+// (QILQR_VENTRY: qilqr_fddp_f32, qilqr_fddp_box_f32, ...). Without them the
+// object is the one without either variant.
+#ifndef QILQR_VARIANT
+#define QILQR_VARIANT
+#define QILQR_BOX 0
+#define QILQR_WEIGHTS 0
+#endif
+#define QILQR_VENTRY__(kernel, variant, suffix) qilqr_##kernel##variant##_##suffix
+#define QILQR_VENTRY_(kernel, variant, suffix) QILQR_VENTRY__(kernel, variant, suffix)
+#define QILQR_VENTRY(kernel, suffix) QILQR_VENTRY_(kernel, QILQR_VARIANT, suffix)
+
 // The operands of the box and weights variants (backward.py
 // _backward_kernel's use_box / use_weights, rollout.py's, solve.py's): the
 // control bounds lo, hi (4, B or 1) and the stage weights w (N, B or 1),
@@ -145,11 +159,20 @@ struct VariantOps {
   }
 };
 
-// x scaled by the stage weight w in the weights variant, x itself otherwise
+// a * b rounded on its own: never contracted with a following add into a
+// fused multiply-add
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
+// x scaled by the stage weight w in the weights variant, x itself otherwise.
+// The product is rounded on its own (mul_rn): whether nvcc fuses a weighted
+// product with the add after it depends on the code around an inlined piece,
+// and the kernels that inline these pieces (solve.cu, stream.cu, the
+// per-pass kernels) must compute the same bits.
 template <bool kW, typename T>
 __device__ __forceinline__ T weigh(T w, T x) {
   if constexpr (kW) {
-    return w * x;
+    return mul_rn(w, x);
   } else {
     return x;
   }
@@ -684,12 +707,14 @@ __device__ __forceinline__ void team_cxx_correction(const Team<T, M>& tm, const 
 // Tracking-cost differentials of the stage in `slot` (backward.py
 // _stage_cost_diffs): S.c_x, c_xx into S.qxx (S.X is scratch for Q J_d),
 // c_u into registers. With kW each is scaled by the stage weight w (c_u
-// through w 2R, backward.py _riccati_stage's order).
+// through w 2R, backward.py _riccati_stage's order); the exact c_xx
+// (kExact) is scaled once its Lie correction is in (solver/ddp.py
+// exact_cxx_analytic's order), the Gauss-Newton one entry by entry.
 template <typename T, bool kExact, bool kW = false, class M>
 __device__ __forceinline__ void team_cost_diffs(const Team<T, M>& tm, const Tile& tile,
                                                 const T* slot, const T* q, const T* t,
                                                 const T* v, const T* u, T* c_u, T w = T(1)) {
-  static_assert(!(kExact && kW), "the exact cost Hessian takes no stage weight yet");
+  constexpr bool kWeighGn = kW && !kExact;
   constexpr int NU = M::kNu;
   TeamState<T, M>& S = *tm.s;
   const T* Q = tm.cc->Q;
@@ -738,13 +763,17 @@ __device__ __forceinline__ void team_cost_diffs(const Team<T, M>& tm, const Tile
       T acc = S.W[r] * S.X[c];
 #pragma unroll
       for (int k = 1; k < 6; ++k) acc += S.W[k * 6 + r] * S.X[k * 12 + c];
-      S.qxx[r * 12 + c] = weigh<kW>(w, T(2) * acc);
+      S.qxx[r * 12 + c] = weigh<kWeighGn>(w, T(2) * acc);
     } else {
-      S.qxx[r * 12 + c] = weigh<kW>(w, T(2) * S.X[r * 12 + c]);
+      S.qxx[r * 12 + c] = weigh<kWeighGn>(w, T(2) * S.X[r * 12 + c]);
     }
   });
   tile.sync();
   if constexpr (kExact) team_cxx_correction(tm, tile, dx);
+  if constexpr (kExact && kW) {
+    team_each<144>(tm.lane, [&](int e) { S.qxx[e] = weigh<kW>(w, S.qxx[e]); });
+    tile.sync();
+  }
   T e[NU];
 #pragma unroll
   for (int i = 0; i < NU; ++i) e[i] = u[i] - dud[i];
@@ -1099,8 +1128,9 @@ __device__ __forceinline__ void team_zero_value(const Team<T, M>& tm) {
 
 // The exact quadratic model's terms at the live stage in `slot`
 // (fddp.py mstage): w = k + K p, L1 += c_x'p + c_u'w, L2 += (p'c_xx p +
-// w'2R w) / 2, and p2 = J_x p + J_u w.
-template <typename T, bool kDdp, class M>
+// w'2R w) / 2, and p2 = J_x p + J_u w. With kW the cost terms carry the
+// stage weight slot[kW] (c_x, c_xx, and 2R as w 2R: fddp.py :569-572).
+template <typename T, bool kDdp, bool kW, class M>
 __device__ __forceinline__ void team_model_stage(const Team<T, M>& tm, const Problem<T>& Ps,
                                                  const T* slot, const T* p, T* p2, T* l1, T* l2) {
   constexpr int NU = M::kNu, LO = M::kJuLo;
@@ -1109,7 +1139,8 @@ __device__ __forceinline__ void team_model_stage(const Team<T, M>& tm, const Pro
   T lq[4], lt[3], lv[6], lu[NU], c_u[NU];
   read_stage<M>(slot + Slot<M>::kLive, lq, lt, lv, lu);
   team_jx_blocks(Ps, lq, lv, &S.J);
-  team_cost_diffs<T, kDdp>(tm, tile, slot, lq, lt, lv, lu, c_u);
+  const T sw = kW ? slot[Slot<M>::kW] : T(1);
+  team_cost_diffs<T, kDdp, kW>(tm, tile, slot, lq, lt, lv, lu, c_u, sw);
   const T* g = slot + Slot<M>::kGains;
   T wv[NU];
 #pragma unroll
@@ -1127,9 +1158,9 @@ __device__ __forceinline__ void team_model_stage(const Team<T, M>& tm, const Pro
   T r2w[NU];
 #pragma unroll
   for (int r = 0; r < NU; ++r) {
-    T acc = (T(2) * tm.cc->R[r * NU]) * wv[0];
+    T acc = weigh<kW>(sw, T(2) * tm.cc->R[r * NU]) * wv[0];
 #pragma unroll
-    for (int j = 1; j < NU; ++j) acc += (T(2) * tm.cc->R[r * NU + j]) * wv[j];
+    for (int j = 1; j < NU; ++j) acc += weigh<kW>(sw, T(2) * tm.cc->R[r * NU + j]) * wv[j];
     r2w[r] = acc;
   }
   *l2 = *l2 + T(0.5) * (pcp + dot<NU>(wv, r2w));

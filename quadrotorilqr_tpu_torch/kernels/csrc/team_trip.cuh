@@ -20,7 +20,9 @@
 // the candidate stores are runtime flags), and the two kernels agree bit for
 // bit in float64 where their arithmetic is the same. Each entry's sum order
 // does not depend on the team size, so they agree across team sizes too.
-// Every piece takes the model family M from the team's type, Team<T, M>.
+// Every piece takes the model family M from the team's type, Team<T, M>,
+// and the box and weights variants as compile-time flags kBox, kW with their
+// operands in a VariantOps (the weights ride the operand ring).
 #pragma once
 
 #include "team.cuh"
@@ -107,7 +109,7 @@ __device__ __noinline__ T team_rollout(Team<T, M> tm, Problem<T> P, Traj<T> x, T
     T xq, ur;
     team_cost_terms(tile, tm.lane, tm.cc, slot + Slot<M>::kDes, q, t, v, u, &xq, &ur);
     if constexpr (kW) {
-      cost = cost + slot[Slot<M>::kW] * (xq + ur);
+      cost = cost + weigh<kW>(slot[Slot<M>::kW], xq + ur);
     } else {
       cost = cost + xq + ur;
     }
@@ -132,7 +134,7 @@ __device__ __forceinline__ T team_trajectory_cost(const Team<T, M>& tm, const Pr
     read_stage<M>(slot + Slot<M>::kLive, q, t, v, u);
     team_cost_terms(tile, tm.lane, tm.cc, slot + Slot<M>::kDes, q, t, v, u, &xq, &ur);
     if constexpr (kW) {
-      cost = cost + slot[Slot<M>::kW] * (xq + ur);
+      cost = cost + weigh<kW>(slot[Slot<M>::kW], xq + ur);
     } else {
       cost = cost + xq + ur;
     }
@@ -179,20 +181,21 @@ __device__ __forceinline__ LineSearch<T> team_line_search(const Team<T, M>& tm, 
 // x_{n+1} (d_{N-1} = 0) into d and returns their max |d|; otherwise it reads
 // the stored defects and returns `gap`. Every stage transports the value
 // gradient across its gap, v_x + V_xx d_n, and runs the Riccati stage with
-// quu_reg (exact DDP curvature when kDdp); the gains go to the gains
-// scratch. Never inlined: both FDDP kernels compile it alike.
-template <typename T, bool kDdp, class M>
+// quu_reg (exact DDP curvature when kDdp; the box-QP gains within var's
+// bounds with kBox, the stage weight with kW: fddp.py :464-476); the gains go
+// to the gains scratch. Never inlined: both FDDP kernels compile it alike.
+template <typename T, bool kDdp, bool kBox, bool kW, class M>
 __device__ __noinline__ T team_fddp_reverse(Team<T, M> tm, Problem<T> P, T quu_reg, Traj<T> src,
                                             bool merge, Traj<T> live, bool stale, T* gains, T* d,
-                                            T gap) {
+                                            T gap, VariantOps<T> var) {
   const Problem<T> Ps = smem_problem(P, tm);
   const Tile tile = team_tile();
   TeamState<T, M>& S = *tm.s;
   if (stale) gap = T(0);
   team_zero_value(tm);
   T q1[4], t1[3], v1[6];  // stage n + 1, from the step before
-  ring_sweep(tm, P, RingSrc<T>{src, nullptr, stale ? nullptr : d}, true,
-             [&](int n, const T* slot) {
+  const RingSrc<T> ring{src, nullptr, stale ? nullptr : d, kW ? var.w : nullptr, var.s_w};
+  ring_sweep(tm, P, ring, true, [&](int n, const T* slot) {
     if (merge) team_merge_stage(tm, live, P.B, n, slot);
     T q[4], t[3], v[6], u[M::kNu], dk[12];
     read_stage<M>(slot + Slot<M>::kLive, q, t, v, u);
@@ -236,7 +239,7 @@ __device__ __noinline__ T team_fddp_reverse(Team<T, M> tm, Problem<T> P, T quu_r
     });
     tile.sync();
     T qutk, ktquuk;
-    team_riccati_stage<T, kDdp>(tm, Ps, quu_reg, slot, &qutk, &ktquuk);
+    team_riccati_stage<T, kDdp, kBox, kW>(tm, Ps, quu_reg, slot, &qutk, &ktquuk, var);
     team_put_row(tm, S.gains, scratch_row(gains, P.B, n, tm.b, M::kGainsPitch),
                  M::kGainsPitch);
     return true;
@@ -259,20 +262,23 @@ struct GapSweep {
 // be x), then the carry stepped to f(x_n, u_n) (+) (-(1 - alpha) d_n). With
 // `model` it also carries probe 0's exact quadratic model at the live stages
 // (fddp.py mstage, p <- J_x p + J_u w + d_n). With `sat` it stops where
-// the fold freezes: nothing later can change it. Never inlined, and the
-// flags are runtime values: the probes and an apply sweep run the same
+// the fold freezes: nothing later can change it. kBox clamps each control
+// into var's [lo, hi] (fddp.py :515); kW weights each stage cost and the
+// model's terms by the stage's weight (:370, :569-572). Never inlined, and
+// the flags are runtime values: the probes and an apply sweep run the same
 // instructions.
-template <typename T, bool kDdp, class M>
+template <typename T, bool kDdp, bool kBox, bool kW, class M>
 __device__ __noinline__ GapSweep<T> team_gap_sweep(Team<T, M> tm, Problem<T> P, Traj<T> x,
                                                    Traj<T> out, const T* gains, const T* d,
                                                    T alpha, bool model, bool sat, T gdj, T current,
-                                                   T cap, bool store) {
+                                                   T cap, bool store, VariantOps<T> var) {
   const Problem<T> Ps = smem_problem(P, tm);
   GapSweep<T> o{T(0), T(0), T(0), 0};
   T q[4], t[3], v[6], p[12];
 #pragma unroll
   for (int j = 0; j < 12; ++j) p[j] = T(0);
-  ring_sweep(tm, P, RingSrc<T>{x, gains, d}, false, [&](int n, const T* slot) {
+  const RingSrc<T> ring{x, gains, d, kW ? var.w : nullptr, var.s_w};
+  ring_sweep(tm, P, ring, false, [&](int n, const T* slot) {
     if (sat && (o.c - current) > gdj) return false;  // frozen
     T qo[4], to[3], vo[6], uo[M::kNu], dx[12];
     read_stage<M>(slot + Slot<M>::kLive, qo, to, vo, uo);
@@ -286,7 +292,7 @@ __device__ __noinline__ GapSweep<T> team_gap_sweep(Team<T, M> tm, Problem<T> P, 
     }
     // model terms at the live stage (not the rollout carry)
     T p2[12];
-    if (model) team_model_stage<T, kDdp>(tm, Ps, slot, p, p2, &o.l1, &o.l2);
+    if (model) team_model_stage<T, kDdp, kW>(tm, Ps, slot, p, p2, &o.l1, &o.l2);
     StageVals<T, M> sv;
     state_minus(q, t, v, qo, to, vo, dx);
     const T* g = slot + Slot<M>::kGains;
@@ -296,6 +302,9 @@ __device__ __noinline__ GapSweep<T> team_gap_sweep(Team<T, M> tm, Problem<T> P, 
 #pragma unroll
       for (int j = 1; j < 12; ++j) fb += g[M::kNu + a * 12 + j] * dx[j];
       sv.u[a] = (uo[a] + alpha * g[a]) + fb;
+      if constexpr (kBox) {
+        sv.u[a] = clip(sv.u[a], var.bound(var.lo, a, P.B, tm.b), var.bound(var.hi, a, P.B, tm.b));
+      }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) sv.q[i] = q[i];
@@ -303,7 +312,7 @@ __device__ __noinline__ GapSweep<T> team_gap_sweep(Team<T, M> tm, Problem<T> P, 
     for (int i = 0; i < 3; ++i) sv.t[i] = t[i];
 #pragma unroll
     for (int i = 0; i < 6; ++i) sv.v[i] = v[i];
-    const T cs = team_fddp_stage_cost(tm.cc, slot + Slot<M>::kDes, sv);
+    const T cs = weigh<kW>(slot[Slot<M>::kW], team_fddp_stage_cost(tm.cc, slot + Slot<M>::kDes, sv));
     if (sat) {
       const bool frozen = (o.c - current) > gdj;
       T c2 = o.c + cs;
@@ -337,15 +346,17 @@ __device__ __noinline__ GapSweep<T> team_gap_sweep(Team<T, M> tm, Problem<T> P, 
 }
 
 // The FDDP seed: the team's trajectory cost, stage costs summed from 0 up
-// (fddp.py cseed).
-template <typename T, class M>
+// (fddp.py cseed), each weighted with kW.
+template <typename T, bool kW, class M>
 __device__ __forceinline__ T team_fddp_cost(const Team<T, M>& tm, const Problem<T>& P,
-                                            const Traj<T>& x) {
+                                            const Traj<T>& x, const VariantOps<T>& var) {
   T cost = T(0);
-  ring_sweep(tm, P, RingSrc<T>{x, nullptr, nullptr}, false, [&](int n, const T* slot) {
+  const RingSrc<T> ring{x, nullptr, nullptr, kW ? var.w : nullptr, var.s_w};
+  ring_sweep(tm, P, ring, false, [&](int n, const T* slot) {
     StageVals<T, M> sv;
     read_stage<M>(slot + Slot<M>::kLive, sv.q, sv.t, sv.v, sv.u);
-    cost = cost + team_fddp_stage_cost(tm.cc, slot + Slot<M>::kDes, sv);
+    cost = cost + weigh<kW>(slot[Slot<M>::kW],
+                            team_fddp_stage_cost(tm.cc, slot + Slot<M>::kDes, sv));
     return true;
   });
   return cost;
@@ -360,18 +371,19 @@ __device__ __forceinline__ T team_fddp_cost(const Team<T, M>& tm, const Problem<
 // probe exploded. With `store` each probe writes its candidate into `out`
 // (an accepted probe always runs the whole horizon: a frozen fold rejects);
 // otherwise the probes sum costs only. With no probes the search rejects.
-// Never inlined: both FDDP kernels compile it alike.
-template <typename T, bool kDdp, class M>
+// The probes are team_gap_sweep's (kBox, kW) instantiation. Never inlined:
+// both FDDP kernels compile it alike.
+template <typename T, bool kDdp, bool kBox, bool kW, class M>
 __device__ __noinline__ LineSearch<T> team_fddp_line_search(Team<T, M> tm, Problem<T> P,
                                                             FddpKnobs<T> k, Traj<T> x,
                                                             Traj<T> out, bool store,
                                                             const T* gains, const T* d,
-                                                            T current) {
+                                                            T current, VariantOps<T> var) {
   LineSearch<T> ls{false, current, T(1), 0};
   T alpha = T(1), l1 = T(0), l2 = T(0);
   if (k.ls_max_iters >= 1) {
-    const GapSweep<T> o = team_gap_sweep<T, kDdp>(tm, P, x, out, gains, d, alpha, true, false,
-                                                  T(0), current, T(0), store);
+    const GapSweep<T> o = team_gap_sweep<T, kDdp, kBox, kW>(
+        tm, P, x, out, gains, d, alpha, true, false, T(0), current, T(0), store, var);
     l1 = o.l1;
     l2 = o.l2;
     const T c = o.c;
@@ -387,8 +399,8 @@ __device__ __noinline__ LineSearch<T> team_fddp_line_search(Team<T, M> tm, Probl
     const T dj = alpha * l1 + alpha * alpha * l2;
     const T gdj = ((dj <= T(0)) ? k.gf : k.gub) * dj;
     const T cap = T(2) * (f_abs(current + gdj) + f_abs(current)) + T(1);
-    const GapSweep<T> o = team_gap_sweep<T, kDdp>(tm, P, x, out, gains, d, alpha, false, true,
-                                                  gdj, current, cap, store);
+    const GapSweep<T> o = team_gap_sweep<T, kDdp, kBox, kW>(
+        tm, P, x, out, gains, d, alpha, false, true, gdj, current, cap, store, var);
     const T c = o.c;
     ls.stages += o.stages;
     ls.cost = c;

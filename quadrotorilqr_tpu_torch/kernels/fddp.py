@@ -13,7 +13,11 @@ in device memory, so any horizon fits; the batch solvers send horizons
 past 231 stages to `kernels/stream_fddp.py`, the candidate-free variant, as
 the JAX package routes them. `solve_fddp_fused` launches it for CUDA
 tensors and takes `solve_fddp_whole_reference` (the plain loop
-`solver.fddp.fddp_loop`) only for CPU tensors.
+`solver.fddp.fddp_loop`) only for CPU tensors. With control limits or stage
+weights it runs the kernel's box and weights variants (JAX `use_box`,
+`use_weights`): the box-QP stage and clamped gap rollouts of
+`solver/constrained.py`, the weighted cost, its differentials and the
+quadratic model's terms; the plain version is the same loop with them.
 """
 
 from __future__ import annotations
@@ -32,19 +36,21 @@ from .backward import (
     _traj_from_lanes,
     _traj_lanes,
     count_launch,
+    variant_key,
 )
 
 
 def solve_fddp_whole_reference(
     params, cost, traj, dt_s, options: ILQROptions, fddp_options, ddp=False,
-    initial_mu=None, initial_status=None, initial_iters=None,
+    initial_mu=None, initial_status=None, initial_iters=None, limits=None,
 ):
-    """Plain PyTorch version: the batched `solver.fddp.fddp_loop`. Returns
-    (Trajectory, cost, iterations int32, status int32, mu, probe sweeps,
-    defect trips int32), each (B,) after the trajectory."""
+    """Plain PyTorch version: the batched `solver.fddp.fddp_loop` (with the
+    box-QP stage and clamped rollouts for `limits`). Returns (Trajectory,
+    cost, iterations int32, status int32, mu, probe sweeps, defect trips
+    int32), each (B,) after the trajectory."""
     return fddp.fddp_loop(
         params, cost, traj, dt_s, options, fddp_options, ddp,
-        initial_mu, initial_status, initial_iters,
+        initial_mu, initial_status, initial_iters, limits=limits,
     )
 
 
@@ -62,7 +68,9 @@ def solve_fddp_fused(
     initial_mu=None, initial_status=None, initial_iters=None, return_mu=False,
     return_probes=False, model=None, limits=None,
 ):
-    """Whole-solve FDDP for (B, N, ...) trajectories, any B and any N.
+    """Whole-solve FDDP for (B, N, ...) trajectories, any B and any N,
+    with `limits=(lo, hi)` (scalars, (4,) or (B, 4) each) and the cost's
+    stage weights ((N,) or (B, N)) on the kernel's box and weights variants.
 
     `initial_mu` / `initial_status` / `initial_iters` ((B,) each) resume an
     interrupted solve exactly: lanes with a nonzero status are frozen (they
@@ -74,35 +82,37 @@ def solve_fddp_fused(
     whose reverse sweep computed the defects (B,) int32 (the first trip and
     each one after an accepted trip), both counted over this call."""
     fo = fddp.FDDPOptions() if fddp_options is None else fddp_options
-    fddp.check_supported(cost, model, limits, params=params)
+    fddp.check_supported(model, params=params)
     controls = traj.controls
     device = controls.device
     if device.type == "cpu":
         out = solve_fddp_whole_reference(
-            params, cost, traj, dt_s, options, fo, ddp, initial_mu, initial_status, initial_iters
+            params, cost, traj, dt_s, options, fo, ddp, initial_mu, initial_status, initial_iters,
+            limits,
         )
     else:
         _check_cuda(device)
         out = _launch(params, cost, traj, dt_s, options, fo, ddp, initial_mu, initial_status,
-                      initial_iters)
-        count_launch(solve_fddp_fused)
+                      initial_iters, limits)
+        count_launch(solve_fddp_fused, variant_key(limits, cost))
     return out[:4] + ((out[4],) if return_mu else ()) + (out[5:] if return_probes else ())
 
 
 def _launch(
     params, cost, traj, dt_s, options, fo, ddp, initial_mu, initial_status, initial_iters,
-    streamed=False,
+    limits=None, streamed=False,
 ):
     """Launch csrc/fddp.cu, or with `streamed` csrc/stream_fddp.cu (no
     candidate buffer; the apply sweeps each lane ran come last in the
-    result). Returns (Trajectory, cost, iterations, status, mu, probe
+    result); the bounds and the weights pick the box and weights
+    instantiations. Returns (Trajectory, cost, iterations, status, mu, probe
     sweeps, defect trips[, apply sweeps])."""
     dtype = traj.controls.dtype
     device = traj.controls.device
     batch, n = traj.controls.shape[0], traj.controls.shape[1]
     cc = options.convergence_criteria
     ls = options.line_search_params
-    ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device)
+    ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device, limits)
     u = ops.lm.u_dim  # the quadrotor's: check_supported refuses the other families
     kw = dict(dtype=dtype, device=device)
     live = [torch.empty((n, d, batch), **kw) for d in (4, 3, 6, u)]
@@ -131,7 +141,9 @@ def _launch(
             fo.alpha_inc,
         ],
     )
-    entry = "qilqr_stream_fddp" if streamed else "qilqr_fddp"
+    # each variant is an object of its own (_build.VARIANTS), its entry named
+    # by the variant
+    entry = ("qilqr_stream_fddp" if streamed else "qilqr_fddp") + ops.key
     _build.launch(entry, dtype, ops.ptrs, ops.ints, ops.reals, device)
     return (
         _traj_from_lanes(traj.times, *live), cost_out, iters, status, mu_out, probes, defect_trips,

@@ -75,7 +75,7 @@ def rollout_cost_fused(params, cost, traj, ks, big_ks, alpha, dt_s, active=None,
     _check_cuda(device)
     dtype = controls.dtype
     batch, n = controls.shape[0], controls.shape[1]
-    ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device, limits, True, model)
+    ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device, limits, model)
     u = ops.lm.u_dim
     if ks.shape != (batch, n, u) or big_ks.shape != (batch, n, u, 12):
         raise ValueError(f"gains of shapes {tuple(ks.shape)}, {tuple(big_ks.shape)}")
@@ -106,7 +106,7 @@ def _launch(ops, traj, gains, alpha, active):
         ]
     )
     _build.launch(ops.entry("rollout"), dtype, ops.ptrs, ops.ints, ops.reals, device)
-    count_launch(rollout_cost_fused, ops.lm.suffix)
+    count_launch(rollout_cost_fused, ops.key)
     return _traj_from_lanes(traj.times, *out), cost_out
 
 
@@ -138,7 +138,7 @@ def per_pass_kernels(params, cost, traj, dt_s, quu_reg, limits=None, model=None)
     _check_cuda(device)
     dtype = controls.dtype
     batch, n = controls.shape[0], controls.shape[1]
-    ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device, limits, True, model)
+    ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device, limits, model)
     pitch = ops.lm.gains_pitch()
 
     def backward(t, act):

@@ -27,7 +27,7 @@ import collections
 import torch
 
 from ..costs import quadratic as qc
-from ..solver import ilqr
+from ..solver import constrained, ilqr
 from ..solver.options import ILQROptions
 from . import _build
 from .backward import (
@@ -63,9 +63,15 @@ def counted_plain_solve(params, cost, traj, dt_s, options: ILQROptions, streamed
         tally(1, act)
         return rollout_cost_reference(params, cost, t, ks, big_ks, alpha, dt_s, limits, model)
 
+    box = None
+    if limits is not None:
+        controls = traj.controls
+        box = constrained.prep_limits(limits, batch, controls.dtype, controls.device,
+                                      controls.shape[-1])
+
     def apply(t, ks, big_ks, alpha, act):
         tally(2, act)
-        return ilqr.forward_sim(params, t, ks, big_ks, alpha, dt_s, model=model)
+        return ilqr.forward_sim(params, t, ks, big_ks, alpha, dt_s, box, model)
 
     result = ilqr.solve_loop(
         backward, probe, lambda t: qc.trajectory_cost(cost, t.states, t.controls), traj, options,
@@ -132,7 +138,7 @@ def _launch(params, cost, traj, dt_s, options, history, probes, limits=None, mod
     batch, n = traj.controls.shape[0], traj.controls.shape[1]
     cc = options.convergence_criteria
     ls = options.line_search_params
-    ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device, limits, True, model)
+    ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device, limits, model)
     if (history or probes) and ops.lm.suffix:
         raise NotImplementedError(ilqr.FAMILY_VARIANTS_TODO)
     u = ops.lm.u_dim
@@ -155,7 +161,7 @@ def _launch(params, cost, traj, dt_s, options, history, probes, limits=None, mod
         reals=[options.quu_reg, cc.rtol, cc.atol, ls.step_update, ls.desired_reduction_frac],
     )
     _build.launch(ops.entry("solve"), dtype, ops.ptrs, ops.ints, ops.reals, device)
-    count_launch(solve_fused_whole, ops.lm.suffix)
+    count_launch(solve_fused_whole, ops.key)
     hist_t = hist.t() if history else None
     return (_traj_from_lanes(traj.times, *live), cost_out, iters, status, hist_t, *counts)
 

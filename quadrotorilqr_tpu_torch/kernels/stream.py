@@ -17,7 +17,12 @@ VMEM window at a time. Here every stage lives in device memory and the
 kernel prefetches a fixed number of stages ahead into shared memory, so
 there is no `chunk` parameter; `interpret` and `supertile` are TPU options
 too. The model family comes from the params type or `model=`, as for
-`kernels/solve.py`.
+`kernels/solve.py`. With control limits or stage weights it runs the
+kernel's box and weights variants (JAX `use_box`, `use_weights`; the JAX
+kernel's weights ride its desired stream, here they ride the operand ring
+with the desired stage), the quadrotor's only, as on `solve.cu`; the plain
+version is the same loop on `solver/constrained.py`'s pieces and the
+weighted cost.
 """
 
 from __future__ import annotations
@@ -39,14 +44,17 @@ from .backward import (
 from .solve import counted_plain_solve
 
 
-def solve_streamed_reference(params, cost, traj, dt_s, options: ILQROptions, model=None):
+def solve_streamed_reference(params, cost, traj, dt_s, options: ILQROptions, model=None,
+                             limits=None):
     """Plain PyTorch version: `solver.ilqr.solve_loop` on the plain pieces
     with the streamed schedule (cost-only probes, one apply rollout at the
-    last tried alpha). Returns (Trajectory, cost, iterations int32, status
+    last tried alpha; the box-QP stage and clamped rollouts with `limits`).
+    Returns (Trajectory, cost, iterations int32, status
     int32, backward passes int32, probe sweeps int32, apply sweeps int32),
     each (B,) after the trajectory, the counts per lane as the kernel counts
     them."""
-    r, counts = counted_plain_solve(params, cost, traj, dt_s, options, streamed=True, model=model)
+    r, counts = counted_plain_solve(params, cost, traj, dt_s, options, streamed=True,
+                                    limits=limits, model=model)
     return (r.trajectory, r.cost, r.iterations, r.status, *counts)
 
 
@@ -55,14 +63,14 @@ def solve_fused_streamed(
     return_probes=False,
 ):
     """Whole-solve iLQR for (B, N, ...) trajectories, any B and any N, lane
-    for lane `solve_fused_whole`. Returns (Trajectory, cost (B,), iterations
+    for lane `solve_fused_whole`, with `limits=(lo, hi)` (scalars, (4,) or
+    (B, 4) each) and the cost's stage weights on the kernel's box and
+    weights variants. Returns (Trajectory, cost (B,), iterations
     (B,) int32, status (B,) int32), and with `return_probes` the backward
     passes, probe sweeps and apply sweeps each lane ran ((B,) int32 each)."""
     ilqr.check_supported(model)
     if continuation:
         raise NotImplementedError(ilqr.CONTINUATION_TODO)
-    if limits is not None or cost.stage_weights is not None:
-        raise NotImplementedError(ilqr.STREAM_VARIANTS_TODO)
     ls = options.line_search_params
     if int(ls.max_iters) < 1:
         # trip 0's forced full step is the first, force-accepted probe: with
@@ -74,20 +82,23 @@ def solve_fused_streamed(
         )
     device = traj.controls.device
     if device.type == "cpu":
-        out = solve_streamed_reference(params, cost, traj, dt_s, options, model)
+        out = solve_streamed_reference(params, cost, traj, dt_s, options, model, limits)
     else:
         _check_cuda(device)
-        out = _launch(params, cost, traj, dt_s, options, model)
+        out = _launch(params, cost, traj, dt_s, options, model, limits)
     return out if return_probes else out[:4]
 
 
-def _launch(params, cost, traj, dt_s, options, model=None):
+def _launch(params, cost, traj, dt_s, options, model=None, limits=None):
+    """The kernel; the bounds and the weights pick the box and weights
+    instantiations (the quadrotor's only: `_problem_operands` refuses them
+    with another family)."""
     dtype = traj.controls.dtype
     device = traj.controls.device
     batch, n = traj.controls.shape[0], traj.controls.shape[1]
     cc = options.convergence_criteria
     ls = options.line_search_params
-    ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device, model=model)
+    ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device, limits, model)
     u = ops.lm.u_dim
     kw = dict(dtype=dtype, device=device)
     live = [torch.empty((n, d, batch), **kw) for d in (4, 3, 6, u)]
@@ -104,7 +115,7 @@ def _launch(params, cost, traj, dt_s, options, model=None):
         reals=[options.quu_reg, cc.rtol, cc.atol, ls.step_update, ls.desired_reduction_frac],
     )
     _build.launch(ops.entry("stream"), dtype, ops.ptrs, ops.ints, ops.reals, device)
-    count_launch(solve_fused_streamed, ops.lm.suffix)
+    count_launch(solve_fused_streamed, ops.key)
     return _traj_from_lanes(traj.times, *live), cost_out, iters, status, passes, probes, applies
 
 

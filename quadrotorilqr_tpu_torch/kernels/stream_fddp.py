@@ -13,7 +13,8 @@ keeps its trajectory for the mu retry). `csrc/stream_fddp.cu` runs it with
 one team of lanes of a warp per scenario (`csrc/team.cuh`);
 `solve_fddp_streamed` launches it for CUDA tensors and
 takes `solve_fddp_streamed_reference` only for CPU tensors. As on
-`fddp.py`, a line search with no probes rejects every trip.
+`fddp.py`, a line search with no probes rejects every trip, and control
+limits and stage weights run the kernel's box and weights variants.
 
 The JAX function's `chunk` sets the stages its TPU kernel streams through a
 VMEM window at a time. Here every stage lives in device memory and the
@@ -28,13 +29,13 @@ import collections
 
 from ..solver import fddp
 from ..solver.options import ILQROptions
-from .backward import _check_cuda, count_launch
+from .backward import _check_cuda, count_launch, variant_key
 from .fddp import _launch
 
 
 def solve_fddp_streamed_reference(
     params, cost, traj, dt_s, options: ILQROptions, fddp_options, ddp=False,
-    initial_mu=None, initial_status=None, initial_iters=None,
+    initial_mu=None, initial_status=None, initial_iters=None, limits=None,
 ):
     """Plain PyTorch version: `solver.fddp.fddp_loop` with the streamed
     schedule. Returns (Trajectory, cost, iterations int32, status int32, mu,
@@ -42,7 +43,7 @@ def solve_fddp_streamed_reference(
     the trajectory."""
     return fddp.fddp_loop(
         params, cost, traj, dt_s, options, fddp_options, ddp,
-        initial_mu, initial_status, initial_iters, streamed=True,
+        initial_mu, initial_status, initial_iters, streamed=True, limits=limits,
     )
 
 
@@ -52,23 +53,25 @@ def solve_fddp_streamed(
     return_probes=False, model=None, limits=None,
 ):
     """Whole-solve FDDP for (B, N, ...) trajectories, any B and any N, lane
-    for lane `solve_fddp_fused`, with its resume rows. Returns (Trajectory,
+    for lane `solve_fddp_fused`, with its resume rows, limits and stage
+    weights. Returns (Trajectory,
     cost (B,), iterations (B,) int32, status (B,) int32), then mu (B,) with
     `return_mu`, and with `return_probes` the probe sweeps (B,) (stages the
     probes ran / N), the trips that computed the defects (B,) int32 and the
     apply sweeps (B,) int32, all counted over this call."""
     fo = fddp.FDDPOptions() if fddp_options is None else fddp_options
-    fddp.check_supported(cost, model, limits, params=params)
+    fddp.check_supported(model, params=params)
     device = traj.controls.device
     if device.type == "cpu":
         out = solve_fddp_streamed_reference(
-            params, cost, traj, dt_s, options, fo, ddp, initial_mu, initial_status, initial_iters
+            params, cost, traj, dt_s, options, fo, ddp, initial_mu, initial_status, initial_iters,
+            limits,
         )
     else:
         _check_cuda(device)
         out = _launch(params, cost, traj, dt_s, options, fo, ddp, initial_mu, initial_status,
-                      initial_iters, streamed=True)
-        count_launch(solve_fddp_streamed)
+                      initial_iters, limits, streamed=True)
+        count_launch(solve_fddp_streamed, variant_key(limits, cost))
     return out[:4] + ((out[4],) if return_mu else ()) + (out[5:] if return_probes else ())
 
 

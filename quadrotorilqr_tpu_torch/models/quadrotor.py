@@ -22,7 +22,7 @@ import torch
 
 from ..lie import se3, so3
 from ..lie.se3 import SE3
-from ..ops.linalg import chol_solve_small, chol_solve_vec
+from ..ops.linalg import chol_solve_factored, chol_solve_small, cholesky_small
 
 STATE_DIM = 12
 CONTROL_DIM = 4
@@ -120,6 +120,12 @@ def _matvec(m, v):
 
 def continuous_dynamics(params: QuadrotorParams, x: State, u):
     """State time-derivative as a 12-tangent (..., 12) [vel, accel]."""
+    return _continuous(params, moment_arms(params), cholesky_small(params.inertia), x, u)
+
+
+def _continuous(params, arms, inertia_factor, x, u):
+    """continuous_dynamics with the params' moment arms and the Cholesky
+    factor of the inertia given."""
     ez = _ez(u)
     r_t_ez = so3.quat_rotate(so3.quat_conjugate(x.pose.quat), ez)
     acc_lin = (
@@ -127,10 +133,10 @@ def continuous_dynamics(params: QuadrotorParams, x: State, u):
         + (u.sum(-1) / params.mass_kg)[..., None] * ez
     )
     omega = x.vel[..., 3:6]
-    torque = _matvec(moment_arms(params), u)
+    torque = _matvec(arms, u)
     i_omega = _matvec(params.inertia, omega)
-    acc_ang = chol_solve_vec(params.inertia, torque - so3.cross(omega, i_omega))
-    return torch.cat([x.vel, acc_lin, acc_ang], -1)
+    acc_ang = chol_solve_factored(inertia_factor, (torque - so3.cross(omega, i_omega))[..., None])
+    return torch.cat([x.vel, acc_lin, acc_ang[..., 0]], -1)
 
 
 def continuous_dynamics_jacobians(params: QuadrotorParams, x: State, u):
@@ -203,6 +209,14 @@ def euler_step_jacobians(x: State, xdot, dt_s):
 def discrete_dynamics(params: QuadrotorParams, x: State, u, dt_s):
     """One Lie-Euler step of the continuous dynamics."""
     return euler_step(x, continuous_dynamics(params, x, u), dt_s)
+
+
+def dynamics_step(params: QuadrotorParams, dt_s):
+    """discrete_dynamics(params, ., ., dt_s) as a function of (x, u), the
+    params' moment arms and inertia factor made once: the same values in
+    fewer operations, for the plain loops' stage-by-stage rollouts."""
+    arms, factor = moment_arms(params), cholesky_small(params.inertia)
+    return lambda x, u: euler_step(x, _continuous(params, arms, factor, x, u), dt_s)
 
 
 def discrete_dynamics_jacobians(params: QuadrotorParams, x: State, u, dt_s):

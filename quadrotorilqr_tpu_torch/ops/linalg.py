@@ -63,7 +63,12 @@ def chol_solve_small(a, b):
     """Solve a @ x = b for SPD a (..., n, n) and b (..., n, k); batch dims
     broadcast (a shared `a` is factored once, not once per batch entry:
     the same values either way)."""
-    l = cholesky_small(a)
+    return chol_solve_factored(cholesky_small(a), b)
+
+
+def chol_solve_factored(l, b):
+    """chol_solve_small from the factor l = cholesky_small(a): the same
+    values, for a matrix solved against many right-hand sides in turn."""
     return _solve_upper_t(l, _solve_lower(l, b))
 
 

@@ -13,12 +13,12 @@ Counterpart of `quadrotorilqr_tpu/solver/batched.py`:
     (no candidate trajectory) past it; a zero-probe line search, which the
     whole-solve kernels cannot express, goes to the batch loop, and so
     does a debug record past STREAM_HORIZON stages.
-  * Both take control limits (`limits=(lo, hi)`: scalars, (4,) or (B, 4)
-    each) and the cost's stage weights ((N,) or (B, N)) on the kernels' box
-    and weights variants (`backward.cu`, `rollout.cu`, `solve.cu`). The
-    streamed kernel has neither yet: a limited or weighted request past
-    STREAM_HORIZON stages on `solve_batch_latency` raises (ROADMAP Queue 2
-    item E), and so does one on the FDDP solvers (item F).
+  * Every solver here takes control limits (`limits=(lo, hi)`: scalars,
+    (4,) or (B, 4) each) and the cost's stage weights ((N,) or (B, N)) on
+    the kernels' box and weights variants: `backward.cu`, `rollout.cu`,
+    `solve.cu` and `stream.cu` for the exact routes, `fddp.cu` and
+    `stream_fddp.cu` for the FDDP solvers, in every phase of the
+    multi-phase solve.
   * Both exact routes take the model families: `model=`, or the family the
     params type names (`solver.ilqr.resolve_model`): the quadrotor, the
     SE(3) body wrench (u = 6) and the R-rotor multirotor (u = R; the
@@ -58,7 +58,6 @@ from . import fddp
 from .ilqr import (
     CONTINUATION_TODO,
     FAMILY_VARIANTS_TODO,
-    STREAM_VARIANTS_TODO,
     CostHistory,
     SolveResult,
     Trajectory,
@@ -133,9 +132,8 @@ def solve_batch_latency(
     """Batched iLQR with the whole loop in one kernel launch (the streamed
     kernel past `stream_horizon(u)` stages, STREAM_HORIZON for the
     quadrotor); lane for lane the same result as `solve_batch_fused`. Limits
-    and stage weights run `solve.cu`'s box and weights variants; past the
-    route point they raise NotImplementedError (ROADMAP Queue 2 item E),
-    never running without them or on the batch loop.
+    and stage weights run `solve.cu`'s box and weights variants, and past
+    the route point `stream.cu`'s.
 
     With `options.populate_debug` the whole-solve kernel records the
     per-trip cost history, and `debug` is a CostHistory: the costs and
@@ -149,8 +147,6 @@ def solve_batch_latency(
     _refuse(continuation, model)
     lm = lane_model_for(params, model)
     streamed = initial_trajs.controls.shape[1] > stream_horizon(lm.u_dim)
-    if streamed and (limits is not None or cost.stage_weights is not None):
-        raise NotImplementedError(STREAM_VARIANTS_TODO)
     on_card = initial_trajs.controls.device.type != "cpu"
     if options.populate_debug and on_card and lm.suffix != "":
         raise NotImplementedError(FAMILY_VARIANTS_TODO)
@@ -169,7 +165,7 @@ def solve_batch_latency(
         return SolveResult(traj, cost_v, iterations, status, debug)
     if streamed:
         traj, cost_v, iterations, status = solve_fused_streamed(
-            params, cost, initial_trajs, dt_s, options, model=model
+            params, cost, initial_trajs, dt_s, options, model=model, limits=limits
         )
     else:
         traj, cost_v, iterations, status = solve_fused_whole(
@@ -219,13 +215,14 @@ def solve_batch_fddp(
 ) -> SolveResult:
     """Batched robust FDDP solve (solver/fddp.py semantics), the whole loop in
     one kernel launch (the streamed kernel past STREAM_HORIZON_FDDP stages);
-    lane for lane the plain `solver.fddp.solve_fddp`.
+    lane for lane the plain `solver.fddp.solve_fddp`, with `limits` and the
+    cost's stage weights on the kernels' box and weights variants.
 
     `refine="auto"` runs the multi-phase schedule of `resolve_refine_auto`
     (and, with ddp=False, the hybrid curvature); an int or tuple passes
     through as explicit phase boundaries (`solve_batch_fddp_refine`)."""
     fo = fddp.FDDPOptions() if fddp_options is None else fddp_options
-    fddp.check_supported(cost, model, limits, params=params)
+    fddp.check_supported(model, params=params)
     if refine is not None:
         bounds, ddp_r = refine, ddp
         if refine == "auto":
@@ -235,14 +232,14 @@ def solve_batch_fddp(
         if bounds is not None:
             return solve_batch_fddp_refine(
                 params, cost, initial_trajs, dt_s, options, fddp_options=fo,
-                phase1_iters=bounds, ddp=ddp_r,
+                phase1_iters=bounds, ddp=ddp_r, limits=limits,
             )
     if isinstance(ddp, tuple):
         raise ValueError(
             "per-phase ddp tuples need refine=... (solve_batch_fddp_refine semantics)"
         )
     traj, cost_v, iterations, status = _fddp_engine(initial_trajs)(
-        params, cost, initial_trajs, dt_s, options, fo, ddp=ddp
+        params, cost, initial_trajs, dt_s, options, fo, ddp=ddp, limits=limits
     )
     return SolveResult(trajectory=traj, cost=cost_v, iterations=iterations, status=status)
 
@@ -279,7 +276,7 @@ def solve_batch_fddp_refine(
     their work; a CUDA thread whose lane is frozen returns at once, so
     there is nothing to compact."""
     fo = fddp.FDDPOptions() if fddp_options is None else fddp_options
-    fddp.check_supported(cost, model, limits, params=params)
+    fddp.check_supported(model, params=params)
     if isinstance(ddp, tuple) and len(set(bool(f) for f in ddp)) == 1:
         ddp = bool(ddp[0])
     hybrid = isinstance(ddp, tuple)
@@ -291,7 +288,8 @@ def solve_batch_fddp_refine(
                 f"per-phase ddp {ddp!r} needs at least two phases; "
                 f"phase1_iters={phase1_iters!r} leaves one"
             )
-        return solve_batch_fddp(params, cost, initial_trajs, dt_s, options, fo, ddp=ddp)
+        return solve_batch_fddp(params, cost, initial_trajs, dt_s, options, fo, ddp=ddp,
+                                limits=limits)
     budgets = []
     used = 0
     for b in bounds:
@@ -319,6 +317,6 @@ def solve_batch_fddp_refine(
         traj, cost_v, iters, status, mu = engine(
             params, cost, traj, dt_s, _with_max_iters(options, budget), fo,
             ddp=flag, initial_mu=mu, initial_status=status, initial_iters=iters,
-            return_mu=True,
+            return_mu=True, limits=limits,
         )
     return SolveResult(trajectory=traj, cost=cost_v, iterations=iters, status=status)

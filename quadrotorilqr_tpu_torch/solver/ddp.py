@@ -106,11 +106,10 @@ def cxx_curvature_correction(tau_p, w_inv, qdx6):
 def exact_cxx_analytic(cost, traj):
     """Exact state Hessians of the tracking cost for every stage,
     (..., N, 12, 12): the Gauss-Newton blocks with the closed-form Lie
-    correction added into the pose block (the kernels' order)."""
-    from ..costs.quadratic import _weights_over_stages, refuse_weights
-    from .ilqr import FDDP_VARIANTS_TODO
+    correction added into the pose block, then scaled by the stage weights
+    ((N,) or (B, N)) when the cost has them (the kernels' order)."""
+    from ..costs.quadratic import _weights_over_stages
 
-    refuse_weights(cost, FDDP_VARIANTS_TODO)
     des = cost.desired_states
     dx_pose = se3.minus(traj.states.pose, des.pose)
     dx = torch.cat([dx_pose, traj.states.vel - des.vel], -1)
@@ -123,7 +122,10 @@ def exact_cxx_analytic(cost, traj):
     top = 2.0 * (w_inv.transpose(-1, -2) @ qjd[..., 0:6, :])
     corr = cxx_curvature_correction(dx_pose, w_inv, qdx[..., 0:6])
     top = torch.cat([top[..., 0:6] + corr, top[..., 6:12]], -1)
-    return torch.cat([top, 2.0 * qjd[..., 6:12, :]], -2)
+    c_xx = torch.cat([top, 2.0 * qjd[..., 6:12, :]], -2)
+    if cost.stage_weights is not None:
+        c_xx = c_xx * cost.stage_weights[..., None, None]
+    return c_xx
 
 
 def curvature_params(params, dtype):

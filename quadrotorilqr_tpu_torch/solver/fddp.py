@@ -13,7 +13,12 @@ of shooting nodes with defects d_k = f(x_k, u_k) (-) x_{k+1}:
   * mu falls on a long accepted step, rises on a rejected or crawling one,
     and a rejection at reg_max is terminal (LINE_SEARCH_FAILED);
   * CONVERGED needs an accepted step from an iterate whose gaps are already
-    below gap_tol, plus the cost criterion.
+    below gap_tol, plus the cost criterion;
+  * control limits `limits=(lo, hi)` solve each stage's gains as the
+    projected-Newton box-QP of `solver/constrained.py` (the quadratic model
+    keeps the free-direction gains) and clamp every control the rollouts
+    produce; the cost's stage weights ((N,) or (B, N)) scale each stage's
+    cost, its differentials (the exact DDP c_xx too) and the model's terms.
 
 `fddp_loop` runs the loop in the kernel's flattened-trip form
 (kernels/fddp.py): every trip is one backward pass plus a line search; a
@@ -22,10 +27,11 @@ the next trip is JAX's adaptive-mu retry, and both forms count every trip
 against `max_iters`. Lanes freeze once done. It takes optional resume rows
 (initial mu, status, iterations), which the multi-phase solve
 (solver/batched.solve_batch_fddp_refine) threads between phases. Costs are
-summed stage by stage, `c + (dx'Q dx + du'R du)`, as the kernel sums them.
+summed stage by stage, `c + w_n (dx'Q dx + du'R du)` (w_n = 1 without
+weights), as the kernel sums them.
 
-Not ported (each raises, naming its ROADMAP item): control limits, stage
-weights, the augmented-Lagrangian penalty operands, other model families.
+Not ported (each raises, naming its ROADMAP item): the augmented-Lagrangian
+penalty operands, other model families.
 """
 
 from __future__ import annotations
@@ -36,12 +42,13 @@ from dataclasses import dataclass
 import torch
 
 from ..costs import quadratic as qc
+from ..lie import se3
 from ..models import quadrotor as qm
 from ..tree import tree_map
+from . import constrained
 from . import ddp as ddp_mod
 from .ilqr import (
     FAMILY_FDDP_TODO,
-    FDDP_VARIANTS_TODO,
     STATUS_CONVERGED,
     STATUS_LINE_SEARCH_FAILED,
     SolveResult,
@@ -149,16 +156,23 @@ def _check_quadrotor(params, model):
         raise NotImplementedError(FAMILY_FDDP_TODO)
 
 
-def check_supported(cost, model=None, limits=None, penalty_fns=None, params=None):
+def check_supported(model=None, penalty_fns=None, params=None):
     """Refuse every option outside the ported slice, naming its ROADMAP item
     (a model family other than the quadrotor's: `model=`, or the params
     type when `params` is given)."""
-    qc.refuse_weights(cost, FDDP_VARIANTS_TODO)
     _check_quadrotor(params, model)
-    if limits is not None:
-        raise NotImplementedError(FDDP_VARIANTS_TODO)
     if penalty_fns is not None:
         raise NotImplementedError(PENALTY_TODO)
+
+
+def prep_box(limits, controls):
+    """(lo, hi) for (B, N, 4) controls as `constrained.prep_limits` shapes
+    them ((4,) shared or (B, 4) per scenario), or None without limits."""
+    if limits is None:
+        return None
+    return constrained.prep_limits(
+        limits, controls.shape[0], controls.dtype, controls.device, controls.shape[-1]
+    )
 
 
 def _stage_derivs(params, cost, traj, dt_s, ddp):
@@ -176,11 +190,14 @@ def _stage_derivs(params, cost, traj, dt_s, ddp):
     return (j_x, j_u, c_x, c_u, c_xx, c_uu, curv)
 
 
-def _backward_from_derivs(derivs, d, quu_reg):
+def _backward_from_derivs(derivs, d, quu_reg, controls=None, box=None):
     """Gap-transported Riccati recursion and the exact quadratic model of the
     gap-contracting rollout, from a derivative bundle over (B, N, ...).
-    `quu_reg` is a float or a (B,) tensor. Returns (ks (B, N, 4),
-    Ks (B, N, 4, 12), L1 (B,), L2 (B,)), dJ(alpha) = alpha L1 + alpha^2 L2."""
+    `quu_reg` is a float or a (B,) tensor. With `box` (`prep_box`'s bounds)
+    each stage's gains are the box-QP's within the bounds less the stage's
+    control (`controls`, (B, N, 4)), with the general-gain value update.
+    Returns (ks (B, N, 4), Ks (B, N, 4, 12), L1 (B,), L2 (B,)),
+    dJ(alpha) = alpha L1 + alpha^2 L2."""
     j_x, j_u, c_x, c_u, c_xx, c_uu = derivs[:6]
     batch = c_x.shape[:-2]
     n_stages = c_x.shape[-2]
@@ -207,7 +224,13 @@ def _backward_from_derivs(derivs, d, quu_reg):
             )
         q_uu = c_uu[..., n, :, :] + jut @ vxx_ju + reg
         q_xu = jxt @ vxx_ju
-        k, big_k, v_x, v_xx, _, _ = riccati_gains_update(q_x, q_u, q_xx, q_uu, q_xu)
+        if box is None:
+            k, big_k, v_x, v_xx, _, _ = riccati_gains_update(q_x, q_u, q_xx, q_uu, q_xu)
+        else:
+            u_n = controls[..., n, :]
+            k, big_k, v_x, v_xx, _, _ = constrained.box_gains_update(
+                q_x, q_u, q_xx, q_uu, q_xu, box[0] - u_n, box[1] - u_n
+            )
         ks[n] = k
         big_ks[n] = big_k
     ks = torch.stack(ks, -2)
@@ -233,38 +256,47 @@ def _backward_from_derivs(derivs, d, quu_reg):
 
 def backward_pass_fddp(params, cost, traj, dt_s, d, quu_reg, model=None, ddp=False, limits=None):
     """Gap-transported Riccati recursion plus the exact quadratic line-search
-    model over (B, N, ...) trajectories. Returns (ks, Ks, L1, L2)."""
-    check_supported(cost, model, limits, params=params)
-    return _backward_from_derivs(_stage_derivs(params, cost, traj, dt_s, ddp), d, quu_reg)
+    model over (B, N, ...) trajectories; `limits=(lo, hi)` swaps each
+    stage's gain solve for the box-QP. Returns (ks, Ks, L1, L2)."""
+    check_supported(model, params=params)
+    return _backward_from_derivs(
+        _stage_derivs(params, cost, traj, dt_s, ddp), d, quu_reg, traj.controls,
+        prep_box(limits, traj.controls),
+    )
 
 
 def rollout_gap(params, traj: Trajectory, d, ks, big_ks, alpha, dt_s, model=None, limits=None):
     """Gap-contracting closed-loop rollout over (B, N, ...) with a per-lane
-    alpha (B,): u_n = u_old_n + alpha k_n + K_n (x_n (-) x_old_n),
-    x_{n+1} = f(x_n, u_n) (+) (-(1 - alpha) d_n)."""
+    alpha (B,): u_n = u_old_n + alpha k_n + K_n (x_n (-) x_old_n), clamped
+    into `limits=(lo, hi)` when given, x_{n+1} = f(x_n, u_n) (+)
+    (-(1 - alpha) d_n)."""
     _check_quadrotor(params, model)
-    if limits is not None:
-        raise NotImplementedError(FDDP_VARIANTS_TODO)
+    box = prep_box(limits, traj.controls)
+    step = qm.dynamics_step(params, dt_s)
+    # what does not depend on the carry, for every stage at once: elementwise
+    # products, sums and data moves, so the same values stage by stage
+    old_inv = se3.inverse(traj.states.pose)
+    u_ff = traj.controls + alpha[..., None, None] * ks
+    shrunk = -(1.0 - alpha[..., None, None]) * d
     state = tree_map(lambda leaf: leaf[..., 0, :], traj.states)
-    shrink = -(1.0 - alpha[..., None])
     states, controls = [], []
     for n in range(traj.horizon):
-        x_old = tree_map(lambda leaf: leaf[..., n, :], traj.states)
-        dx = qm.minus(state, x_old)
-        u = (
-            traj.controls[..., n, :]
-            + alpha[..., None] * ks[..., n, :]
-            + (big_ks[..., n, :, :] @ dx[..., None])[..., 0]
-        )
+        inv_n = tree_map(lambda leaf: leaf[..., n, :], old_inv)
+        dx = torch.cat([se3.log(se3.multiply(inv_n, state.pose)),
+                        state.vel - traj.states.vel[..., n, :]], -1)
+        u = u_ff[..., n, :] + (big_ks[..., n, :, :] @ dx[..., None])[..., 0]
+        if box is not None:
+            u = torch.clamp(u, *box)
         states.append(state)
         controls.append(u)
-        state = qm.add(qm.discrete_dynamics(params, state, u, dt_s), shrink * d[..., n, :])
+        state = qm.add(step(state, u), shrunk[..., n, :])
     stacked = tree_map(lambda *leaves: torch.stack(leaves, -2), *states)
     return Trajectory(times=traj.times, states=stacked, controls=torch.stack(controls, -2))
 
 
 def _line_search(
-    params, cost, traj, d, current, ks, big_ks, l1, l2, active, options, fo, dt_s, keep=True
+    params, cost, traj, d, current, ks, big_ks, l1, l2, active, options, fo, dt_s, keep=True,
+    limits=None,
 ):
     """Goldstein backtracking for every pending lane at once. Probe 0 sums
     its cost raw; later probes fold with the frozen-saturating add. Returns
@@ -281,7 +313,7 @@ def _line_search(
         pending = active & ~accepted
         if not bool(pending.any()):
             break
-        cand = rollout_gap(params, traj, d, ks, big_ks, alpha, dt_s)
+        cand = rollout_gap(params, traj, d, ks, big_ks, alpha, dt_s, limits=limits)
         scs = qc.per_stage_costs(cost, cand.states, cand.controls)
         dj = alpha * l1 + alpha * alpha * l2
         gdj = torch.where(dj <= 0, dj.new_tensor(fo.goldstein_frac), dj.new_tensor(fo.goldstein_ub)) * dj
@@ -323,6 +355,7 @@ def _mu_schedule(mu, accepted, alpha, fo):
 def fddp_loop(
     params, cost, traj: Trajectory, dt_s, options: ILQROptions, fddp_options: FDDPOptions,
     ddp=False, initial_mu=None, initial_status=None, initial_iters=None, streamed=False,
+    limits=None,
 ):
     """The FDDP loop over a (B, N, ...) batch in flattened-trip form.
 
@@ -339,20 +372,23 @@ def fddp_loop(
     at its accepted alpha (the same trajectory: rollouts are deterministic),
     and the apply sweeps (B,) int32 come last in the result.
 
+    `limits=(lo, hi)` (scalars, (4,) or (B, 4) each) runs the box-QP stage
+    and clamped rollouts; the cost's stage weights go with the cost.
+
     The loop dispatches thousands of small ops per trip, so it runs in
     inference mode (about a third less dispatch time) and hands back
     ordinary tensors."""
     with torch.inference_mode():
         out = _fddp_loop(
             params, cost, traj, dt_s, options, fddp_options, ddp,
-            initial_mu, initial_status, initial_iters, streamed,
+            initial_mu, initial_status, initial_iters, streamed, limits,
         )
     return tree_map(lambda a: a.clone(), out[0]), *(a.clone() for a in out[1:])
 
 
 def _fddp_loop(
     params, cost, traj, dt_s, options, fddp_options, ddp, initial_mu, initial_status,
-    initial_iters, streamed,
+    initial_iters, streamed, limits,
 ):
     fo = fddp_options
     max_iters = int(options.convergence_criteria.max_iters)
@@ -370,6 +406,7 @@ def _fddp_loop(
     iters = row(initial_iters, torch.int32)
     done = status != 0
     gap_tol = resolve_gap_tol(fo, dtype)
+    box = prep_box(limits, controls)
     current = sequential_cost(qc.per_stage_costs(cost, traj.states, traj.controls))
     stages = torch.zeros(batch, dtype=torch.int64, device=device)
     defect_trips = torch.zeros(batch, dtype=torch.int32, device=device)
@@ -382,16 +419,18 @@ def _fddp_loop(
         d = defects(params, traj, dt_s)
         gap = d.abs().amax((-2, -1))
         derivs = _stage_derivs(params, cost, traj, dt_s, ddp)
-        ks, big_ks, l1, l2 = _backward_from_derivs(derivs, d, options.quu_reg + mu)
+        ks, big_ks, l1, l2 = _backward_from_derivs(
+            derivs, d, options.quu_reg + mu, traj.controls, box
+        )
         cand, cand_cost, accepted, alpha, ran = _line_search(
             params, cost, traj, d, current, ks, big_ks, l1, l2, active, options, fo, dt_s,
-            keep=not streamed,
+            keep=not streamed, limits=box,
         )
         stages = stages + ran
         defect_trips = defect_trips + (active & stale).to(torch.int32)
         take = active & accepted
         if streamed and bool(take.any()):
-            cand = rollout_gap(params, traj, d, ks, big_ks, alpha, dt_s)
+            cand = rollout_gap(params, traj, d, ks, big_ks, alpha, dt_s, limits=box)
             applies = applies + take.to(torch.int32)
         stale = torch.where(active, take, stale)
         terminal = active & ~accepted & ~(mu < fo.reg_max)
@@ -428,13 +467,16 @@ def solve_fddp(
     `initial_traj` leaves are (B, N, ...) or one unbatched (N, ...)
     trajectory; lane for lane the result of JAX's `vmap(solve_fddp)`.
     `ddp=True` adds the exact curvature (closed form), with the adaptive mu
-    absorbing the indefiniteness it can bring. `options.populate_debug` is
-    ignored: FDDP has no debug record (debug is None)."""
-    check_supported(cost, model, limits, penalty_fns, params)
+    absorbing the indefiniteness it can bring. `limits=(lo, hi)` ((4,)
+    broadcastable bounds, or (B, 4) per scenario) runs the box-QP stage and
+    clamped gap rollouts; the cost's stage weights ((N,) or (B, N)) weight
+    every stage. `options.populate_debug` is ignored: FDDP has no debug
+    record (debug is None)."""
+    check_supported(model, penalty_fns, params)
     single = initial_traj.controls.ndim == 2
     traj = tree_map(lambda a: a[None], initial_traj) if single else initial_traj
     traj, cost_v, iters, status, *_ = fddp_loop(
-        params, cost, traj, dt_s, options, fddp_options, ddp=ddp
+        params, cost, traj, dt_s, options, fddp_options, ddp=ddp, limits=limits
     )
     result = SolveResult(trajectory=traj, cost=cost_v, iterations=iters, status=status)
     return tree_map(lambda a: a[0], result) if single else result

@@ -19,6 +19,7 @@ from dataclasses import dataclass
 import torch
 
 from ..costs import quadratic as qc
+from ..lie import se3
 from ..models import multirotor as mr
 from ..models import quadrotor as qm
 from ..models import se3_wrench as wm
@@ -54,14 +55,6 @@ FAMILY_VARIANTS_TODO = (
 FAMILY_ROTORS_TODO = (
     "the CUDA kernels take multirotors of 4, 6 or 8 rotors; other rotor counts are not "
     "ported yet (ROADMAP Queue 1 item 11d)"
-)
-STREAM_VARIANTS_TODO = (
-    "control limits and stage weights on the streamed exact kernel (stream.cu, past 256 "
-    "stages) are not ported yet (ROADMAP Queue 2 item E)"
-)
-FDDP_VARIANTS_TODO = (
-    "control limits and stage weights on the FDDP solvers are not ported yet "
-    "(ROADMAP Queue 2 item F)"
 )
 CONTINUATION_TODO = (
     "continuation is not ported yet (ROADMAP Queue 1 item 13, MPC warm start)"
@@ -233,21 +226,26 @@ def forward_sim(params, traj: Trajectory, ks, big_ks, alpha, dt_s, limits=None, 
     With `limits=(lo, hi)` (tensors broadcasting against (..., u)) each u_n
     is clamped into [lo, hi] first (solver/constrained.py)."""
     model = resolve_model(params, model)
+    if model is qm:
+        step = qm.dynamics_step(params, dt_s)
+    else:
+        step = lambda x, u: model.discrete_dynamics(params, x, u, dt_s)  # noqa: E731
+    # what does not depend on the carry, for every stage at once: elementwise
+    # products, sums and data moves, so the same values stage by stage
+    old_inv = se3.inverse(traj.states.pose)
+    u_ff = traj.controls + alpha[..., None, None] * ks
     state = tree_map(lambda leaf: _stage(leaf, 0), traj.states)
     states, controls = [], []
     for n in range(traj.horizon):
-        x_old = tree_map(lambda leaf: _stage(leaf, n), traj.states)
-        dx = qm.minus(state, x_old)
-        u = (
-            traj.controls[..., n, :]
-            + alpha[..., None] * ks[..., n, :]
-            + (big_ks[..., n, :, :] @ dx[..., None])[..., 0]
-        )
+        inv_n = tree_map(lambda leaf: _stage(leaf, n), old_inv)
+        dx = torch.cat([se3.log(se3.multiply(inv_n, state.pose)),
+                        state.vel - _stage(traj.states.vel, n)], -1)
+        u = u_ff[..., n, :] + (big_ks[..., n, :, :] @ dx[..., None])[..., 0]
         if limits is not None:
             u = torch.clamp(u, *limits)
         states.append(state)
         controls.append(u)
-        state = model.discrete_dynamics(params, state, u, dt_s)
+        state = step(state, u)
     stacked = tree_map(lambda *leaves: torch.stack(leaves, -2), *states)
     return Trajectory(times=traj.times, states=stacked, controls=torch.stack(controls, -2))
 

@@ -26,7 +26,11 @@ wrench, u = 6, and the 6- and 8-rotor multirotors): each family's
 instantiation of backward.cu, rollout.cu, solve.cu and stream.cu against
 its plain version at the bars above, stream.cu and the per-pass route
 bit-equal to solve.cu, the team edges, a 4-rotor multirotor bit-equal to the
-quadrotor, and the requests their kernels refuse.
+quadrotor, and the requests their kernels refuse. The box and weights
+variants of fddp.cu, stream_fddp.cu (with and without exact DDP) and
+stream.cu at float64, B=300, N=12 against their plain versions (exact DDP
+at the DDP engines' bar), the streamed kernels bit-equal to their
+whole-solve twins, also at 256 stages for stream.cu.
 
 This file imports no JAX, so the card machine runs it without the JAX
 package's conftest:
@@ -792,7 +796,7 @@ def test_cuda_unit_weights_and_unconstrained_instantiations(variant_problem):
     """Unit weights leave solve.cu's trajectory, status and iterations
     bit-equal to no weights (the cost sums w (dx'Q dx + du'R du), so it
     agrees to rounding); without limits or weights solve.cu runs the
-    instantiation without variants, bit-equal to stream.cu, which has none."""
+    instantiation without variants, bit-equal to stream.cu's."""
     params, cost, traj, _ = variant_problem
     unit = dataclasses.replace(cost, stage_weights=torch.ones(40, dtype=torch.float64,
                                                               device="cuda"))
@@ -851,6 +855,164 @@ def test_cuda_config4_constrained_quality(card):
     err = lambda o: float(o["x_final"].pose.trans.norm(dim=-1).mean())
     assert err(out) < 0.8 * float(pb.x0.pose.trans.norm(dim=-1).mean())
     assert err(out) < 1.5 * err(base)
+
+
+# ---- the box and weights variants of fddp.cu, stream_fddp.cu and stream.cu ----
+
+ROBUST_VARIANT_CASES = ["box", "weights", "both"]
+
+
+@pytest.fixture(scope="module")
+def robust_variants():
+    """problem() (float64, B=300, N=12, per-scenario params) with
+    per-scenario (B, 4) bounds around the hover thrust and (B, N) stage
+    weights U(0.5, 2) with a terminal 20, by case: the bounds, the weights,
+    or both; and the plain FDDP loop's results by (case, ddp), computed once
+    (the streamed plain loop gives the whole one's bits,
+    tests/test_torch_variants.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    params, cost, traj = problem("cuda", seed=50)
+    rng = np.random.default_rng(51)
+    on = dict(dtype=torch.float64, device="cuda")
+    hover = 9.81 * 1.3 / 4
+    bounds = (torch.as_tensor(hover - rng.uniform(0.3, 0.8, size=(B, 4)), **on),
+              torch.as_tensor(hover + rng.uniform(0.3, 0.8, size=(B, 4)), **on))
+    w = rng.uniform(0.5, 2.0, size=(B, N))
+    w[:, -1] = 20.0
+    w = torch.as_tensor(w, **on)
+    cases = {"box": (bounds, None), "weights": (None, w), "both": (bounds, w)}
+    plain = {}
+
+    def get(case, ddp):
+        limits, weights = cases[case]
+        c = dataclasses.replace(cost, stage_weights=weights)
+        if (case, ddp) not in plain:
+            plain[(case, ddp)] = kf.solve_fddp_whole_reference(
+                params, c, traj, DT, FDDP_OPTIONS, kf.fddp.FDDPOptions(), ddp, limits=limits)
+        return params, c, traj, limits, plain[(case, ddp)]
+
+    return get
+
+
+def tie_lanes(got, ref):
+    """(same, tie): (B,) bool each. `same`: status and iterations equal. A
+    `tie` differs in them with its final cost equal to 1e-12: with a box
+    (and with exact DDP) a lane can reach a step whose predicted change is
+    at the rounding of its cost, and whether the line search takes it is
+    the rounding's call, in the plain loop as in the kernels; the lane ends
+    on the same solution, its status, iterations, mu and counts told
+    differently."""
+    same = (got[3] == ref[3]) & (got[2] == ref[2])
+    tie = ~same & ((got[1] - ref[1]).abs() <= 1e-12 * ref[1].abs())
+    return same, tie
+
+
+def assert_ddp_bar(got, ref):
+    """test_cuda_fddp_ddp_matches_plain's bar (the JAX package's own between
+    its DDP engines), a tie (`tie_lanes`) counted as agreeing."""
+    same, tie = tie_lanes(got, ref)
+    agree = same | tie
+    assert ((got[3] == ref[3]) | tie).double().mean() >= 0.98 and agree.double().mean() >= 0.95
+    strict = same & (ref[3] == 1)
+    rel = (got[1] - ref[1]).abs() / ref[1].abs()
+    assert rel.max() < 2e-4
+    if bool(strict.any()):
+        du = (got[0].controls - ref[0].controls).abs().amax((1, 2))
+        assert rel[strict].max() <= 1e-8 and du[strict].max() <= 1e-4
+
+
+def assert_variant_lanes(got, ref, rtol=1e-8, atol=1e-6):
+    """Every lane the same as plain (status and iterations) or a tie
+    (`tie_lanes`); cost within rtol and controls within atol on every lane.
+    With a box a converging lane's last steps can be rounding-sized, so
+    the controls along directions its cost barely sees settle ~1e-7 apart
+    between two engines whose costs agree to the rounding; without the
+    variants the kernels hold 1e-7."""
+    same, tie = tie_lanes(got, ref)
+    assert bool((same | tie).all())
+    torch.testing.assert_close(got[1], ref[1], rtol=rtol, atol=0)
+    torch.testing.assert_close(got[0].controls, ref[0].controls, rtol=0, atol=atol)
+
+
+def assert_fddp_twins(got, ref, ddp):
+    """stream_fddp.cu against fddp.cu: bit-equal in Gauss-Newton; with exact
+    DDP (whose closed forms the two team sizes evaluate in different
+    orders) every lane the same or a tie, cost rtol 1e-12."""
+    if not ddp:
+        assert_bit_equal(SolveResult(*got[:4]), SolveResult(*ref[:4]))
+        return
+    assert_variant_lanes(got[:4], ref[:4], rtol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ddp", [False, True], ids=["gauss_newton", "ddp"])
+@pytest.mark.parametrize("case", ROBUST_VARIANT_CASES)
+@pytest.mark.parametrize("kernel", ["fddp", "stream_fddp"])
+def test_cuda_fddp_variants_match_plain(robust_variants, kernel, case, ddp):
+    """The box and weights instantiations of fddp.cu and stream_fddp.cu
+    (with and without kDdp) against the plain FDDP loop with the same
+    bounds and weights: Gauss-Newton lane for lane (`assert_variant_lanes`:
+    a lane whose bookkeeping differs must end on the same cost to 1e-12),
+    exact DDP at the DDP engines' bar; every control in its box;
+    stream_fddp.cu against fddp.cu (`assert_fddp_twins`)."""
+    params, cost, traj, limits, ref = robust_variants(case, ddp)
+    solve = kf.solve_fddp_fused if kernel == "fddp" else ksf.solve_fddp_streamed
+    got = solve(params, cost, traj, DT, FDDP_OPTIONS, ddp=ddp, limits=limits, return_mu=True,
+                return_probes=True)
+    if ddp:
+        assert_ddp_bar(got, ref)
+    else:
+        assert_variant_lanes(got, ref)
+    if limits is not None:
+        assert_in_box(got[0].controls, limits)
+    if kernel == "stream_fddp":
+        whole = kf.solve_fddp_fused(params, cost, traj, DT, FDDP_OPTIONS, ddp=ddp, limits=limits)
+        assert_fddp_twins(got, whole, ddp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ROBUST_VARIANT_CASES)
+def test_cuda_stream_variants_match_plain_and_solve(robust_variants, case):
+    """stream.cu's box and weights instantiations against the streamed plain
+    loop (status, iterations and every count equal, cost rtol 1e-8, controls
+    atol 1e-7) and bit-equal to solve.cu's."""
+    params, cost, traj, limits, _ = robust_variants(case, False)
+    got = kst.solve_fused_streamed(params, cost, traj, DT, OPTIONS, limits=limits,
+                                   return_probes=True)
+    ref = kst.solve_streamed_reference(params, cost, traj, DT, OPTIONS, limits=limits)
+    for g, r in zip(got[2:], ref[2:]):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-8, atol=0)
+    torch.testing.assert_close(got[0].controls, ref[0].controls, rtol=0, atol=1e-7)
+    if limits is not None:
+        assert_in_box(got[0].controls, limits)
+    whole = ks.solve_fused_whole(params, cost, traj, DT, OPTIONS, limits=limits)
+    assert_bit_equal(SolveResult(*got[:4]), SolveResult(*whole))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", ["stream_solve_n256", "fddp_twins_n40"])
+def test_cuda_box_weights_twins_bit_equal(card, pair):
+    """chip_smoke's twins with limits and weights: stream.cu bit-equal to
+    solve.cu at 256 stages (the route point), and stream_fddp.cu against
+    fddp.cu at 40 (`assert_fddp_twins`), Gauss-Newton and exact DDP."""
+    n = 256 if pair == "stream_solve_n256" else 40
+    params, cost, traj = problem("cuda", batch=37, n=n, seed=52)
+    w = torch.ones(n, dtype=torch.float64, device="cuda")
+    w[-1] = 20.0
+    cost = dataclasses.replace(cost, stage_weights=w)
+    limits = (0.0, 4.0)
+    if pair == "stream_solve_n256":
+        got = kst.solve_fused_streamed(params, cost, traj, DT, OPTIONS, limits=limits)
+        assert_bit_equal(SolveResult(*got),
+                         SolveResult(*ks.solve_fused_whole(params, cost, traj, DT, OPTIONS,
+                                                           limits=limits)))
+        return
+    for ddp in (False, True):
+        got = ksf.solve_fddp_streamed(params, cost, traj, DT, FDDP_OPTIONS, ddp=ddp, limits=limits)
+        ref = kf.solve_fddp_fused(params, cost, traj, DT, FDDP_OPTIONS, ddp=ddp, limits=limits)
+        assert_fddp_twins(got, ref, ddp)
 
 
 # ---- the wider-control model families: the wrench (u = 6) and the 6- and

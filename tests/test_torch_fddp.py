@@ -14,6 +14,8 @@ JAX call here runs in interpret mode.
 """
 
 import dataclasses
+import functools
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -102,31 +104,53 @@ def problem():
 
 @pytest.fixture(scope="module")
 def jax_refs(problem):
-    """solve_fddp on every lane of the mixed problem (XLA), by ddp flag,
-    each compiled once for the module: `jax.lax.map` over the lanes, which
-    computes each lane as jax.vmap(solve_fddp) does, without tracing the
-    batching rule of its while loops (the larger part of the time), and
-    compiled at XLA's backend optimization level 0 without LLVM's expensive
-    passes (IEEE float64 all the same, in less compile time)."""
+    """solve_fddp on every lane of the mixed problem (XLA), by key: the
+    Gauss-Newton (False) and exact-DDP (True) solves over ITERS trips and
+    the Gauss-Newton solve at the multi-phase schedule's first budget
+    ("first"), all three made on first use: `jax.lax.map` over the lanes,
+    which computes each lane as jax.vmap(solve_fddp) does, without tracing
+    the batching rule of its while loops (the larger part of the time),
+    traced one by one and compiled side by side in threads at XLA's backend
+    optimization level 0 without LLVM's expensive passes (IEEE float64 all
+    the same, in less compile time)."""
     (params, cost, trajs), _ = problem
+    first = ILQROptions(LineSearchParams(*LS), ConvergenceCriteria(
+        *CC[:2], p_batched.resolve_refine_auto(ITERS, False)[0][0]))
     cache = {}
 
-    def get(ddp):
-        if ddp not in cache:
-            cache[ddp] = jax_lanes(lambda t: j_solve_fddp(params, cost, t, DT, J_OPTS, ddp=ddp),
-                                   trajs)
-        return cache[ddp]
+    def get(key):
+        if not cache:
+            cache.update(jax_lanes({
+                k: functools.partial(j_solve_fddp, params, cost, dt_s=DT, options=o, ddp=d)
+                for k, (o, d) in ((False, (J_OPTS, False)), (True, (J_OPTS, True)),
+                                  ("first", (first, False)))
+            }, trajs))
+        return cache[key]
 
     return get
 
 
-def jax_lanes(solve, trajs):
-    """solve(t) for every lane t of trajs: `jax.lax.map`, compiled at XLA's
-    backend optimization level 0 and without LLVM's expensive passes."""
-    run = jax.jit(lambda ts: jax.lax.map(solve, ts))
-    return run.lower(trajs).compile(
-        {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
-    )(trajs)
+XLA_FAST = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
+def jax_lanes(solves, trajs):
+    """{key: solve(t) for every lane t of trajs} for a dict of solves:
+    `jax.lax.map` over the lanes, each program traced in turn and all
+    compiled side by side in threads, at XLA's backend optimization level 0
+    and without LLVM's expensive passes."""
+    lowered = {k: jax.jit(lambda ts, f=f: jax.lax.map(f, ts)).lower(trajs)
+               for k, f in solves.items()}
+    compiled = {}
+
+    def build(k):
+        compiled[k] = lowered[k].compile(XLA_FAST)
+
+    threads = [threading.Thread(target=build, args=(k,)) for k in lowered]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return {k: fn(trajs) for k, fn in compiled.items()}
 
 
 # ---- curvature helpers and per-stage costs ----
@@ -171,9 +195,12 @@ def test_vfxx_analytic_matches_jax():
 
 def test_exact_cxx_and_per_stage_costs_match_jax(problem):
     (_, j_cost, j_trajs), (_, p_cost, p_trajs) = problem
-    ref = jax.jit(jax.vmap(lambda t: j_ddp.exact_cxx_analytic(j_cost, t)))(j_trajs)
+    ref, ref_costs = jax.jit(lambda c, ts: (
+        jax.vmap(lambda t: j_ddp.exact_cxx_analytic(c, t))(ts),
+        j_qc.per_stage_costs(c, ts.states, ts.controls),
+    )).lower(j_cost, j_trajs).compile(XLA_FAST)(j_cost, j_trajs)
     close(p_ddp.exact_cxx_analytic(p_cost, p_trajs), ref, tol=1e-12 * float(np.abs(ref).max()))
-    ref = j_qc.per_stage_costs(j_cost, j_trajs.states, j_trajs.controls)
+    ref = ref_costs
     got = p_qc.per_stage_costs(p_cost, p_trajs.states, p_trajs.controls)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-12)
 
@@ -291,19 +318,14 @@ def test_streamed_reference_matches_vmapped_jax_across_a_resume(problem, jax_ref
 # ---- the multi-phase solve, by composition ----
 
 
-def test_refine_first_phase_matches_jax(problem):
+def test_refine_first_phase_matches_jax(problem, jax_refs):
     """A fresh solve at the first phase's budget (what the multi-phase solve
     runs as its first phase) equals JAX's solve_fddp at that max_iters on
     every lane."""
     (j_params, j_cost, j_trajs), (params, cost, trajs) = problem
     bounds, _ = p_batched.resolve_refine_auto(ITERS, False)
     cc = (1e-9, 1e-9, bounds[0])
-    ref = jax_lanes(
-        lambda t: j_solve_fddp(
-            j_params, j_cost, t, DT, ILQROptions(LineSearchParams(*LS), ConvergenceCriteria(*cc))
-        ),
-        j_trajs,
-    )
+    ref = jax_refs("first")
     opts = dataclasses.replace(P_OPTS, convergence_criteria=p_options.ConvergenceCriteria(*cc))
     assert_lanes(p_batched.solve_batch_fddp(params, cost, trajs, DT, opts), ref)
 
@@ -339,7 +361,8 @@ def test_hybrid_refine_follows_the_auto_schedule(problem, budget, monkeypatch):
     calls = []
 
     def phase(params, cost, traj, dt_s, options, fo, ddp, initial_mu, initial_status,
-              initial_iters, return_mu):
+              initial_iters, return_mu, limits):
+        assert limits is None
         budget_k = options.convergence_criteria.max_iters
         calls.append((budget_k, ddp, initial_status is None))
         lanes = traj.controls.shape[0]
@@ -426,10 +449,13 @@ def test_api_solve_pytree_runs_plain_fddp(problem, jax_refs, solver):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(limits=(0.0, 5.0)), dict(model=object()), dict(penalty_fns=(None, None))],
-    ids=["limits", "model", "penalty"],
+    [dict(model=object()), dict(penalty_fns=(None, None))],
+    ids=["model", "penalty"],
 )
 def test_solve_fddp_refuses_options_outside_the_slice(problem, kwargs):
+    """Other model families and the penalty operands stay refused, naming
+    their ROADMAP items (limits and stage weights are ported:
+    tests/test_torch_variants.py)."""
     _, (params, cost, trajs) = problem
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         p_fddp.solve_fddp(params, cost, trajs, DT, P_OPTS, **kwargs)

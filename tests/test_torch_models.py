@@ -430,10 +430,10 @@ def test_family_kernels_refuse_what_they_lack(request_):
     cpu, f64 = torch.device("cpu"), torch.float64
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
         if request_ == "limits":
-            p_kb._problem_operands(pp, cost, 2, 4, DT, f64, cpu, (0.0, 20.0), True)
+            p_kb._problem_operands(pp, cost, 2, 4, DT, f64, cpu, (0.0, 20.0))
         elif request_ == "weights":
             w_cost = dataclasses.replace(cost, stage_weights=torch.ones(4, dtype=f64))
-            p_kb._problem_operands(pp, w_cost, 2, 4, DT, f64, cpu, None, True)
+            p_kb._problem_operands(pp, w_cost, 2, 4, DT, f64, cpu, None)
         elif request_ == "history":
             p_ks._launch(pp, cost, traj, DT, P_OPTS, True, False)
         elif request_ == "rotors5":
@@ -449,7 +449,7 @@ def test_family_kernels_refuse_what_they_lack(request_):
     q_prob = np_problem("wrench", 23, batch=2, n=4)
     q_prob["R"], q_prob["des_controls"] = np.eye(4), q_prob["des_controls"][:, :4]
     q_cost, _ = p_problem(q_prob)
-    ops = p_kb._problem_operands(quad, q_cost, 2, 4, DT, f64, cpu, (0.0, 5.0), True)
+    ops = p_kb._problem_operands(quad, q_cost, 2, 4, DT, f64, cpu, (0.0, 5.0))
     assert ops.entry("backward") == "qilqr_backward" and ops.variant[1][0] != 0
 
 

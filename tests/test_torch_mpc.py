@@ -38,10 +38,11 @@ from quadrotorilqr_tpu_torch.app import workloads as p_workloads
 from quadrotorilqr_tpu_torch.costs import quadratic as p_qc
 from quadrotorilqr_tpu_torch.kernels import backward as p_kb
 from quadrotorilqr_tpu_torch.kernels import rollout as p_kr
+from quadrotorilqr_tpu_torch.kernels import stream as p_kstream
+from quadrotorilqr_tpu_torch.models.se3_wrench import WrenchParams
 from quadrotorilqr_tpu_torch.solver import batched as p_batched
 from quadrotorilqr_tpu_torch.solver import constrained as p_con
 from quadrotorilqr_tpu_torch.solver import fddp as p_fddp
-from quadrotorilqr_tpu_torch.tree import tree_map
 
 from test_torch_kernels import (
     DT,
@@ -423,45 +424,48 @@ def test_mpc_step_equals_a_tick_of_run_mpc(mpc_case):
 # ---- what stays refused ----
 
 
-def _raises_past_256():
-    d = np_problem(20, 2, 257, False)
-    params, cost, traj = port_objects(jax_objects(d))
-    p_batched.solve_batch_latency(params, cost, traj, DT, P_OPTS, limits=(0.0, 5.0))
-
-
-def _raises_fddp(kind):
+def _raises(request_):
     params, cost, traj = port_objects(jax_objects(np_problem(21, 2, 4, False)))
-    if kind == "weights":
-        cost = _weighted(cost, torch.ones(4, dtype=torch.float64))
-        p_fddp.solve_fddp(params, cost, traj, DT, P_OPTS)
-    elif kind == "limits":
-        p_batched.solve_batch_fddp(params, cost, traj, DT, P_OPTS, limits=(0.0, 5.0))
+    if request_ == "penalty":
+        p_fddp.solve_fddp(params, cost, traj, DT, P_OPTS, limits=(0.0, 5.0),
+                          penalty_fns=(None, None))
+    elif request_ == "family":
+        wrench = WrenchParams.create(1.3, torch.eye(3, dtype=torch.float64), 9.81)
+        p_batched.solve_batch_fddp(wrench, cost, traj, DT, P_OPTS, limits=(0.0, 5.0))
     else:
-        QuadrotorILQR(1.0, np.eye(3), 0.2, 0.016, 9.81, np.eye(12), np.eye(4),
-                      tree_map(lambda a: a[0], traj), DT, P_OPTS, device="cpu",
-                      solver="fddp", stage_weights=np.ones(4))
+        # the wrench's stream.cu has no box instantiation: refused on the
+        # host before any launch
+        wrench = WrenchParams.create(1.3, torch.eye(3, dtype=torch.float64), 9.81)
+        w_cost = dataclasses.replace(cost, R=torch.eye(6, dtype=torch.float64),
+                                     desired_controls=torch.zeros(4, 6, dtype=torch.float64))
+        w_traj = dataclasses.replace(traj, controls=torch.zeros(2, 4, 6, dtype=torch.float64))
+        p_kstream._launch(wrench, w_cost, w_traj, DT, P_OPTS, limits=(-20.0, 20.0))
 
 
 @pytest.mark.parametrize(
     "request_, item",
     [
-        (_raises_past_256, "Queue 2 item E"),
-        (lambda: _raises_fddp("weights"), "Queue 2 item F"),
-        (lambda: _raises_fddp("limits"), "Queue 2 item F"),
-        (lambda: _raises_fddp("api"), "Queue 2 item F"),
+        ("penalty", "Queue 1 item 12"),
+        ("family", "Queue 1 item 11b"),
+        ("stream_family_box", "Queue 1 item 11c"),
     ],
-    ids=["latency_past_256", "fddp_weights", "fddp_limits", "api_fddp_weights"],
+    ids=["fddp_penalty", "fddp_family", "stream_family_box"],
 )
 def test_unported_variants_raise(request_, item):
-    """Limits or weights past 256 stages on the latency route (stream.cu)
-    and on the FDDP solvers raise, naming their ROADMAP item."""
+    """What this slice leaves refused names its ROADMAP item: the FDDP
+    solvers' penalty operands and model families other than the
+    quadrotor's, and limits on a family's stream.cu (the box-QP is the
+    quadrotor's)."""
     with pytest.raises(NotImplementedError, match=item):
-        request_()
+        _raises(request_)
 
 
 def test_run_mpc_refuses_fddp_and_short_targets(mpc_case):
+    """An MPC solver other than "ilqr" and "fddp" ("fddp-ddp" is the API's
+    name, not the loop's) and a desired trajectory too short for the run
+    raise ValueError."""
     pb = mpc_case
-    with pytest.raises(NotImplementedError, match="Queue 2 item F"):
-        _run_port(pb, solver="fddp")
+    with pytest.raises(ValueError, match="unknown MPC solver"):
+        _run_port(pb, solver="fddp-ddp")
     with pytest.raises(ValueError, match="needs >= "):
         p_mpc.run_mpc(pb.params, pb.q, pb.r, pb.desired, pb.x0, TICKS + 50, H, MPC_DT, P_OPTS)

@@ -174,16 +174,18 @@ def test_api_solve_pytree_matches_jax(api_pair):
 )
 def test_api_refuses_options_outside_the_slice(api_pair, kwargs):
     """solver="ddp" is refused, naming its ROADMAP item; stage weights are
-    ported: the class carries them on its cost, and refuses them only with
-    an FDDP solver (ROADMAP Queue 2 item F)."""
+    ported: the class carries them on its cost with every solver, the FDDP
+    ones included (tests/test_torch_variants.py solves with them)."""
     p_api = api_pair[0]
     args = (1.0, np.eye(3), 0.2, 0.016, 9.81, np.eye(12), np.eye(4), p_api.desired_traj, DT,
             p_api.options)
     if "stage_weights" in kwargs:
-        api = QuadrotorILQR(*args, device="cpu", **kwargs)
-        torch.testing.assert_close(api.cost.stage_weights, torch.ones(N, dtype=torch.float64))
-        with pytest.raises(NotImplementedError, match="Queue 2 item F"):
-            QuadrotorILQR(*args, device="cpu", solver="fddp", **kwargs)
+        # the FDDP solvers have no debug record: the same options without it
+        no_debug = dataclasses.replace(p_api.options, populate_debug=False)
+        for solver in ("ilqr", "fddp", "fddp-ddp"):
+            opts = args[:-1] + ((no_debug,) if solver != "ilqr" else args[-1:])
+            api = QuadrotorILQR(*opts, device="cpu", solver=solver, **kwargs)
+            torch.testing.assert_close(api.cost.stage_weights, torch.ones(N, dtype=torch.float64))
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         QuadrotorILQR(*args, device="cpu", **kwargs)
