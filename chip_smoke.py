@@ -100,6 +100,21 @@ tests/test_mpc.py:154-189); the times (CUDA events, medians of 5; ms and
 host syncs a tick and the `mpc_step` loop's p50, p99 and max for the MPC
 run).
 
+Constrained flight (phase 6e, `constrained_phase`): `backward.cu`'s
+augmented-Lagrangian penalty variant (kPen, with and without the stage
+weights) against the plain penalty backward pass in float64 lane for lane
+(B=300, N=40, the multipliers made active), `solve_auglag_batch` on the
+card against its plain route (float64, `keepout_problem` at B=300, N=40,
+its first 3 outer iterations);
+the main path at full width, counted: `solve_auglag_batch` on
+`workloads.keepout_problem` (B=1024 and 4096, N=30, float32), solves/s,
+outer and inner iterations, launches, host syncs a trip, the converged
+share and the feasible lanes' violation, its first outer iteration against
+the plain AL route and the plain route to the end on the first 128 lanes,
+the weighted instantiation on the path with the terminal weight 20, where
+a trip's time goes; and `robust=True` on the tumbling class
+(`workloads.tumble_keepout_problem`, B=128, N=10, float64), timed.
+
 Output: progress lines (with each compiled kernel's and never-inlined
 function's ptxas registers, spill stores and stack, and the team kernels'
 geometry: lanes per scenario, teams per block, shared
@@ -107,7 +122,8 @@ bytes), the card's `nvidia-smi` name and power limit, a JSON line
 `{"kernels": [...]}` with each kernel's launches, error and times (the
 model families' instantiations as `backward_wrench`, ..., `stream_rotor8`;
 the box and weights variants as `*_box_weights`, fddp.cu's weights variant
-on config 6 as `fddp_weights`),
+on config 6 as `fddp_weights`, backward.cu's penalty variant as
+`backward_pen` and `backward_pen_weights`),
 and as the last line `{"ok": true, "device": {...}}`. Any failed check
 raises, so the exit code is not 0. Without a CUDA device, or without the
 repository beside it, it exits with code 2 and prints no result.
@@ -138,10 +154,11 @@ LONG_PLAIN_TRIPS = 2
 # The float64 FDDP kernels' exact-DDP curvature is held against the plain
 # DDP loop for its first trips only: the plain loop's second-order terms
 # take ~5 s a trip at B=300, N=40 (125 s for 25 trips on an H100 host)
-FDDP_DDP_PLAIN_TRIPS = 6
+FDDP_DDP_PLAIN_TRIPS = 4
 # Config 6's exact-DDP launch (its trips 16-40) is held against the plain
-# loop for its first trips only: the plain loop took 145-310 s for all 24
-C6_DDP_PLAIN_TRIPS = 8
+# loop for its first trips only: the plain loop took 145-310 s for all 24,
+# ~56 s for 8; 4 leave room under the time limit for the constrained phase
+C6_DDP_PLAIN_TRIPS = 4
 
 # The least time the card could take: the larger of the operations over the
 # H100's float32 rate outside the tensor cores and the bytes (each input read
@@ -345,11 +362,13 @@ def ptxas_summary(build_log):
         bits = re.findall(r"Lb([01])E", args.group(2))
         # the bool template flags after the type, by function: solve_kernel
         # <T, kRecord, kBox, kW>, backward_kernel / rollout_kernel /
-        # stream_kernel / team_rollout <T, kBox, kW>, the FDDP kernels and
-        # pieces <T, kDdp, kBox, kW>
+        # stream_kernel / team_rollout <T, kBox, kW>, backward_pen_kernel
+        # <T, kW>, the FDDP kernels and pieces <T, kDdp, kBox, kW>
         box = (("box", "no box"), ("weights", "no weights"))
         if name.endswith("solve_kernel"):
             names = (("record", "no record"),) + box
+        elif name.endswith("backward_pen_kernel"):
+            names = (("penalty, weights", "penalty"),)
         elif name.endswith(("backward_kernel", "rollout_kernel", "stream_kernel", "team_rollout")):
             names = box
         else:
@@ -1689,6 +1708,339 @@ def robust_variants_phase(env):
 T0 = time.perf_counter()
 
 
+# Phase 6e's shapes: the penalty variant against plain in float64 at the
+# earlier variants' B=300, N=40; the main path on `keepout_problem` at
+# B=1024 and 4096, N=30, float32; its plain route to the end on the first
+# AL_PLAIN_LANES lanes; robust=True on the tumbling class at B=128, N=10
+AL_BATCHES, AL_N, AL_PLAIN_LANES, AL_TUMBLE_BATCH = (1024, 4096), 30, 128, 128
+AL_F64_OUTER = 3
+# The penalty row's adds (team.cuh PenRow: pcx 12, pcu 4, pcxx 144, pcuu 16,
+# pcxu 48), one each a stage, counted beside the Riccati stage's
+PEN_EXTRA = 224
+
+
+def constrained_phase(env):
+    """Phase 6e: constrained flight. `solve_auglag_batch` on the card
+    against its plain route (float64, `keepout_problem` at B=300, N=40, its
+    first AL_F64_OUTER outer iterations);
+    backward.cu's penalty variant (kPen, with and without the stage
+    weights) against the plain penalty backward pass in float64 lane for
+    lane at the crossing's solution (the keep-out, a speed limit, a tilt
+    cone and a constraint coupling state and control, so that the cross
+    term pcxu is nonzero, with multipliers made active: lam > 0 on half the
+    entries, mu 1e3); then the main path,
+    counted: `solve_auglag_batch` on `keepout_problem` at B=1024 and 4096,
+    N=30, float32 (tolerance 1e-6, 30 iterations, line search (0.5, 0.5,
+    20), `ALOptions()`), and at B=1024 with the terminal weight 20 (the
+    weighted instantiation): solves/s (CUDA events, median of 5 after a
+    warm-up), outer and mean inner iterations, launches by instantiation,
+    host syncs per inner trip, the converged share and the worst violation
+    of the feasible lanes; its first outer iteration against the plain AL
+    route at B=1024 (status agreement >= 0.99, median relative cost <
+    1e-3), and the plain route run to the end on the first AL_PLAIN_LANES
+    lanes (the converged share within 1 point); where a trip's time goes
+    (the constraint Jacobians and penalty quadratics on the host side, the
+    kernels); and `robust=True` on the tumbling class (`tumble_keepout_problem`,
+    B=128, N=10, float64), timed, at the batch form of the JAX package's
+    bars (tests/test_auglag.py:369-400, which hold them on three hard
+    lanes): every cost finite, feasible on at least as many lanes as the
+    exact inner loop, the median cost over the exact loop's on the lanes
+    feasible in both at most 1.001, at least one lane rescued (converged
+    where the exact loop did not, its cost halved, or finite where the
+    exact loop's is not). Returns the penalty rows' fields and work, and
+    the phase's numbers."""
+    import numpy as np
+    import torch
+
+    from quadrotorilqr_tpu_torch.app import workloads
+    from quadrotorilqr_tpu_torch.kernels import backward as kb
+    from quadrotorilqr_tpu_torch.kernels import rollout as kr
+    from quadrotorilqr_tpu_torch.models import quadrotor as qm
+    from quadrotorilqr_tpu_torch.solver import auglag
+    from quadrotorilqr_tpu_torch.solver import constraints as C
+    from quadrotorilqr_tpu_torch.tree import tree_map
+
+    e = env
+    dev, card = e.dev, e.card
+    f32, f64 = torch.float32, torch.float64
+    t_phase = time.perf_counter()
+    numbers, rows = {}, {}
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs()).max())
+
+    def mixed(x, u, k):
+        return x.vel[..., 0:1] * u[..., 0:1] - 0.5
+
+    def penalty_of(traj, seed):
+        """The penalty quadratics of a keep-out, a speed limit, a tilt cone
+        and `mixed` at traj, half the multipliers drawn U(0, 3), mu 1e3."""
+        con = C.combine(C.sphere_keepout([0.3, 0.0, 0.0], 0.5), C.speed_limit(0.5),
+                        C.tilt_limit(0.2), mixed)
+        g, gx, gu = auglag.constraint_diffs(con, qm, traj.states, traj.controls)
+        rng = np.random.default_rng(seed)
+        lam = rng.uniform(0.0, 3.0, size=g.shape) * (rng.uniform(size=g.shape) < 0.5)
+        lam = torch.as_tensor(lam, dtype=g.dtype, device=dev)
+        mu = torch.full((g.shape[0],), 1e3, dtype=g.dtype, device=dev)
+        active = float(((lam + mu[:, None, None] * g) > 0).double().mean())
+        return auglag.penalty_quads(g, gx, gu, lam, mu), active
+
+    def weighted(cost, batch, n, dtype, seed):
+        w = np.random.default_rng(seed).uniform(0.5, 2.0, size=(batch, n))
+        return dataclasses.replace(cost, stage_weights=torch.as_tensor(w, dtype=dtype,
+                                                                       device=dev))
+
+    # ---- solve_auglag_batch on the card against its plain route, float64 ----
+    # for AL_F64_OUTER outer iterations: the plain route's ~0.5 s trips
+    # would take ~40 s to the end
+    p64 = workloads.keepout_problem(300, 40, f64, dev, seed=1)
+    args = (p64.params, p64.cost, p64.constraints, p64.trajs, p64.dt_s, p64.options,
+            dataclasses.replace(p64.al_options, max_outer_iters=AL_F64_OUTER))
+    t0 = time.perf_counter()
+    got = auglag.solve_auglag_batch(*args)
+    t1 = time.perf_counter()
+    ref = auglag.solve_auglag(*args)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    same = bool((got.status == ref.status).all() and (got.outer_iterations == ref.outer_iterations).all()
+                and (got.iterations == ref.iterations).all())
+    crel, du = rel(got.cost, ref.cost), max_abs(got.trajectory.controls, ref.trajectory.controls)
+    binding = int((ref.multipliers.flatten(1).amax(1) > 0).sum())
+    e.log(f"f64 solve_auglag_batch (kernels) vs its plain route (B=300, N=40, keep-out, "
+          f"{AL_F64_OUTER} outer iterations): status, "
+          f"outer and inner iterations equal {same}, rel cost {crel:.3e} (rtol 1e-8), max |du| "
+          f"{du:.3e} (atol 1e-7); statuses {torch.bincount(ref.status, minlength=5).tolist()}, the "
+          f"sphere binding on {binding} lanes; {t1 - t0:.1f} s on the kernels, {t2 - t1:.1f} s plain")
+    e.check(same and crel <= 1e-8 and du <= 1e-7 and binding > 0,
+            "f64 solve_auglag_batch disagrees with its plain route")
+
+    # ---- backward.cu's penalty variant against plain, float64, B=300, N=40 ----
+    # at the crossing's solution (on the sphere), with a speed limit, a tilt
+    # cone and `mixed` beside the keep-out and half the multipliers active
+    traj, params, cost = got.trajectory, p64.params, p64.cost
+    batch, n = traj.controls.shape[:2]
+    pen, active = penalty_of(traj, 11)
+    for key, c in (("", cost), ("_weights", weighted(cost, batch, n, f64, 12))):
+        got_b = kb.backward_pass_fused(params, c, traj, p64.dt_s, 1e-6, penalty=pen)
+        ref_b = kb.backward_pass_reference(params, c, traj, p64.dt_s, 1e-6, penalty=pen)
+        torch.cuda.synchronize()
+        scale = max(float(ref_b[0].abs().max()), float(ref_b[1].abs().max()))
+        err = max(max_abs(got_b[0], ref_b[0]), max_abs(got_b[1], ref_b[1]))
+        red = max(rel(g, r) for g, r in zip(got_b[2:], ref_b[2:]))
+        zero = tuple(torch.zeros_like(a) for a in pen)
+        bits = all(bool((a == b).all()) for a, b in zip(
+            kb.backward_pass_fused(params, c, traj, p64.dt_s, 1e-6, penalty=zero),
+            kb.backward_pass_fused(params, c, traj, p64.dt_s, 1e-6)))
+        e.log(f"f64 backward.cu penalty variant{' with weights' if key else ''} (B={batch}, "
+              f"N={n}, the crossing's solution, {active:.2f} of the constraints active): max "
+              f"|dk|,|dK| {err:.3e} = {err / scale:.3e} of max |ref| (bar 1e-12), rel QuTk, "
+              f"kTQuuk {red:.3e} (rtol 1e-12); zero penalty rows bit-equal to the launch without "
+              f"{bits}")
+        e.check(err <= 1e-12 * scale and red <= 1e-12,
+                f"f64 backward.cu penalty variant{key} disagrees with plain")
+        rows[f"backward_pen{key}"] = dict(
+            f64_err=err, f64_rel=err / scale, f64_shape=(batch, n), zero_rows_bit_equal=bits,
+            f64_ms=e.launch_ms(
+                lambda: kb.backward_pass_fused(params, c, traj, p64.dt_s, 1e-6, penalty=pen),
+                "qilqr_backward_pen"),
+            f64_plain_ms=e.time_ms(
+                lambda: kb.backward_pass_reference(params, c, traj, p64.dt_s, 1e-6, penalty=pen),
+                repeats=3))
+    del p64, got, ref
+
+    # ---- the main path: keepout_problem, float32, N=30, counted ----
+    for b_ in AL_BATCHES:
+        p = workloads.keepout_problem(b_, AL_N, f32, dev, seed=0)
+        args = (p.params, p.cost, p.constraints, p.trajs, p.dt_s, p.options, p.al_options)
+        # the counted run, its host syncs counted by torch's sync debug mode
+        e.reset_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                res = auglag.solve_auglag_batch(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        launches = e.family_counts()
+        e.check(launches.get("backward_pen", 0) > 0 and launches.get("rollout", 0) > 0,
+                f"the constrained main path at B={b_} did not run backward.cu's penalty variant "
+                "and rollout.cu")
+        trips = launches["backward_pen"]
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        ms = e.time_ms(lambda: auglag.solve_auglag_batch(*args), warm=False)
+        feasible = (res.status == 1) | (res.status == 3)
+        g = auglag.eval_constraints(p.constraints, res.trajectory.states, res.trajectory.controls)
+        worst = float(res.max_violation[feasible].max()) if bool(feasible.any()) else 0.0
+        outside = bool((g.amax((1, 2))[feasible] < p.al_options.constraint_tol).all())
+        share = float((res.status == 1).float().mean())
+        m = dict(B=b_, N=AL_N, ms=ms, solves_per_s=b_ / ms * 1e3, launches=launches,
+                 inner_trips=trips, host_syncs=syncs, syncs_per_trip=syncs / trips,
+                 outer_mean=float(res.outer_iterations.float().mean()),
+                 outer_max=int(res.outer_iterations.max()),
+                 inner_mean=float(res.iterations.float().mean()), converged_share=share,
+                 statuses=torch.bincount(res.status, minlength=5).tolist(),
+                 worst_feasible_violation=worst)
+        numbers[f"keepout_B{b_}"] = m
+        e.log(f"constrained main path, keepout_problem B={b_}, N={AL_N}, f32: {ms:.3f} ms per batch "
+              f"solve, {m['solves_per_s']:.1f} solves/s; outer iterations mean {m['outer_mean']:.3f} "
+              f"(max {m['outer_max']}), inner mean {m['inner_mean']:.3f}; launches {launches} "
+              f"({trips} inner trips); {syncs} host syncs, {syncs / trips:.2f} a trip; statuses "
+              f"{m['statuses']}, converged share {share:.4f}; worst violation of the feasible lanes "
+              f"{worst:.3e} (tol {p.al_options.constraint_tol}), every feasible lane outside the "
+              f"sphere to it {outside} {card}")
+        e.check(outside and worst < p.al_options.constraint_tol,
+                f"a feasible lane of the constrained main path at B={b_} violates its constraint")
+        if b_ != AL_BATCHES[0]:
+            continue
+        main_launches = launches
+        main = (p, args, res)
+        # the weighted instantiation on the main path: the terminal weight 20
+        wc = dataclasses.replace(p.cost, stage_weights=workloads.terminal_weights(AL_N, f32, dev))
+        e.reset_counts()
+        res_w, ms_w = e.time_once(lambda: auglag.solve_auglag_batch(p.params, wc, *args[2:]))
+        launches_w = e.family_counts()
+        e.check(launches_w.get("backward_pen_weights", 0) > 0,
+                "the weighted constrained path did not run backward.cu's weighted penalty variant")
+        numbers["keepout_weighted_B1024"] = dict(
+            ms=ms_w, launches=launches_w, converged_share=float((res_w.status == 1).float().mean()),
+            worst_violation=float(res_w.max_violation.max()))
+        e.log(f"constrained path with the terminal weight 20 (B={b_}, N={AL_N}, f32): {ms_w:.3f} ms "
+              f"(one solve, the counted one), "
+              f"launches {launches_w}, statuses {torch.bincount(res_w.status, minlength=5).tolist()} "
+              f"{card}")
+
+    # ---- the main path against the plain AL route ----
+    p, args, res = main
+    one = dataclasses.replace(p.al_options, max_outer_iters=1)
+    got1 = auglag.solve_auglag_batch(*args[:-1], one)
+    t0 = time.perf_counter()
+    ref1 = auglag.solve_auglag(*args[:-1], one)
+    torch.cuda.synchronize()
+    plain_first_s = time.perf_counter() - t0
+    agree = float((got1.status == ref1.status).float().mean())
+    med = float(((got1.cost - ref1.cost).abs() / ref1.cost.abs()).median())
+    lanes = slice(0, AL_PLAIN_LANES)
+    sub = tree_map(lambda a: a[lanes], p.trajs)
+    t0 = time.perf_counter()
+    ref_full = auglag.solve_auglag(p.params, p.cost, p.constraints, sub, *args[4:])
+    torch.cuda.synchronize()
+    plain_full_s = time.perf_counter() - t0
+    share_plain = float((ref_full.status == 1).float().mean())
+    share_kernel = float((res.status[lanes] == 1).float().mean())
+    numbers["plain_route"] = dict(first_outer_status_agreement=agree, first_outer_median_rel_cost=med,
+                                  plain_converged_share=share_plain,
+                                  kernel_converged_share=share_kernel, lanes=AL_PLAIN_LANES,
+                                  plain_first_outer_s=plain_first_s, plain_full_s=plain_full_s)
+    e.log(f"the main path's first outer iteration against the plain AL route (B={AL_BATCHES[0]}): "
+          f"status agreement {agree:.4f} (>= 0.99), median rel cost {med:.3e} (< 1e-3), plain "
+          f"{plain_first_s:.1f} s; run to the end on the first {AL_PLAIN_LANES} lanes: converged "
+          f"share plain {share_plain:.4f}, kernels {share_kernel:.4f} (within 0.01), plain "
+          f"{plain_full_s:.1f} s; statuses plain {torch.bincount(ref_full.status, minlength=5).tolist()}")
+    e.check(agree >= 0.99 and med < 1e-3 and abs(share_plain - share_kernel) <= 0.01,
+            "the constrained main path disagrees with the plain AL route")
+
+    # ---- where a trip's time goes (B=1024, at the main path's solution) ----
+    final = res.trajectory
+    lam = res.multipliers
+    b_main = final.controls.shape[0]
+    mu = torch.full((b_main,), 1e3, dtype=f32, device=dev)
+
+    def quads():
+        g, gx, gu = auglag.constraint_diffs(p.constraints, qm, final.states, final.controls)
+        return auglag.penalty_quads(g, gx, gu, lam, mu)
+
+    pen32 = quads()
+    gains = kb.backward_pass_fused(p.params, p.cost, final, p.dt_s, 0.0, penalty=pen32)
+    alpha = torch.ones(b_main, dtype=f32, device=dev)
+    split = dict(
+        jacobians_and_quads_ms=e.time_ms(quads),
+        rows_ms=e.time_ms(lambda: kb.penalty_rows(pen32, f32, final.controls.device)),
+        backward_pen_launch_ms=e.launch_ms(
+            lambda: kb.backward_pass_fused(p.params, p.cost, final, p.dt_s, 0.0, penalty=pen32),
+            "qilqr_backward_pen"),
+        backward_pen_call_ms=e.time_ms(
+            lambda: kb.backward_pass_fused(p.params, p.cost, final, p.dt_s, 0.0, penalty=pen32)),
+        rollout_launch_ms=e.launch_ms(
+            lambda: kr.rollout_cost_fused(p.params, p.cost, final, gains[0], gains[1], alpha,
+                                          p.dt_s), "qilqr_rollout"),
+        penalty_value_ms=e.time_ms(lambda: auglag.phi(
+            auglag.eval_constraints(p.constraints, final.states, final.controls), lam, mu
+        ).sum(-1)),
+        backward_pen_plain_ms=e.time_ms(
+            lambda: kb.backward_pass_reference(p.params, p.cost, final, p.dt_s, 0.0,
+                                               penalty=pen32), repeats=3),
+    )
+    numbers["trip_split_B1024"] = split
+    e.log(f"a constrained trip's pieces at B={AL_BATCHES[0]}, N={AL_N}, f32: constraint Jacobians "
+          f"(torch.func) and penalty quadratics {split['jacobians_and_quads_ms']:.3f} ms, penalty "
+          f"rows {split['rows_ms']:.3f} ms, backward.cu penalty launch "
+          f"{split['backward_pen_launch_ms']:.4f} ms (call {split['backward_pen_call_ms']:.3f} ms, "
+          f"plain {split['backward_pen_plain_ms']:.3f} ms), rollout.cu launch "
+          f"{split['rollout_launch_ms']:.4f} ms, a candidate's penalty value "
+          f"{split['penalty_value_ms']:.3f} ms {card}")
+    for key, c in (("", p.cost),
+                   ("_weights", dataclasses.replace(
+                       p.cost, stage_weights=workloads.terminal_weights(AL_N, f32, dev)))):
+        r = rows[f"backward_pen{key}"]
+        r["ms"] = e.launch_ms(
+            lambda: kb.backward_pass_fused(p.params, c, final, p.dt_s, 0.0, penalty=pen32),
+            "qilqr_backward_pen")
+        r["plain_ms"] = e.time_ms(
+            lambda: kb.backward_pass_reference(p.params, c, final, p.dt_s, 0.0, penalty=pen32),
+            repeats=3)
+        ref = kb.backward_pass_reference(p.params, c, final, p.dt_s, 0.0, penalty=pen32)
+        got = kb.backward_pass_fused(p.params, c, final, p.dt_s, 0.0, penalty=pen32)
+        r["max_abs_err"] = max(max_abs(got[0], ref[0]), max_abs(got[1], ref[1]))
+        r["launches"] = (main_launches if not key else launches_w)[f"backward_pen{key}"]
+        r["shape"] = (b_main, AL_N)
+        stage = b_main * AL_N
+        flops = stage * (FLOPS["riccati"] + PEN_EXTRA + (FLOPS["weights_extra"] if key else 0))
+        nbytes = (17 + 52 + PEN_EXTRA + (1 if key else 0)) * stage * 4 + 2 * b_main * 4
+        r["work"] = (flops, nbytes)
+        e.log(f"backward.cu penalty variant{' with weights' if key else ''} at the main path's "
+              f"shapes (B={AL_BATCHES[0]}, N={AL_N}, f32): launch {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, max |dk|,|dK| {r['max_abs_err']:.3e}; at B={batch}, N={n}, "
+              f"f64: {r['f64_ms']:.4f} ms, plain {r['f64_plain_ms']:.3f} ms {card}")
+
+    # ---- robust=True on the tumbling class, float64 ----
+    pt = workloads.tumble_keepout_problem(AL_TUMBLE_BATCH, dtype=f64, device=dev)
+    targs = (pt.params, pt.cost, pt.constraints, pt.trajs, pt.dt_s, pt.options, pt.al_options)
+    exact, ms_exact = e.time_once(lambda: auglag.solve_auglag_batch(*targs))
+    rob, ms_rob = e.time_once(lambda: auglag.solve_auglag_batch(*targs, robust=True))
+    tol = pt.al_options.constraint_tol
+    finite = bool(torch.isfinite(rob.cost).all())
+    ok_exact = torch.isfinite(exact.cost)
+    feas_rob = int((rob.max_violation <= tol).sum())
+    feas_exact = int((exact.max_violation <= tol).sum())
+    both = ok_exact & (exact.max_violation <= tol) & (rob.max_violation <= tol)
+    ratio = rob.cost / exact.cost
+    med_ratio = float(ratio[both].median()) if bool(both.any()) else 0.0
+    above = int((ratio[both] > 1.001).sum())
+    rescued = ((rob.status == 1) & (exact.status != 1)) | ~ok_exact | (rob.cost < 0.5 * exact.cost)
+    numbers["robust_tumble"] = dict(
+        B=AL_TUMBLE_BATCH, N=pt.trajs.horizon, ms_robust=ms_rob, ms_exact=ms_exact,
+        statuses_robust=torch.bincount(rob.status, minlength=5).tolist(),
+        statuses_exact=torch.bincount(exact.status, minlength=5).tolist(),
+        exact_nonfinite=int((~ok_exact).sum()), feasible_robust=feas_rob,
+        feasible_exact=feas_exact, median_cost_ratio_both_feasible=med_ratio,
+        lanes_above_1_001=above, max_cost_ratio_both_feasible=float(ratio[both].max()),
+        rescued=int(rescued.sum()))
+    e.log(f"robust=True on the tumbling class (B={AL_TUMBLE_BATCH}, N={pt.trajs.horizon}, f64): "
+          f"{ms_rob:.1f} ms (the exact inner loop on the kernels {ms_exact:.1f} ms); statuses robust "
+          f"{numbers['robust_tumble']['statuses_robust']}, exact "
+          f"{numbers['robust_tumble']['statuses_exact']} ({int((~ok_exact).sum())} lanes not "
+          f"finite); costs finite {finite}; within {tol} on {feas_rob} lanes (the exact loop "
+          f"{feas_exact}); on the {int(both.sum())} lanes feasible in both, the cost over the exact "
+          f"loop's: median {med_ratio:.6f} (<= 1.001), above 1.001 on {above}, max "
+          f"{numbers['robust_tumble']['max_cost_ratio_both_feasible']:.4f}; lanes rescued "
+          f"{int(rescued.sum())} (>= 1) {card}")
+    e.check(finite and feas_rob >= feas_exact and med_ratio <= 1.001 and int(rescued.sum()) >= 1,
+            "robust constrained flight misses its bars")
+    e.log(f"phase 6e (constrained flight) took {time.perf_counter() - t_phase:.1f} s")
+    return rows, numbers
+
+
 def main() -> int:
     try:
         import torch
@@ -2557,8 +2909,11 @@ def main() -> int:
     log(f"config 3 phase took {time.perf_counter() - t_c3:.1f} s")
 
     # ---- 6. timing (CUDA events, 1 warm-up, median of 5) ----
-    def time_ms(fn, repeats=5):
-        fn()
+    def time_ms(fn, repeats=5, warm=True):
+        """The median of `repeats` timed calls of fn, after a warm-up call
+        unless the caller has just made one (warm=False)."""
+        if warm:
+            fn()
         torch.cuda.synchronize()
         times = []
         for _ in range(repeats):
@@ -2766,6 +3121,12 @@ def main() -> int:
         reset_counts=reset_counts, family_counts=family_counts,
     ))
 
+    # ---- 6e. constrained flight ----
+    pen_rows, constrained_numbers = constrained_phase(SimpleNamespace(
+        dev=dev, card=card, log=log, check=check, time_once=time_once, time_ms=time_ms, launch_ms=launch_ms, reset_counts=reset_counts,
+        family_counts=family_counts,
+    ))
+
     # ---- 7. bounds: the work this run's inputs needed ----
     f = FLOPS
     word = 4  # float32
@@ -2845,6 +3206,12 @@ def main() -> int:
         log(f"{name} with its variants bound ({v['shape']}): {flops / 1e9:.4f} GFLOP, "
             f"{nbytes / 1e6:.3f} MB -> {b_ms:.5f} ms ({b_by}); measured {v['ms']:.4f} ms")
     log(f"robust and long variants numbers: {json.dumps(robust_numbers)}")
+    pen_bounds = {name: bound(*v["work"]) for name, v in pen_rows.items()}
+    for name, v in pen_rows.items():
+        (flops, nbytes), (b_ms, b_by) = v["work"], pen_bounds[name]
+        log(f"{name} bound ({v['shape']}): {flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB -> "
+            f"{b_ms:.5f} ms ({b_by}); measured {v['ms']:.4f} ms")
+    log(f"constrained flight numbers: {json.dumps(constrained_numbers)}")
 
     pkg = "quadrotorilqr_tpu_torch/kernels/csrc"
     replaces = {
@@ -2944,6 +3311,21 @@ def main() -> int:
                if "without_variants_ms" in v else {}),
             "f64_max_abs_err": v["f64_err"],
             "f64_shape": {"B": v["f64_shape"][0], "N": v["f64_shape"][1]},
+        })
+    # backward.cu's penalty variant, with and without the weights, on phase
+    # 6e's main path (launches there; error and times at its shapes, beside
+    # the float64 error and times at B=300, N=40)
+    for name, v in pen_rows.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{pkg}/backward.cu",
+            "replaces": "quadrotorilqr_tpu/kernels/backward.py:594", "launches": v["launches"],
+            "max_abs_err": v["max_abs_err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
+            "bound_ms": pen_bounds[name][0], "bound_by": pen_bounds[name][1], "library_ms": None,
+            "variant": "penalty (kPen)" + (" and weights (kW)" if "weights" in name else ""),
+            "shape": {"B": v["shape"][0], "N": v["shape"][1]},
+            "f64_max_abs_err": v["f64_err"], "f64_rel_err": v["f64_rel"],
+            "f64_shape": {"B": v["f64_shape"][0], "N": v["f64_shape"][1]},
+            "f64_ms": v["f64_ms"], "f64_plain_ms": v["f64_plain_ms"],
         })
     log(f"chip_smoke took {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

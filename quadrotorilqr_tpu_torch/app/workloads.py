@@ -5,7 +5,8 @@ the figure eight (BASELINE config 3), the MPC hover-regulation problem
 long-horizon problem (with its rotor limits and terminal weight) and the
 aggressive tumble (`quadrotorilqr_tpu/app/workloads.py`), and the
 wider-control families' waypoint problems: the SE(3) body wrench (`benchmarks/wrench_bench.py`) and
-the hexarotor (`__graft_entry__.py`).
+the hexarotor (`__graft_entry__.py`), and the constrained-flight problems
+(the keep-out crossing and the tumbling class beside a keep-out).
 
 The deterministic trajectories are built in float64 numpy, as the JAX
 package builds them, then cast. Random draws come from an explicit
@@ -378,6 +379,93 @@ def tumble_mpc_problem(
         options=ILQROptions(convergence_criteria=ConvergenceCriteria(1e-8, 1e-8, 8)),
         limits=None,
         stage_weights=None,
+    )
+
+
+class ConstrainedProblem(typing.NamedTuple):
+    """What `solver.auglag.solve_auglag_batch` takes: the params, the cost,
+    the initial trajectories ((batch, n, ...) leaves), the stage
+    constraint, dt and the solve settings."""
+
+    params: QuadrotorParams
+    cost: QuadraticTrackingCost
+    trajs: Trajectory
+    constraints: typing.Callable
+    dt_s: float
+    options: ILQROptions
+    al_options: typing.Any  # solver.auglag.ALOptions
+
+
+def keepout_problem(batch, n=30, dtype=torch.float32, device=None, seed=0,
+                    dt_s=0.1) -> ConstrainedProblem:
+    """Constrained flight past a keep-out sphere (the JAX package's
+    tests/test_auglag.py:41-75 and :296-310, README.md:252-265): from a
+    hover at the origin toward a waypoint at [2, 0, 0] whose straight path
+    crosses a sphere of radius 0.4 centred at [1, 0, 0]; a 1 kg vehicle with
+    unit inertia, 0.25 m arms and torque ratio 0.02; Q = diag(60 1_6, 1_6),
+    R = 0.5 I_4, hover-thrust control targets, dt 0.1; each scenario's start
+    translation offset by 0.15 N(0, I_3), drawn with numpy from `seed`.
+    Solved at tolerance 1e-6, 30 iterations, line search (0.5, 0.5, 20) and
+    the default augmented-Lagrangian options."""
+    from ..solver import constraints
+    from ..solver.auglag import ALOptions
+
+    as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    params = QuadrotorParams.create(
+        mass_kg=1.0, inertia=torch.eye(3, dtype=dtype), arm_length_m=0.25,
+        torque_to_thrust_ratio_m=0.02, g_mpss=9.81, device=device,
+    )
+    desired = Trajectory(
+        times=torch.arange(n, dtype=dtype, device=device) * dt_s,
+        states=State(
+            pose=se3.SE3(quat=as_t(np.tile([1.0, 0.0, 0.0, 0.0], (n, 1))),
+                         trans=as_t(np.tile([2.0, 0.0, 0.0], (n, 1)))),
+            vel=torch.zeros((n, 6), dtype=dtype, device=device),
+        ),
+        controls=torch.full((n, 4), 9.81 / 4.0, dtype=dtype, device=device),
+    )
+    cost = QuadraticTrackingCost(
+        Q=as_t(np.diag([60.0] * 6 + [1.0] * 6)), R=0.5 * torch.eye(4, dtype=dtype, device=device),
+        desired_states=desired.states, desired_controls=desired.controls,
+    )
+    start = 0.15 * np.random.default_rng(seed).normal(size=(batch, 3))
+    x0 = State(
+        pose=se3.SE3(quat=as_t(np.tile([1.0, 0.0, 0.0, 0.0], (batch, 1))), trans=as_t(start)),
+        vel=torch.zeros((batch, 6), dtype=dtype, device=device),
+    )
+    return ConstrainedProblem(
+        params, cost, initial_trajectory_from_state(x0, desired),
+        constraints.sphere_keepout([1.0, 0.0, 0.0], 0.4), dt_s,
+        ILQROptions(LineSearchParams(0.5, 0.5, 20), ConvergenceCriteria(1e-6, 1e-6, 30)),
+        ALOptions(),
+    )
+
+
+def tumble_keepout_problem(batch, n=10, dtype=torch.float64, device=None, seed=3, dt_s=0.12,
+                           scale=2.2) -> ConstrainedProblem:
+    """Robust constrained flight (the JAX package's
+    examples/08_robust_constrained.py:40-75, batched): `aggressive_tumble`'s
+    starts at scale 2.2 (pose Exp(scale N(0, I_6)), body twist
+    scale N(0, I_6), drawn from a torch generator seeded with `seed`), its
+    vehicle and weights (Q = diag(100 1_6, 1_6), R = 1e-3 I_4) and hover
+    targets at the origin, dt 0.12, beside a keep-out sphere of radius 0.15
+    centred at [0.3, 0, 0]; tolerance 1e-9, 25 iterations, line search
+    (0.5, 0.5, 20), 4 outer iterations. The exact inner loop's trip-0
+    rollout diverges or stalls on this class; `robust=True` rescues it."""
+    from ..solver import constraints
+    from ..solver.auglag import ALOptions
+
+    params, q, r, x0, desired = aggressive_tumble(
+        torch.Generator().manual_seed(seed), batch, n=n, dt_s=dt_s, scale=scale, dtype=dtype,
+        device=device,
+    )
+    cost = QuadraticTrackingCost(Q=q, R=r, desired_states=desired.states,
+                                 desired_controls=desired.controls)
+    return ConstrainedProblem(
+        params, cost, initial_trajectory_from_state(x0, desired),
+        constraints.sphere_keepout([0.3, 0.0, 0.0], 0.15), dt_s,
+        ILQROptions(LineSearchParams(0.5, 0.5, 20), ConvergenceCriteria(1e-9, 1e-9, 25)),
+        ALOptions(max_outer_iters=4),
     )
 
 

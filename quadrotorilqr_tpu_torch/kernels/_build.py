@@ -4,7 +4,8 @@ On first use, `load()` compiles every `kernels/csrc/*.cu` with nvcc for
 Hopper (`sm_90a`): the exact kernels' sources (FAMILY_SOURCES) once per
 model family (FAMILIES: `-DQILQR_FAMILY_T`, `-DQILQR_FAMILY`,
 csrc/quadrotor.cuh), the FDDP sources once per box and weights variant
-(VARIANTS), one nvcc process per object, all started together, and links
+(VARIANTS), `backward.cu`'s penalty variant once more on its own
+(PENALTY), one nvcc process per object, all started together, and links
 the objects into one shared library with a plain C interface, under
 `build/torch_kernels/` at the repository root. The library's name carries a
 hash of the sources and flags, so an edited source never reuses a stale
@@ -51,11 +52,18 @@ FAMILY_SOURCES = ("backward", "rollout", "solve", "stream")
 # a source compile in four nvcc processes side by side.
 VARIANTS = {"": (0, 0), "_box": (1, 0), "_weights": (0, 1), "_box_weights": (1, 1)}
 VARIANT_SOURCES = ("fddp", "stream_fddp")
-# the kernels built on csrc/team.cuh (every kernel, family and variant
-# object), each with a qilqr_<name>_team_info entry
+# The objects of a source's penalty variant (the augmented-Lagrangian
+# operands, csrc/backward.cu's kPen instantiations with and without the
+# weights, quadrotor only): the object's stem and C entries' name -> (source,
+# nvcc's define). An object of its own compiles beside the others, where
+# four more kernels in the quadrotor's backward object would lengthen the
+# longest of them.
+PENALTY = {"backward_pen": ("backward", "-DQILQR_PEN=1")}
+# the kernels built on csrc/team.cuh (every kernel, family, variant and
+# penalty object), each with a qilqr_<name>_team_info entry
 TEAM_KERNELS = tuple(f"{k}{fam}" for k in FAMILY_SOURCES for fam in FAMILIES) + tuple(
     f"{k}{var}" for k in VARIANT_SOURCES for var in VARIANTS
-)
+) + tuple(PENALTY)
 ENTRIES = tuple(f"qilqr_{name}" for name in TEAM_KERNELS)
 
 
@@ -88,6 +96,8 @@ def _objects():
         families = FAMILIES.items() if src.stem in FAMILY_SOURCES else (("", ""),)
         out += [(src, [f"-DQILQR_FAMILY_T={t}", f"-DQILQR_FAMILY={fam}"] if fam else [],
                  f"{src.stem}{fam}") for fam, t in families]
+        out += [(src, [define], stem) for stem, (base, define) in PENALTY.items()
+                if base == src.stem]
     return out
 
 
@@ -95,6 +105,7 @@ def source_digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(repr(sorted(FAMILIES.items())).encode())
     h.update(repr(sorted(VARIANTS.items())).encode())
+    h.update(repr(sorted(PENALTY.items())).encode())
     for path in _sources():
         h.update(path.name.encode())
         h.update(path.read_bytes())

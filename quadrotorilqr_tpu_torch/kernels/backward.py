@@ -19,7 +19,14 @@ With control limits (`limits=(lo, hi)`) or stage weights on the cost the
 kernel runs its box or weights variant (JAX `use_box`, `use_weights`): the
 box-QP gains of `solver/constrained.py` and the weighted cost terms; the
 plain version is then `constrained.backward_pass_box` or the weighted
-`ilqr.backward_pass`.
+`ilqr.backward_pass`. With the augmented-Lagrangian penalty
+(`penalty=(pcx, pcu, pcxx, pcuu, pcxu)`, JAX `use_penalty`) it runs the
+penalty variant, `kPen` (with or without the weights; the quadrotor's
+alone, and not with limits: those raise), built as an object of its own
+(`_build.PENALTY`) with the C entry `qilqr_backward_pen`; the host packs the
+five operands into one scenario-major (N, B, P_pen) buffer
+(`penalty_rows`, P_pen = 12 + u + 144 + u^2 + 12 u = 224 at u = 4), and the
+plain version is `ilqr.backward_pass(penalty=...)`.
 
 This module also holds the operand prep shared by every kernel
 (`_prep_cost`, `_problem_operands`; JAX `_prep_cost`/`CostBatched`,
@@ -271,12 +278,33 @@ def _active_lanes(active, batch, device):
     return active.to(torch.bool).contiguous()
 
 
-def backward_pass_reference(params, cost, traj, dt_s, quu_reg=0.0, limits=None, model=None):
-    """Plain PyTorch version: the batched `solver.ilqr.backward_pass`, or
-    with limits `solver.constrained.backward_pass_box` (the stage weights
-    ride the cost in both), on the params' model family (or `model`)."""
+def penalty_width(u_dim):
+    """P_pen, the values of one stage's penalty row: pcx 12 | pcu u |
+    pcxx 144 | pcuu u^2 | pcxu 12 u (224 at u = 4: whole 16-byte chunks)."""
+    return 12 + u_dim + 144 + u_dim * u_dim + 12 * u_dim
+
+
+def penalty_rows(penalty, dtype, device):
+    """The (N, B, P_pen) penalty buffer of `penalty=(pcx (B, N, 12), pcu
+    (B, N, u), pcxx (B, N, 12, 12), pcuu (B, N, u, u), pcxu (B, N, 12, u))`,
+    each matrix row-major: one copy, and none of the transposes when the
+    five are (B, N, ...) views of (N, B, ...) tensors."""
+    return torch.cat(
+        [_on(a, dtype, device).transpose(0, 1).flatten(2) for a in penalty], -1
+    ).contiguous()
+
+
+def backward_pass_reference(params, cost, traj, dt_s, quu_reg=0.0, limits=None, model=None,
+                            penalty=None):
+    """Plain PyTorch version: the batched `solver.ilqr.backward_pass` (with
+    the augmented-Lagrangian `penalty`), or with limits
+    `solver.constrained.backward_pass_box` (the stage weights ride the cost
+    in both), on the params' model family (or `model`)."""
     if limits is None:
-        return ilqr.backward_pass(params, cost, traj, dt_s, quu_reg, model=model)
+        return ilqr.backward_pass(params, cost, traj, dt_s, quu_reg, model=model,
+                                  penalty=penalty)
+    if penalty is not None:
+        raise NotImplementedError(ilqr.PENALTY_LIMITS_TODO)
     controls = traj.controls
     box = constrained.prep_limits(
         limits, controls.shape[0], controls.dtype, controls.device, controls.shape[-1]
@@ -285,7 +313,7 @@ def backward_pass_reference(params, cost, traj, dt_s, quu_reg=0.0, limits=None, 
 
 
 def backward_pass_fused(params, cost, traj, dt_s, quu_reg=0.0, active=None, limits=None,
-                        model=None):
+                        model=None, penalty=None):
     """Batched backward pass over (B, N, ...) trajectories.
 
     Params and cost leaves may be shared or carry a leading B; the model
@@ -293,35 +321,62 @@ def backward_pass_fused(params, cost, traj, dt_s, quu_reg=0.0, active=None, limi
     whose outputs the caller reads (None: all); the kernel skips the others
     and leaves their outputs unset. `limits=(lo, hi)` (scalars, (4,) or
     (B, 4) each) takes the box-QP gains; stage weights come with the cost.
+    `penalty=(pcx, pcu, pcxx, pcuu, pcxu)` ((B, N, ...) each) adds the
+    augmented-Lagrangian quadratics (the penalty variant; not with limits).
     Returns (ks (B, N, u), Ks (B, N, u, 12), QuTk (B,), kTQuuk (B,)); on the
     card ks and Ks are views of one (N, B, P) buffer (`gains_views`)."""
     controls = traj.controls
     device = controls.device
     if device.type == "cpu":
-        return backward_pass_reference(params, cost, traj, dt_s, quu_reg, limits, model)
+        return backward_pass_reference(params, cost, traj, dt_s, quu_reg, limits, model, penalty)
     _check_cuda(device)
     batch, n = controls.shape[0], controls.shape[1]
     ops = _problem_operands(
         params, cost, batch, n, dt_s, controls.dtype, device, limits, model
     )
-    return _launch(ops, traj, quu_reg, active)
+    pen = None if penalty is None else penalty_rows(penalty, controls.dtype, device)
+    return _launch(ops, traj, quu_reg, active, pen)
 
 
-def _launch(ops, traj, quu_reg, active):
+def _check_penalty(ops, pen, batch, n, dtype):
+    """The penalty variant's refusals and the (N, B, P_pen) buffer's shape,
+    dtype and alignment."""
+    if ops.lm.suffix:
+        raise NotImplementedError(ilqr.FAMILY_VARIANTS_TODO)
+    if "_box" in ops.key:
+        raise NotImplementedError(ilqr.PENALTY_LIMITS_TODO)
+    want = (n, batch, penalty_width(ops.lm.u_dim))
+    if (tuple(pen.shape) != want or pen.dtype != dtype or not pen.is_contiguous()
+            or pen.data_ptr() % 16):
+        raise ValueError(f"penalty rows of shape {tuple(pen.shape)} and {pen.dtype}: expected "
+                         f"contiguous {want} of {dtype}, 16-byte aligned")
+
+
+def _launch(ops, traj, quu_reg, active, pen=None):
     """The kernel on CUDA tensors, with the Problem operands `ops` packed
-    by `_problem_operands`."""
+    by `_problem_operands`; with `pen`, the (N, B, P_pen) penalty rows
+    (`penalty_rows`), the penalty variant (C entry `qilqr_backward_pen`,
+    counted under "_pen" or "_pen_weights")."""
     controls = traj.controls
     dtype, device = controls.dtype, controls.device
     batch, n = controls.shape[0], controls.shape[1]
     u = ops.lm.u_dim
+    entry, key = ops.entry("backward"), ops.key
+    if pen is not None:
+        _check_penalty(ops, pen, batch, n, dtype)
+        entry, key = "qilqr_backward_pen", "_pen" + ops.key
     gains = torch.empty((n, batch, ops.lm.gains_pitch()), dtype=dtype, device=device)
     red = torch.empty((2, batch), dtype=dtype, device=device)
     ops = ops.extend(
         [*_traj_lanes(traj, dtype, device, u), _active_lanes(active, batch, device), gains, red],
         reals=[quu_reg],
     )
-    _build.launch(ops.entry("backward"), dtype, ops.ptrs, ops.ints, ops.reals, device)
-    count_launch(backward_pass_fused, ops.key)
+    ptrs = ops.ptrs
+    if pen is not None:
+        ops.tensors.append(pen)
+        ptrs = ptrs + [pen.data_ptr()]
+    _build.launch(entry, dtype, ptrs, ops.ints, ops.reals, device)
+    count_launch(backward_pass_fused, key)
     return (*gains_views(gains, u), red[0], red[1])
 
 

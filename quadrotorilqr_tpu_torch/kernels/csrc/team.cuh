@@ -82,6 +82,18 @@ struct Slot {
 // projected-Newton iterations of the box-QP gain solve (box variant;
 // solver/constrained.py _PN_ITERS)
 constexpr int kPnIters = 4;
+// One stage's row of the augmented-Lagrangian penalty (penalty variant,
+// backward.py _backward_kernel's use_penalty operands): pcx (12) | pcu (u) |
+// pcxx (12 x 12) | pcuu (u x u) | pcxu (12 x u), the matrices row-major,
+// padded to whole 16-byte chunks: 224 values for the quadrotor. The rows
+// ride a ring of their own (PenRing), beside the slots, so that the slots
+// and TeamState of every kernel without the penalty stay as they are.
+template <class M>
+struct PenRow {
+  static constexpr int kX = 0, kU = 12, kXX = kU + M::kNu, kUU = kXX + 144,
+                       kXU = kUU + M::kNu * M::kNu,
+                       kPitch = (kXU + 12 * M::kNu + 3) / 4 * 4;
+};
 
 using Tile = cg::thread_block_tile<kTeamLanes>;
 
@@ -119,11 +131,19 @@ struct alignas(16) TeamState {
 // Shared-memory bytes of one block: the B-stride-0 operand groups once, then
 // each team's state and its B-stride-1 groups.
 template <typename T, class M>
-inline size_t team_block_bytes(int s_qr, int s_par) {
+__host__ __device__ inline size_t team_block_bytes(int s_qr, int s_par) {
   const size_t cc = sizeof(CostConsts<T, M>), pc = sizeof(ParConsts<T, M>);
   const size_t blk = (s_qr ? 0 : cc) + (s_par ? 0 : pc);
   const size_t team = sizeof(TeamState<T, M>) + (s_qr ? cc : 0) + (s_par ? pc : 0);
   return blk + kTeamsPerBlock * team;
+}
+
+// A block's shared bytes with the penalty variant's rows (kPen): each team's
+// ring of kRing penalty rows after the block of team_block_bytes.
+template <typename T, class M, bool kPen>
+inline size_t block_bytes(int s_qr, int s_par) {
+  const size_t pen = kPen ? kTeamsPerBlock * kRing * PenRow<M>::kPitch * sizeof(T) : 0;
+  return team_block_bytes<T, M>(s_qr, s_par) + pen;
 }
 
 // The FDDP sources (fddp.cu, stream_fddp.cu) are compiled once per box and
@@ -434,6 +454,28 @@ __device__ __forceinline__ void ring_fetch(const Team<T, M>& tm, const Problem<T
   }
 }
 
+// The penalty rows of a reverse sweep: the (N, B, P) rows in global memory
+// and the team's ring of kRing rows in shared memory (the slot of a stage's
+// row has the index of its ring slot).
+template <typename T>
+struct PenRing {
+  const T* rows = nullptr;
+  T* ring = nullptr;
+};
+
+// Starts the copies of stage n's penalty row into ring row j, 16-byte chunk
+// c by lane c % kTeamLanes.
+template <typename T, class M>
+__device__ __forceinline__ void ring_fetch_pen(const Team<T, M>& tm, const Problem<T>& P,
+                                               const PenRing<T>& pen, int n, int j) {
+  constexpr int kPitch = PenRow<M>::kPitch;
+  const T* row = pen.rows + (static_cast<size_t>(n) * P.B + tm.b) * kPitch;
+  T* dst = pen.ring + j * kPitch;
+  for (int c = tm.lane; c < kPitch / kChunk<T>; c += kTeamLanes) {
+    __pipeline_memcpy_async(dst + c * kChunk<T>, row + c * kChunk<T>, 16);
+  }
+}
+
 // Waits for every copy in flight and for every lane's earlier stores.
 __device__ __forceinline__ void ring_drain() {
   __pipeline_wait_prior(0);
@@ -443,20 +485,31 @@ __device__ __forceinline__ void ring_drain() {
 
 // A sweep over the N stages, forward or in reverse, through the ring: the
 // operands of the next kRing - 1 stages are in flight while body(n, slot)
-// computes stage n. A body that returns false ends the sweep there.
-template <typename T, class M, class Body>
+// computes stage n. A body that returns false ends the sweep there. With
+// kPen the stages' penalty rows ride `pen` alike: sweep step i's row is
+// pen.ring row i % kRing.
+template <bool kPen = false, typename T, class M, class Body>
 __device__ __forceinline__ void ring_sweep(const Team<T, M>& tm, const Problem<T>& P,
-                                           const RingSrc<T>& src, bool reverse, Body&& body) {
+                                           const RingSrc<T>& src, bool reverse, Body&& body,
+                                           const PenRing<T>& pen = PenRing<T>{}) {
   const int N = P.N;
   const Tile tile = team_tile();
   ring_drain();
   for (int j = 0; j < kRing - 1; ++j) {
-    if (j < N) ring_fetch(tm, P, src, reverse ? N - 1 - j : j, tm.s->ring[j]);
+    if (j < N) {
+      ring_fetch(tm, P, src, reverse ? N - 1 - j : j, tm.s->ring[j]);
+      if constexpr (kPen) ring_fetch_pen(tm, P, pen, reverse ? N - 1 - j : j, j);
+    }
     __pipeline_commit();
   }
   for (int i = 0; i < N; ++i) {
     const int ahead = i + kRing - 1;
-    if (ahead < N) ring_fetch(tm, P, src, reverse ? N - 1 - ahead : ahead, tm.s->ring[ahead % kRing]);
+    if (ahead < N) {
+      ring_fetch(tm, P, src, reverse ? N - 1 - ahead : ahead, tm.s->ring[ahead % kRing]);
+      if constexpr (kPen) {
+        ring_fetch_pen(tm, P, pen, reverse ? N - 1 - ahead : ahead, ahead % kRing);
+      }
+    }
     __pipeline_commit();
     __pipeline_wait_prior(kRing - 1);
     tile.sync();
@@ -962,13 +1015,30 @@ __device__ __forceinline__ void boxqp_gains(const T* q_uu, const T* q_u, const T
 // weight slot[kW] (c_x, c_xx, c_u and the 2R of Q_uu; not quu_reg); kBox
 // solves the gains as the box-QP (boxqp_gains) within var's bounds less the
 // stage's control, and updates the value with the general gains
-// (backward.py :550-571).
-template <typename T, bool kDdp, bool kBox = false, bool kW = false, class M>
+// (backward.py :550-571); kPen adds the augmented-Lagrangian penalty row
+// `pen` (PenRow) where backward.py :435-440, :522-523 adds it: pcx to c_x,
+// pcu to c_u, pcxx to c_xx, pcuu to the 2R base of Q_uu (never weighted),
+// pcxu to Q_xu before the gains and the value update read it, each add
+// rounded on its own.
+template <typename T, bool kDdp, bool kBox = false, bool kW = false, bool kPen = false,
+          class M>
 __device__ __forceinline__ void team_riccati_stage(const Team<T, M>& tm, const Problem<T>& Ps,
                                                    T quu_reg, const T* slot, T* qutk_inc,
                                                    T* ktquuk_inc,
-                                                   const VariantOps<T>& var = VariantOps<T>{}) {
+                                                   const VariantOps<T>& var = VariantOps<T>{},
+                                                   const T* pen = nullptr) {
   static_assert(!kBox || M::kNu == 4, "the box-QP gains are the quadrotor's (u = 4)");
+  static_assert(!kPen || (M::kNu == 4 && !kBox && !kDdp),
+                "the penalty variant is the quadrotor's exact stage without the box");
+  using PR = PenRow<M>;
+  // x plus penalty entry i with kPen, x itself otherwise
+  const auto pen_add = [&](T x, int i) -> T {
+    if constexpr (kPen) {
+      return x + pen[i];
+    } else {
+      return x;
+    }
+  };
   constexpr int NU = M::kNu, LO = M::kJuLo, NJ = 12 - M::kJuLo;
   TeamState<T, M>& S = *tm.s;
   const Tile tile = team_tile();
@@ -982,19 +1052,22 @@ __device__ __forceinline__ void team_riccati_stage(const Team<T, M>& tm, const P
 
   // --- Q-expansion ---
   const T* ju = tm.pc->ju + LO * NU;  // j_u rows LO:12
-  team_each<12>(lane, [&](int r) { S.q_x[r] = S.c_x[r] + jxt_entry<1>(S.J, S.v_x, r, 0); });
+  team_each<12>(lane, [&](int r) {
+    S.q_x[r] = pen_add(S.c_x[r], PR::kX + r) + jxt_entry<1>(S.J, S.v_x, r, 0);
+  });
   T q_u[NU];
 #pragma unroll
   for (int a = 0; a < NU; ++a) {
     T acc = ju[a] * S.v_x[LO];
 #pragma unroll
     for (int r = 1; r < NJ; ++r) acc += ju[r * NU + a] * S.v_x[LO + r];
-    q_u[a] = c_u[a] + acc;
+    q_u[a] = pen_add(c_u[a], PR::kU + a) + acc;
   }
   team_each_col(lane, [&](int r, int c) { S.X[r * 12 + c] = matjx_entry(S.J, S.vxx, r, c); });
   tile.sync();
   team_each_row(lane, [&](int r, int c) {
-    S.qxx[r * 12 + c] = S.qxx[r * 12 + c] + jxt_entry<12>(S.J, S.X, r, c);
+    S.qxx[r * 12 + c] = pen_add(S.qxx[r * 12 + c], PR::kXX + r * 12 + c) +
+                        jxt_entry<12>(S.J, S.X, r, c);
   });
   // V_xx[:, LO:12] ju_lo (12 x u)
   team_each<12 * NU>(lane, [&](int e) {
@@ -1014,11 +1087,14 @@ __device__ __forceinline__ void team_riccati_stage(const Team<T, M>& tm, const P
       T acc = ju[a] * S.vxx_ju[LO * NU + c];
 #pragma unroll
       for (int r = 1; r < NJ; ++r) acc += ju[r * NU + a] * S.vxx_ju[(LO + r) * NU + c];
-      q_uu[a * NU + c] = (weigh<kW>(w, T(2) * tm.cc->R[a * NU + c]) + acc) +
-                         quu_reg * ((a == c) ? T(1) : T(0));
+      q_uu[a * NU + c] =
+          (pen_add(weigh<kW>(w, T(2) * tm.cc->R[a * NU + c]), PR::kUU + a * NU + c) + acc) +
+          quu_reg * ((a == c) ? T(1) : T(0));
     }
   }
-  team_each<12 * NU>(lane, [&](int e) { S.q_xu[e] = jxt_entry<NU>(S.J, S.vxx_ju, e / NU, e % NU); });
+  team_each<12 * NU>(lane, [&](int e) {
+    S.q_xu[e] = pen_add(jxt_entry<NU>(S.J, S.vxx_ju, e / NU, e % NU), PR::kXU + e);
+  });
 #pragma unroll
   for (int i = 0; i < NU * NU; ++i) S.quu[i] = q_uu[i];
   tile.sync();
@@ -1217,13 +1293,13 @@ inline int with_variant(const VariantOps<T>& v, Launch&& launch) {
 // scenario, teams per block, threads per block, shared bytes per block, ring
 // slots, shared bytes of one team's state) for float64 (f64 != 0) or float32
 // and the operand groups' B-strides.
-template <class M>
+template <class M, bool kPen = false>
 inline int team_info(int f64, int s_qr, int s_par, long long* out) {
   out[0] = kTeamLanes;
   out[1] = kTeamsPerBlock;
   out[2] = kTeamThreads;
-  out[3] = static_cast<long long>(f64 ? team_block_bytes<double, M>(s_qr, s_par)
-                                      : team_block_bytes<float, M>(s_qr, s_par));
+  out[3] = static_cast<long long>(f64 ? block_bytes<double, M, kPen>(s_qr, s_par)
+                                      : block_bytes<float, M, kPen>(s_qr, s_par));
   out[4] = kRing;
   out[5] = static_cast<long long>(f64 ? sizeof(TeamState<double, M>)
                                       : sizeof(TeamState<float, M>));

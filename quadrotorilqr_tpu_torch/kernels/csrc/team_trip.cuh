@@ -37,29 +37,33 @@ inline namespace QILQR_TEAM_NS(QILQR_TEAM_LANES) {
 // and k.Quu.k. The stages come from `src`; with `merge` each is also written
 // into `live` (src is then the last trip's candidate). kBox and kW run the
 // Riccati stage's box and weights variants on var's operands (the weights
-// ride the ring). Inlined into every kernel, with or without the variants:
-// behind a never-inlined call the compiler loses that the team's pointers
-// address shared memory, and a variant's sweep took up to twice as long
-// (PERF.md section 6).
-template <typename T, bool kBox = false, bool kW = false, class M>
+// ride the ring). kPen adds each stage's penalty row, fetched through `pen`
+// (the per-pass kernel's penalty variant). Inlined into every kernel, with
+// or without the variants: behind a never-inlined call the compiler loses
+// that the team's pointers address shared memory, and a variant's sweep
+// took up to twice as long (PERF.md section 6).
+template <typename T, bool kBox = false, bool kW = false, bool kPen = false, class M>
 __device__ __forceinline__ void team_backward(const Team<T, M>& tm, const Problem<T>& P,
                                               const Problem<T>& Ps, T quu_reg, const Traj<T>& src,
                                               bool merge, const Traj<T>& live, T* gains, T* qutk,
                                               T* ktquuk,
-                                              const VariantOps<T>& var = VariantOps<T>{}) {
+                                              const VariantOps<T>& var = VariantOps<T>{},
+                                              const PenRing<T>& pen = PenRing<T>{}) {
   team_zero_value(tm);
   T sum_qutk = T(0), sum_ktquuk = T(0);
   const RingSrc<T> ring{src, nullptr, nullptr, kW ? var.w : nullptr, var.s_w};
-  ring_sweep(tm, P, ring, true, [&](int n, const T* slot) {
+  ring_sweep<kPen>(tm, P, ring, true, [&](int n, const T* slot) {
     if (merge) team_merge_stage(tm, live, P.B, n, slot);
     T a, c;
-    team_riccati_stage<T, false, kBox, kW>(tm, Ps, quu_reg, slot, &a, &c, var);
+    // this stage's penalty row: ring row (sweep step N - 1 - n) % kRing
+    const T* pen_row = kPen ? pen.ring + ((P.N - 1 - n) % kRing) * PenRow<M>::kPitch : nullptr;
+    team_riccati_stage<T, false, kBox, kW, kPen>(tm, Ps, quu_reg, slot, &a, &c, var, pen_row);
     sum_qutk = sum_qutk + a;
     sum_ktquuk = sum_ktquuk + c;
     team_put_row(tm, tm.s->gains, scratch_row(gains, P.B, n, tm.b, M::kGainsPitch),
                  M::kGainsPitch);
     return true;
-  });
+  }, pen);
   *qutk = sum_qutk;
   *ktquuk = sum_ktquuk;
 }

@@ -114,10 +114,11 @@ rollout_cost_fused.launches = collections.Counter()
 
 
 def per_pass_kernels(params, cost, traj, dt_s, quu_reg, limits=None, model=None):
-    """(backward(t, active), rollout(t, ks, Ks, alpha, active), traj) for
-    `solver.ilqr.solve_loop` on the per-pass kernels of the params' model
-    family (or `model`; the box and weights variants with limits and stage
-    weights).
+    """(backward(t, active[, penalty]), rollout(t, ks, Ks, alpha, active),
+    traj) for `solver.ilqr.solve_loop` on the per-pass kernels of the
+    params' model family (or `model`; the box and weights variants with
+    limits and stage weights; with `penalty=(pcx, pcu, pcxx, pcuu, pcxu)`
+    the backward pass's penalty variant, `solver.auglag`).
 
     On a CUDA batch the Problem operands are packed once for every launch of
     the solve, and `traj` comes back with its leaves as views of the
@@ -129,7 +130,9 @@ def per_pass_kernels(params, cost, traj, dt_s, quu_reg, limits=None, model=None)
     device = controls.device
     if device.type == "cpu":
         return (
-            lambda t, act: backward_pass_fused(params, cost, t, dt_s, quu_reg, act, limits, model),
+            lambda t, act, penalty=None: backward_pass_fused(
+                params, cost, t, dt_s, quu_reg, act, limits, model, penalty
+            ),
             lambda t, ks, big_ks, alpha, act: rollout_cost_fused(
                 params, cost, t, ks, big_ks, alpha, dt_s, act, limits, model
             ),
@@ -141,8 +144,9 @@ def per_pass_kernels(params, cost, traj, dt_s, quu_reg, limits=None, model=None)
     ops = _problem_operands(params, cost, batch, n, dt_s, dtype, device, limits, model)
     pitch = ops.lm.gains_pitch()
 
-    def backward(t, act):
-        return kb._launch(ops, t, quu_reg, act)
+    def backward(t, act, penalty=None):
+        pen = None if penalty is None else kb.penalty_rows(penalty, dtype, device)
+        return kb._launch(ops, t, quu_reg, act, pen)
 
     def rollout(t, ks, big_ks, alpha, act):
         return _launch(ops, t, gains_buffer(ks, big_ks, dtype, device, pitch), alpha, act)

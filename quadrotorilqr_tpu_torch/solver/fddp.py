@@ -10,6 +10,14 @@ of shooting nodes with defects d_k = f(x_k, u_k) (-) x_{k+1}:
     alpha-fraction of every gap;
   * the line search is a Goldstein band on the exact quadratic model
     dJ(alpha) = alpha L1 + alpha^2 L2 of the gap-contracting step;
+  * `penalty_fns=(value_fn, quads_fn)` solves an augmented problem (the
+    robust inner loop of `solver.auglag`, JAX `solver/fddp.py:316-345`,
+    `:415-432`, `:540-640`): `value_fn(states, controls, args)` -> (B, N)
+    per-stage extra cost, folded into the seed cost and every candidate's
+    cost stage by stage; `quads_fn(traj, args)` -> (pcx, pcu, pcxx, pcuu,
+    pcxu) per-stage quadratics at the trip's iterate, added to the cost
+    differentials with the cross term pcxu carried into the gap-transported
+    stage's Q_xu and into the exact quadratic model (L2 += p'pcxu w);
   * mu falls on a long accepted step, rises on a rejected or crawling one,
     and a rejection at reg_max is terminal (LINE_SEARCH_FAILED);
   * CONVERGED needs an accepted step from an iterate whose gaps are already
@@ -30,8 +38,7 @@ against `max_iters`. Lanes freeze once done. It takes optional resume rows
 summed stage by stage, `c + w_n (dx'Q dx + du'R du)` (w_n = 1 without
 weights), as the kernel sums them.
 
-Not ported (each raises, naming its ROADMAP item): the augmented-Lagrangian
-penalty operands, other model families.
+Not ported (it raises, naming its ROADMAP item): the other model families.
 """
 
 from __future__ import annotations
@@ -54,18 +61,13 @@ from .ilqr import (
     SolveResult,
     Trajectory,
     _where_lanes,
+    add_penalty,
     is_converged,
     quadratize,
     resolve_model,
     riccati_gains_update,
 )
 from .options import ILQROptions
-
-PENALTY_TODO = (
-    "penalty_fns (augmented-Lagrangian inner loop) are not ported yet "
-    "(ROADMAP Queue 1 item 12, solver/auglag.py)"
-)
-
 
 @dataclass(frozen=True)
 class FDDPOptions:
@@ -156,13 +158,11 @@ def _check_quadrotor(params, model):
         raise NotImplementedError(FAMILY_FDDP_TODO)
 
 
-def check_supported(model=None, penalty_fns=None, params=None):
+def check_supported(model=None, params=None):
     """Refuse every option outside the ported slice, naming its ROADMAP item
     (a model family other than the quadrotor's: `model=`, or the params
     type when `params` is given)."""
     _check_quadrotor(params, model)
-    if penalty_fns is not None:
-        raise NotImplementedError(PENALTY_TODO)
 
 
 def prep_box(limits, controls):
@@ -190,15 +190,20 @@ def _stage_derivs(params, cost, traj, dt_s, ddp):
     return (j_x, j_u, c_x, c_u, c_xx, c_uu, curv)
 
 
-def _backward_from_derivs(derivs, d, quu_reg, controls=None, box=None):
+def _backward_from_derivs(derivs, d, quu_reg, controls=None, box=None, penalty=None):
     """Gap-transported Riccati recursion and the exact quadratic model of the
     gap-contracting rollout, from a derivative bundle over (B, N, ...).
     `quu_reg` is a float or a (B,) tensor. With `box` (`prep_box`'s bounds)
     each stage's gains are the box-QP's within the bounds less the stage's
     control (`controls`, (B, N, 4)), with the general-gain value update.
+    `penalty=(pcx, pcu, pcxx, pcuu, pcxu)` ((B, N, ...) each) augments the
+    cost differentials, Q_xu and the model (JAX `solver/fddp.py:330-345`,
+    `:415-432`).
     Returns (ks (B, N, 4), Ks (B, N, 4, 12), L1 (B,), L2 (B,)),
     dJ(alpha) = alpha L1 + alpha^2 L2."""
     j_x, j_u, c_x, c_u, c_xx, c_uu = derivs[:6]
+    if penalty is not None:
+        c_x, c_u, c_xx, c_uu = add_penalty(c_x, c_u, c_xx, c_uu, penalty)
     batch = c_x.shape[:-2]
     n_stages = c_x.shape[-2]
     kw = dict(dtype=c_x.dtype, device=c_x.device)
@@ -224,6 +229,8 @@ def _backward_from_derivs(derivs, d, quu_reg, controls=None, box=None):
             )
         q_uu = c_uu[..., n, :, :] + jut @ vxx_ju + reg
         q_xu = jxt @ vxx_ju
+        if penalty is not None:
+            q_xu = q_xu + penalty[4][..., n, :, :]
         if box is None:
             k, big_k, v_x, v_xx, _, _ = riccati_gains_update(q_x, q_u, q_xx, q_uu, q_xu)
         else:
@@ -245,7 +252,10 @@ def _backward_from_derivs(derivs, d, quu_reg, controls=None, box=None):
         cxx_p = (c_xx[..., n, :, :] @ p[..., None])[..., 0]
         cuu_w = (c_uu[..., n, :, :] @ w[..., None])[..., 0]
         l1 = l1 + (c_x[..., n, :] * p).sum(-1) + (c_u[..., n, :] * w).sum(-1)
-        l2 = l2 + 0.5 * ((p * cxx_p).sum(-1) + (w * cuu_w).sum(-1))
+        l2_n = 0.5 * ((p * cxx_p).sum(-1) + (w * cuu_w).sum(-1))
+        if penalty is not None:
+            l2_n = l2_n + (p * (penalty[4][..., n, :, :] @ w[..., None])[..., 0]).sum(-1)
+        l2 = l2 + l2_n
         p = (
             (j_x[..., n, :, :] @ p[..., None])[..., 0]
             + (j_u[..., n, :, :] @ w[..., None])[..., 0]
@@ -258,7 +268,7 @@ def backward_pass_fddp(params, cost, traj, dt_s, d, quu_reg, model=None, ddp=Fal
     """Gap-transported Riccati recursion plus the exact quadratic line-search
     model over (B, N, ...) trajectories; `limits=(lo, hi)` swaps each
     stage's gain solve for the box-QP. Returns (ks, Ks, L1, L2)."""
-    check_supported(model, params=params)
+    check_supported(model, params)
     return _backward_from_derivs(
         _stage_derivs(params, cost, traj, dt_s, ddp), d, quu_reg, traj.controls,
         prep_box(limits, traj.controls),
@@ -295,11 +305,12 @@ def rollout_gap(params, traj: Trajectory, d, ks, big_ks, alpha, dt_s, model=None
 
 
 def _line_search(
-    params, cost, traj, d, current, ks, big_ks, l1, l2, active, options, fo, dt_s, keep=True,
-    limits=None,
+    params, stage_costs, traj, d, current, ks, big_ks, l1, l2, active, options, fo, dt_s,
+    keep=True, limits=None,
 ):
-    """Goldstein backtracking for every pending lane at once. Probe 0 sums
-    its cost raw; later probes fold with the frozen-saturating add. Returns
+    """Goldstein backtracking for every pending lane at once, a candidate's
+    per-stage costs (B, N) from `stage_costs(cand)`. Probe 0 sums its cost
+    raw; later probes fold with the frozen-saturating add. Returns
     (candidate, its cost, accepted (B,), the last probe's alpha (B,), stages
     the probes ran (B,) int: the kernel stops a probe at its lane's freeze).
     With keep=False the probes are cost-only and the candidate is None."""
@@ -314,7 +325,7 @@ def _line_search(
         if not bool(pending.any()):
             break
         cand = rollout_gap(params, traj, d, ks, big_ks, alpha, dt_s, limits=limits)
-        scs = qc.per_stage_costs(cost, cand.states, cand.controls)
+        scs = stage_costs(cand)
         dj = alpha * l1 + alpha * alpha * l2
         gdj = torch.where(dj <= 0, dj.new_tensor(fo.goldstein_frac), dj.new_tensor(fo.goldstein_ub)) * dj
         cap = _probe_cap(current + gdj, current)
@@ -355,7 +366,7 @@ def _mu_schedule(mu, accepted, alpha, fo):
 def fddp_loop(
     params, cost, traj: Trajectory, dt_s, options: ILQROptions, fddp_options: FDDPOptions,
     ddp=False, initial_mu=None, initial_status=None, initial_iters=None, streamed=False,
-    limits=None,
+    limits=None, penalty_fns=None, penalty_args=None,
 ):
     """The FDDP loop over a (B, N, ...) batch in flattened-trip form.
 
@@ -374,6 +385,9 @@ def fddp_loop(
 
     `limits=(lo, hi)` (scalars, (4,) or (B, 4) each) runs the box-QP stage
     and clamped rollouts; the cost's stage weights go with the cost.
+    `penalty_fns=(value_fn, quads_fn)` with `penalty_args` solves the
+    augmented problem of the module docstring; the cost returned is then
+    the augmented one.
 
     The loop dispatches thousands of small ops per trip, so it runs in
     inference mode (about a third less dispatch time) and hands back
@@ -381,14 +395,15 @@ def fddp_loop(
     with torch.inference_mode():
         out = _fddp_loop(
             params, cost, traj, dt_s, options, fddp_options, ddp,
-            initial_mu, initial_status, initial_iters, streamed, limits,
+            initial_mu, initial_status, initial_iters, streamed, limits, penalty_fns,
+            penalty_args,
         )
     return tree_map(lambda a: a.clone(), out[0]), *(a.clone() for a in out[1:])
 
 
 def _fddp_loop(
     params, cost, traj, dt_s, options, fddp_options, ddp, initial_mu, initial_status,
-    initial_iters, streamed, limits,
+    initial_iters, streamed, limits, penalty_fns, penalty_args,
 ):
     fo = fddp_options
     max_iters = int(options.convergence_criteria.max_iters)
@@ -407,7 +422,14 @@ def _fddp_loop(
     done = status != 0
     gap_tol = resolve_gap_tol(fo, dtype)
     box = prep_box(limits, controls)
-    current = sequential_cost(qc.per_stage_costs(cost, traj.states, traj.controls))
+
+    def stage_costs(t):
+        scs = qc.per_stage_costs(cost, t.states, t.controls)
+        if penalty_fns is None:
+            return scs
+        return scs + penalty_fns[0](t.states, t.controls, penalty_args)
+
+    current = sequential_cost(stage_costs(traj))
     stages = torch.zeros(batch, dtype=torch.int64, device=device)
     defect_trips = torch.zeros(batch, dtype=torch.int32, device=device)
     applies = torch.zeros(batch, dtype=torch.int32, device=device)
@@ -419,11 +441,12 @@ def _fddp_loop(
         d = defects(params, traj, dt_s)
         gap = d.abs().amax((-2, -1))
         derivs = _stage_derivs(params, cost, traj, dt_s, ddp)
+        pen = None if penalty_fns is None else penalty_fns[1](traj, penalty_args)
         ks, big_ks, l1, l2 = _backward_from_derivs(
-            derivs, d, options.quu_reg + mu, traj.controls, box
+            derivs, d, options.quu_reg + mu, traj.controls, box, pen
         )
         cand, cand_cost, accepted, alpha, ran = _line_search(
-            params, cost, traj, d, current, ks, big_ks, l1, l2, active, options, fo, dt_s,
+            params, stage_costs, traj, d, current, ks, big_ks, l1, l2, active, options, fo, dt_s,
             keep=not streamed, limits=box,
         )
         stages = stages + ran
@@ -470,13 +493,17 @@ def solve_fddp(
     absorbing the indefiniteness it can bring. `limits=(lo, hi)` ((4,)
     broadcastable bounds, or (B, 4) per scenario) runs the box-QP stage and
     clamped gap rollouts; the cost's stage weights ((N,) or (B, N)) weight
-    every stage. `options.populate_debug` is ignored: FDDP has no debug
-    record (debug is None)."""
-    check_supported(model, penalty_fns, params)
+    every stage. `penalty_fns=(value_fn, quads_fn)` with `penalty_args`
+    solves the augmented problem of the module docstring (batched: (B, N)
+    values, (B, N, ...) quadratics; the cost returned is the augmented one).
+    `options.populate_debug` is ignored: FDDP has no debug record (debug is
+    None)."""
+    check_supported(model, params)
     single = initial_traj.controls.ndim == 2
     traj = tree_map(lambda a: a[None], initial_traj) if single else initial_traj
     traj, cost_v, iters, status, *_ = fddp_loop(
-        params, cost, traj, dt_s, options, fddp_options, ddp=ddp, limits=limits
+        params, cost, traj, dt_s, options, fddp_options, ddp=ddp, limits=limits,
+        penalty_fns=penalty_fns, penalty_args=penalty_args,
     )
     result = SolveResult(trajectory=traj, cost=cost_v, iterations=iters, status=status)
     return tree_map(lambda a: a[0], result) if single else result

@@ -49,8 +49,13 @@ FAMILY_FDDP_TODO = (
     "(ROADMAP Queue 1 item 11b)"
 )
 FAMILY_VARIANTS_TODO = (
-    "control limits, stage weights and the debug record with a wrench or multirotor model "
-    "are not ported to the CUDA kernels yet (ROADMAP Queue 1 item 11c)"
+    "control limits, stage weights, the debug record and the augmented-Lagrangian penalty "
+    "with a wrench or multirotor model are not ported to the CUDA kernels yet "
+    "(ROADMAP Queue 1 item 11c)"
+)
+PENALTY_LIMITS_TODO = (
+    "the augmented-Lagrangian penalty together with control limits is not ported to "
+    "backward.cu yet (ROADMAP Queue 1 item 11c)"
 )
 FAMILY_ROTORS_TODO = (
     "the CUDA kernels take multirotors of 4, 6 or 8 rotors; other rotor counts are not "
@@ -169,14 +174,29 @@ def riccati_gains_update(q_x, q_u, q_xx, q_uu, q_xu):
     return k, big_k, v_x_new, v_xx_new, (q_u * k).sum(-1), (k * quu_k).sum(-1)
 
 
+def add_penalty(c_x, c_u, c_xx, c_uu, penalty):
+    """The cost differentials with the augmented-Lagrangian penalty's
+    quadratics `penalty=(pcx, pcu, pcxx, pcuu, pcxu)` added, in the kernels'
+    order (JAX `kernels/backward.py:435-440`): c_x + pcx, c_u + pcu,
+    c_xx + pcxx, c_uu + pcuu. The penalty is never weighted by a stage
+    weight; its cross term pcxu goes into Q_xu (the caller's)."""
+    pcx, pcu, pcxx, pcuu, _ = penalty
+    return c_x + pcx, c_u + pcu, c_xx + pcxx, c_uu + pcuu
+
+
 def backward_pass(params, cost, traj: Trajectory, dt_s, quu_reg=0.0, gains_update=None,
-                  model=None):
+                  model=None, penalty=None):
     """Riccati recursion over (..., N, ...) trajectories. `gains_update(q_x,
     q_u, q_xx, q_uu, q_xu, n)` replaces `riccati_gains_update` at stage n
-    (the box-QP stage of solver/constrained.py).
+    (the box-QP stage of solver/constrained.py). `penalty=(pcx, pcu, pcxx,
+    pcuu, pcxu)` ((..., N, ...) each: the augmented-Lagrangian quadratics of
+    `solver.auglag`) adds to the cost differentials and puts the cross term
+    into Q_xu = J_x'V_xx J_u + pcxu (JAX `solver/auglag.py:140-195`).
 
     Returns (ks (..., N, u), Ks (..., N, u, 12), QuTk (...), kTQuuk (...))."""
     j_x, j_u, c_x, c_u, c_xx, c_uu = quadratize(params, cost, traj, dt_s, model)
+    if penalty is not None:
+        c_x, c_u, c_xx, c_uu = add_penalty(c_x, c_u, c_xx, c_uu, penalty)
     batch = traj.controls.shape[:-2]
     kw = dict(dtype=traj.controls.dtype, device=traj.controls.device)
     v_x = torch.zeros(batch + (12,), **kw)
@@ -199,6 +219,8 @@ def backward_pass(params, cost, traj: Trajectory, dt_s, quu_reg=0.0, gains_updat
         if quu_reg != 0.0:
             q_uu = q_uu + quu_reg * eye_u
         q_xu = jxt @ vxx_ju
+        if penalty is not None:
+            q_xu = q_xu + penalty[4][..., n, :, :]
         if gains_update is None:
             out = riccati_gains_update(q_x, q_u, q_xx, q_uu, q_xu)
         else:
@@ -379,7 +401,10 @@ def _debug_buffers(initial_traj, options, history):
     return IterDebug(snapshots, costs, valid)
 
 
-def _solve_loop(backward, rollout, traj_cost, initial_traj, options, apply, debug):
+def _solve_loop(backward, rollout, traj_cost, initial_traj, options, apply, debug, frozen=None):
+    """`solve_loop`'s body; `frozen` (B,) bool marks lanes that never
+    update (the augmented-Lagrangian outer loop's finished lanes: they keep
+    their trajectory, 0 iterations and STATUS_MAX_ITERS)."""
     ls = options.line_search_params
     max_iters = int(options.convergence_criteria.max_iters)
     controls = initial_traj.controls
@@ -390,6 +415,8 @@ def _solve_loop(backward, rollout, traj_cost, initial_traj, options, apply, debu
     # when the loop never runs
     new_cost = traj_cost(traj) if max_iters == 0 else torch.zeros(batch, **kw)
     done = torch.zeros(batch, dtype=torch.bool, device=controls.device)
+    if frozen is not None:
+        done = done | frozen
     status = torch.full((batch,), STATUS_MAX_ITERS, dtype=torch.int32, device=controls.device)
     iterations = torch.zeros(batch, dtype=torch.int32, device=controls.device)
 

@@ -30,7 +30,11 @@ quadrotor, and the requests their kernels refuse. The box and weights
 variants of fddp.cu, stream_fddp.cu (with and without exact DDP) and
 stream.cu at float64, B=300, N=12 against their plain versions (exact DDP
 at the DDP engines' bar), the streamed kernels bit-equal to their
-whole-solve twins, also at 256 stages for stream.cu.
+whole-solve twins, also at 256 stages for stream.cu. Constrained flight:
+backward.cu's augmented-Lagrangian penalty variant (with and without the
+weights) against the plain penalty pass in float64 lane for lane,
+`solve_auglag_batch` on the kernels against its plain route, and the
+penalty requests the kernel refuses.
 
 This file imports no JAX, so the card machine runs it without the JAX
 package's conftest:
@@ -46,6 +50,7 @@ import pytest
 import torch
 
 from quadrotorilqr_tpu_torch import convert
+from quadrotorilqr_tpu_torch.app import workloads
 from quadrotorilqr_tpu_torch.kernels import backward as kb
 from quadrotorilqr_tpu_torch.kernels import fddp as kf
 from quadrotorilqr_tpu_torch.kernels import rollout as kr
@@ -53,8 +58,9 @@ from quadrotorilqr_tpu_torch.kernels import solve as ks
 from quadrotorilqr_tpu_torch.kernels import stream as kst
 from quadrotorilqr_tpu_torch.kernels import stream_fddp as ksf
 from quadrotorilqr_tpu_torch.kernels import _build
+from quadrotorilqr_tpu_torch.models import quadrotor
 from quadrotorilqr_tpu_torch.models.multirotor import MultirotorParams
-from quadrotorilqr_tpu_torch.solver import constrained
+from quadrotorilqr_tpu_torch.solver import auglag, constrained, constraints
 from quadrotorilqr_tpu_torch.solver.batched import (
     _with_max_iters,
     solve_batch_fddp,
@@ -1183,3 +1189,98 @@ def test_cuda_family_refusals(card, request_):
     }
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
         calls[request_]()
+
+
+# ---- the augmented-Lagrangian penalty: backward.cu's kPen, constrained flight ----
+
+
+def _mixed(x, u, k):
+    """A constraint coupling state and control, so that the penalty's cross
+    term pcxu is nonzero."""
+    return x.vel[..., 0:1] * u[..., 0:1] - 0.5
+
+
+def penalty_case(traj, seed=11):
+    """The penalty quadratics at traj of a keep-out, a speed limit, a tilt
+    cone and `_mixed`, half the multipliers drawn U(0, 3), mu 1e3."""
+    con = constraints.combine(constraints.sphere_keepout([0.3, 0.0, 0.0], 0.5),
+                              constraints.speed_limit(0.5), constraints.tilt_limit(0.2), _mixed)
+    g, gx, gu = auglag.constraint_diffs(con, quadrotor, traj.states, traj.controls)
+    rng = np.random.default_rng(seed)
+    lam = rng.uniform(0.0, 3.0, size=g.shape) * (rng.uniform(size=g.shape) < 0.5)
+    lam = torch.as_tensor(lam, dtype=g.dtype, device=g.device)
+    mu = torch.full((g.shape[0],), 1e3, dtype=g.dtype, device=g.device)
+    return auglag.penalty_quads(g, gx, gu, lam, mu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", [False, True], ids=["pen", "pen_weights"])
+def test_cuda_backward_penalty_matches_plain(card, weights):
+    """backward.cu's penalty variant (with and without stage weights)
+    against the plain penalty backward pass, lane for lane in float64 at
+    B=300, N=40: k, K to 1e-12 of max |ref|, QuTk and kTQuuk to rtol 1e-12;
+    zero penalty rows bit-equal to the launch without; counted under its
+    key."""
+    params, cost, traj = problem("cuda", n=40)
+    if weights:
+        w = np.random.default_rng(12).uniform(0.5, 2.0, size=(B, 40))
+        cost = dataclasses.replace(cost, stage_weights=torch.as_tensor(w, device="cuda"))
+    pen = penalty_case(traj)
+    assert bool((pen[4] != 0).any())
+    kb.backward_pass_fused.launches.clear()
+    got = kb.backward_pass_fused(params, cost, traj, DT, 1e-6, penalty=pen)
+    ref = kb.backward_pass_reference(params, cost, traj, DT, 1e-6, penalty=pen)
+    assert dict(kb.backward_pass_fused.launches) == {"_pen_weights" if weights else "_pen": 1}
+    scale = max(float(ref[0].abs().max()), float(ref[1].abs().max()))
+    for g, r in zip(got[:2], ref[:2]):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-12 * scale)
+    for g, r in zip(got[2:], ref[2:]):
+        torch.testing.assert_close(g, r, rtol=1e-12, atol=0)
+    zero = tuple(torch.zeros_like(a) for a in pen)
+    for a, b in zip(kb.backward_pass_fused(params, cost, traj, DT, 1e-6, penalty=zero),
+                    kb.backward_pass_fused(params, cost, traj, DT, 1e-6)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_solve_auglag_batch_matches_plain_route(card):
+    """`solve_auglag_batch` on the kernels (backward.cu's penalty variant,
+    rollout.cu) against its plain route (`solve_auglag`, the plain pieces
+    on the card) on the keep-out crossing, float64: status, outer and inner
+    iterations equal, cost rtol 1e-8, controls atol 1e-7; the sphere binds
+    on some lanes."""
+    p = workloads.keepout_problem(64, 30, torch.float64, "cuda", seed=4)
+    args = (p.params, p.cost, p.constraints, p.trajs, p.dt_s, p.options, p.al_options)
+    kb.backward_pass_fused.launches.clear()
+    got = auglag.solve_auglag_batch(*args)
+    assert kb.backward_pass_fused.launches["_pen"] > 0
+    ref = auglag.solve_auglag(*args)
+    assert torch.equal(got.status, ref.status)
+    assert torch.equal(got.outer_iterations, ref.outer_iterations)
+    assert torch.equal(got.iterations, ref.iterations)
+    torch.testing.assert_close(got.cost, ref.cost, rtol=1e-8, atol=0)
+    torch.testing.assert_close(got.trajectory.controls, ref.trajectory.controls, rtol=0,
+                               atol=1e-7)
+    assert bool((ref.multipliers.flatten(1).amax(1) > 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("request_", ["limits", "wrench", "rotor6"])
+def test_cuda_penalty_refusals(card, request_):
+    """backward.cu's penalty variant is the quadrotor's without limits: with
+    limits, and with the wrench or a multirotor, the launch raises naming
+    ROADMAP item 11c, never the plain pass."""
+    if request_ == "limits":
+        params, cost, traj = problem("cuda", batch=4, n=5)
+        limits = (0.0, 5.0)
+    else:
+        params, cost, traj = family_problem("cuda", "_" + request_, batch=4, n=5)
+        limits = None
+    u = traj.controls.shape[-1]
+    pen = (torch.zeros(4, 5, 12, dtype=torch.float64, device="cuda"),
+           torch.zeros(4, 5, u, dtype=torch.float64, device="cuda"),
+           torch.zeros(4, 5, 12, 12, dtype=torch.float64, device="cuda"),
+           torch.zeros(4, 5, u, u, dtype=torch.float64, device="cuda"),
+           torch.zeros(4, 5, 12, u, dtype=torch.float64, device="cuda"))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11c"):
+        kb.backward_pass_fused(params, cost, traj, DT, limits=limits, penalty=pen)

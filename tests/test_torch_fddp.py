@@ -45,6 +45,7 @@ from quadrotorilqr_tpu_torch.kernels import fddp as p_kfddp
 from quadrotorilqr_tpu_torch.kernels import stream_fddp as p_kstream
 from quadrotorilqr_tpu_torch.lie import se3 as p_se3
 from quadrotorilqr_tpu_torch.lie import so3 as p_so3
+from quadrotorilqr_tpu_torch.models import se3_wrench as p_wm
 from quadrotorilqr_tpu_torch.solver import batched as p_batched
 from quadrotorilqr_tpu_torch.solver import ddp as p_ddp
 from quadrotorilqr_tpu_torch.solver import fddp as p_fddp
@@ -449,13 +450,14 @@ def test_api_solve_pytree_runs_plain_fddp(problem, jax_refs, solver):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(model=object()), dict(penalty_fns=(None, None))],
+    [dict(model=object()), dict(penalty_fns=(None, None), model=p_wm)],
     ids=["model", "penalty"],
 )
 def test_solve_fddp_refuses_options_outside_the_slice(problem, kwargs):
-    """Other model families and the penalty operands stay refused, naming
-    their ROADMAP items (limits and stage weights are ported:
-    tests/test_torch_variants.py)."""
+    """Other model families stay refused, naming their ROADMAP items, with
+    the augmented-Lagrangian penalty too (limits, stage weights and the
+    quadrotor's penalty are ported: tests/test_torch_variants.py,
+    tests/test_torch_auglag.py)."""
     _, (params, cost, trajs) = problem
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         p_fddp.solve_fddp(params, cost, trajs, DT, P_OPTS, **kwargs)

@@ -427,7 +427,10 @@ def test_mpc_step_equals_a_tick_of_run_mpc(mpc_case):
 def _raises(request_):
     params, cost, traj = port_objects(jax_objects(np_problem(21, 2, 4, False)))
     if request_ == "penalty":
-        p_fddp.solve_fddp(params, cost, traj, DT, P_OPTS, limits=(0.0, 5.0),
+        # the augmented-Lagrangian penalty is ported on the quadrotor's FDDP
+        # loop (tests/test_torch_auglag.py), not with another family
+        wrench = WrenchParams.create(1.3, torch.eye(3, dtype=torch.float64), 9.81)
+        p_fddp.solve_fddp(wrench, cost, traj, DT, P_OPTS, limits=(0.0, 5.0),
                           penalty_fns=(None, None))
     elif request_ == "family":
         wrench = WrenchParams.create(1.3, torch.eye(3, dtype=torch.float64), 9.81)
@@ -445,7 +448,7 @@ def _raises(request_):
 @pytest.mark.parametrize(
     "request_, item",
     [
-        ("penalty", "Queue 1 item 12"),
+        ("penalty", "Queue 1 item 11b"),
         ("family", "Queue 1 item 11b"),
         ("stream_family_box", "Queue 1 item 11c"),
     ],
@@ -453,9 +456,9 @@ def _raises(request_):
 )
 def test_unported_variants_raise(request_, item):
     """What this slice leaves refused names its ROADMAP item: the FDDP
-    solvers' penalty operands and model families other than the
-    quadrotor's, and limits on a family's stream.cu (the box-QP is the
-    quadrotor's)."""
+    solvers with model families other than the quadrotor's (with the
+    augmented-Lagrangian penalty too), and limits on a family's stream.cu
+    (the box-QP is the quadrotor's)."""
     with pytest.raises(NotImplementedError, match=item):
         _raises(request_)
 
