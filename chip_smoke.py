@@ -115,6 +115,20 @@ the weighted instantiation on the path with the terminal weight 20, where
 a trip's time goes; and `robust=True` on the tumbling class
 (`workloads.tumble_keepout_problem`, B=128, N=10, float64), timed.
 
+The drag quadrotor and substepped integration (phase 6f,
+`drag_substeps_phase`): the `_drag`, `_sub` and `_drag_sub` instantiations
+of backward.cu, rollout.cu, solve.cu and stream.cu against their plain
+versions in float64 (B=300, N=40: drag with shared and per-scenario
+coefficients, `substepped(quadrotor, k)` for k = 2 and 4, drag with k = 2)
+lane for lane on both exact routes and stream.cu; zero drag against the
+quadrotor's solve.cu at the JAX package's bars for it, and
+`substepped(quadrotor, 1)` on the quadrotor's own kernels; the bench
+workload's task (`workloads.bench_problem`, `drag_problem`; B=4096, N=100,
+float32) on each family through both routes and stream.cu against the
+plain loop for DRAG_SUB_PLAIN_TRIPS trips, each new kernel timed alone;
+drag with k = 2 at N=512 on stream.cu against plain for LONG_PLAIN_TRIPS
+trips; and the main path counted by instantiation.
+
 Output: progress lines (with each compiled kernel's and never-inlined
 function's ptxas registers, spill stores and stack, and the team kernels'
 geometry: lanes per scenario, teams per block, shared
@@ -123,7 +137,8 @@ bytes), the card's `nvidia-smi` name and power limit, a JSON line
 model families' instantiations as `backward_wrench`, ..., `stream_rotor8`;
 the box and weights variants as `*_box_weights`, fddp.cu's weights variant
 on config 6 as `fddp_weights`, backward.cu's penalty variant as
-`backward_pen` and `backward_pen_weights`),
+`backward_pen` and `backward_pen_weights`, the drag and substepped
+instantiations as `backward_drag`, ..., `stream_drag_sub`),
 and as the last line `{"ok": true, "device": {...}}`. Any failed check
 raises, so the exit code is not 0. Without a CUDA device, or without the
 repository beside it, it exits with code 2 and prints no result.
@@ -157,8 +172,9 @@ LONG_PLAIN_TRIPS = 2
 FDDP_DDP_PLAIN_TRIPS = 4
 # Config 6's exact-DDP launch (its trips 16-40) is held against the plain
 # loop for its first trips only: the plain loop took 145-310 s for all 24,
-# ~56 s for 8; 4 leave room under the time limit for the constrained phase
-C6_DDP_PLAIN_TRIPS = 4
+# ~56 s for 8 and 59 s for 4 on a slower host; 2 leave room under the time
+# limit for the constrained and the drag and substeps phases
+C6_DDP_PLAIN_TRIPS = 2
 
 # The least time the card could take: the larger of the operations over the
 # H100's float32 rate outside the tensor cores and the bytes (each input read
@@ -374,10 +390,17 @@ def ptxas_summary(build_log):
         else:
             names = (("ddp", "gauss-newton"),) + box
         parts += [on if bit == "1" else off for bit, (on, off) in zip(bits, names)]
-        # the model family (csrc/quadrotor.cuh), the last template argument
-        fam = re.search(r"\d+(Quadrotor|Wrench|Multirotor)(?:ILi(\d+)E)?", mangled[i + args.end():])
+        # the model family (csrc/quadrotor.cuh) after the flags; a substepped
+        # family names its base after it
+        rest = mangled[i + args.end():]
+        fam = re.search(r"\d+(Substepped|DragQuadrotor|Quadrotor|Wrench|Multirotor)(?:ILi(\d+)E)?",
+                        rest)
         if fam:
-            parts.append(fam.group(1) + (f"<{fam.group(2)}>" if fam.group(2) else ""))
+            label = fam.group(1) + (f"<{fam.group(2)}>" if fam.group(2) else "")
+            if label == "Substepped":
+                base = re.search(r"\d+(DragQuadrotor|Quadrotor)", rest[fam.end():])
+                label += f"<{base.group(1)}>"
+            parts.append(label)
         return f"{name}<{', '.join(parts)}>"
 
     out, current = {}, None
@@ -868,6 +891,12 @@ def np_family_problem(seed, batch, n, suffix):
     return params, cost, traj
 
 
+# Phase 6c's full-width float32 workloads are held against the plain loop
+# for their first trips (a plain trip at B=4096 took 0.7-3 s; the whole
+# budget 7-30 s a family)
+FAMILY_PLAIN_TRIPS = 3
+
+
 def families_phase(env):
     """Phase 6c: the wider-control model families (the SE(3) body wrench,
     u = 6, and the 6- and 8-rotor multirotors) on backward.cu, rollout.cu,
@@ -875,7 +904,8 @@ def families_phase(env):
     version in float64 (B=300, N=40) lane for lane, stream.cu and the
     per-pass route bit-equal to solve.cu; a 4-rotor multirotor bit-equal to
     the quadrotor; each family's workload (B=4096, N=100, f32) through both
-    exact routes against the plain loop, with the per-pass kernels timed;
+    exact routes against the plain loop for FAMILY_PLAIN_TRIPS trips, with
+    the per-pass kernels timed;
     each family at N=512 on stream.cu beside solve.cu, against plain for
     LONG_PLAIN_TRIPS trips; then the main path, counted: the three families
     at N=100 through both routes and at N=512 through
@@ -908,8 +938,9 @@ def families_phase(env):
     dev, card = e.dev, e.card
     f64, f32 = torch.float64, torch.float32
     t_phase = time.perf_counter()
-    e.check([sfx for sfx, *_ in FAMILY_CASES] == [sfx for sfx in _build.FAMILIES if sfx],
-            "FAMILY_CASES differs from the families the kernels are built for")
+    e.check([sfx for sfx, *_ in FAMILY_CASES]
+            == [sfx for sfx in _build.FAMILIES if sfx and sfx not in DRAG_SUB_SUFFIXES],
+            "FAMILY_CASES differs from the wider-control families the kernels are built for")
     opts = ILQROptions(LineSearchParams(0.5, 0.5, 20), ConvergenceCriteria(1e-8, 1e-8, 6))
     entries = {}  # name -> fields of its JSON entry
 
@@ -999,17 +1030,19 @@ def families_phase(env):
           f"solve.cu and the per-pass route bit-equal {same}")
     e.check(same, "the 4-rotor multirotor differs from the quadrotor")
 
-    # ---- each family's workload, float32, B=4096, N=100, against plain ----
+    # ---- each family's workload, float32, B=4096, N=100, against plain
+    # for its first FAMILY_PLAIN_TRIPS trips ----
     batch, n = 4096, 100
     fam_opts = workloads.FAMILY_OPTIONS
+    cut_opts = _with_max_iters(fam_opts, FAMILY_PLAIN_TRIPS)
     mains = {sfx: problem(sfx, 0, n) for sfx, *_ in FAMILY_CASES}
     for sfx, u, ju_nnz, _ in FAMILY_CASES:
         params, cost, trajs = mains[sfx]
         wrench = sfx == "_wrench"
         ref, plain_ms = e.time_once(lambda: ks.solve_whole_reference(params, cost, trajs, DT,
-                                                                     fam_opts))
-        res = {"solve.cu": solve_batch_latency(params, cost, trajs, DT, fam_opts),
-               "per-pass": solve_batch_fused(params, cost, trajs, DT, fam_opts)}
+                                                                     cut_opts))
+        res = {"solve.cu": solve_batch_latency(params, cost, trajs, DT, cut_opts),
+               "per-pass": solve_batch_fused(params, cost, trajs, DT, cut_opts)}
         torch.cuda.synchronize()
         conv_p = float((ref[3] == ilqr.STATUS_CONVERGED).float().mean())
         for route, r in res.items():
@@ -1017,7 +1050,8 @@ def families_phase(env):
             agree = float((r.status == ref[3]).float().mean())
             med = float(((r.cost - ref[1]).abs() / ref[1].abs()).median())
             conv = float((r.status == ilqr.STATUS_CONVERGED).float().mean())
-            e.log(f"f32 {sfx[1:]} workload (B={batch}, N={n}) via {route}: finite {finite}, status "
+            e.log(f"f32 {sfx[1:]} workload (B={batch}, N={n}, {FAMILY_PLAIN_TRIPS} trips) via "
+                  f"{route}: finite {finite}, status "
                   f"agreement with plain {agree:.4f} (>= 0.99), median rel cost diff {med:.3e} "
                   f"(< 1e-3), converged {conv:.4f} (plain {conv_p:.4f}, within 0.01), mean "
                   f"iterations {float(r.iterations.float().mean()):.3f}, mean cost "
@@ -1038,23 +1072,27 @@ def families_phase(env):
         def roll():
             return kr.rollout_cost_fused(params, cost, trajs1, k1[0], k1[1], ones, DT)
 
+        # the plain passes timed once each (CUDA events)
         timed = {
             "backward": (e.launch_ms(bwd, f"qilqr_backward{sfx}"),
-                         e.time_ms(lambda: kb.backward_pass_reference(params, cost, trajs1, DT)),
+                         e.time_once(lambda: kb.backward_pass_reference(params, cost, trajs1,
+                                                                        DT))[1],
                          (stage * riccati_flops(ju_nnz), (d + 13 * u) * stage * word)),
             "rollout": (e.launch_ms(roll, f"qilqr_rollout{sfx}"),
-                        e.time_ms(lambda: kr.rollout_cost_reference(params, cost, trajs1, k1[0],
-                                                                    k1[1], ones, DT)),
+                        e.time_once(lambda: kr.rollout_cost_reference(params, cost, trajs1, k1[0],
+                                                                      k1[1], ones, DT))[1],
                         (stage * rollout_flops(u, wrench), (2 * d + 13 * u) * stage * word)),
-            "solve": (e.time_ms(lambda: solve_batch_latency(params, cost, trajs, DT, fam_opts)),
+            "solve": (e.time_ms(lambda: solve_batch_latency(params, cost, trajs, DT, cut_opts)),
                       plain_ms,
                       ((passes * riccati_flops(ju_nnz) + probes * rollout_flops(u, wrench)) * n,
                        2 * d * stage * word)),
         }
+        full_ms = e.time_ms(lambda: solve_batch_latency(params, cost, trajs, DT, fam_opts))
         per_pass_ms = e.time_ms(lambda: solve_batch_fused(params, cost, trajs, DT, fam_opts))
-        e.log(f"{sfx[1:]} workload (B={batch}, N={n}, f32): solve.cu {timed['solve'][0]:.3f} ms per "
-              f"batch solve ({batch / timed['solve'][0] * 1e3:.1f} solves/s), the per-pass route "
-              f"{per_pass_ms:.3f} ms, the plain loop {plain_ms:.1f} ms; backward.cu launch "
+        e.log(f"{sfx[1:]} workload (B={batch}, N={n}, f32): solve.cu {full_ms:.3f} ms per "
+              f"batch solve ({batch / full_ms * 1e3:.1f} solves/s), the per-pass route "
+              f"{per_pass_ms:.3f} ms; for {FAMILY_PLAIN_TRIPS} trips solve.cu "
+              f"{timed['solve'][0]:.3f} ms, the plain loop {plain_ms:.1f} ms; backward.cu launch "
               f"{timed['backward'][0]:.3f} ms (plain {timed['backward'][1]:.1f}), rollout.cu "
               f"launch {timed['rollout'][0]:.3f} ms (plain {timed['rollout'][1]:.1f}); the plain "
               f"loop ran {passes} backward passes, {probes} probe sweeps {card}")
@@ -1063,6 +1101,8 @@ def families_phase(env):
                 ms=ms, plain_ms=p_ms, work=work, shape=dict(B=batch, N=n, dtype="float32"),
                 per_pass_route_ms=per_pass_ms,
             )
+        entries[f"solve{sfx}"]["shape"]["trips"] = FAMILY_PLAIN_TRIPS
+        entries[f"solve{sfx}"]["full_budget_ms"] = full_ms
 
     # ---- each family at N=512 on stream.cu, beside solve.cu, against plain ----
     long_n = 512
@@ -1133,6 +1173,390 @@ def families_phase(env):
     for name in names:
         entries[name]["launches"] = fam[name]
     e.log(f"model families phase took {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
+# Phase 6f: the drag quadrotor and substepped integration. The families'
+# C entries' suffixes; the float64 cases (name, drag, per-scenario drag
+# coefficients, substeps k); the full-width float32 workloads (name, drag,
+# k) and the trips their plain loops run against the kernels (trip 0's full
+# step and trip 1's search settle every lane alike, so the statuses part
+# only from trip 2 on: 3 trips, 5-23 s of plain loop a workload, the most
+# at k = 4); the workload held against plain at N=512 on stream.cu for
+# LONG_PLAIN_TRIPS.
+DRAG_SUB_SUFFIXES = ("_drag", "_sub", "_drag_sub")
+DRAG_SUB_F64 = (("drag", True, False, 1), ("drag per-scenario", True, True, 1),
+                ("substeps k=2", False, False, 2), ("substeps k=4", False, False, 4),
+                ("drag, substeps k=2", True, True, 2))
+DRAG_SUB_F32 = (("drag", True, 1), ("substeps k=2", False, 2), ("substeps k=4", False, 4),
+                ("drag per-scenario, substeps k=2", True, 2))
+DRAG_SUB_PLAIN_TRIPS = 3
+DRAG_SUB_LONG = ("drag per-scenario, substeps k=2", True, 2)
+
+
+def drag_sub_flops(k, drag):
+    """(Riccati stage, rollout stage) operations of the drag quadrotor (k =
+    1) and of a k-substep stage (team.cuh team_sub_blocks,
+    team_sub_expansion; the quadrotor's or the drag quadrotor's), counted as
+    FLOPS. Drag adds 9 to the j_x blocks (diag(drag_ang) into the angular
+    block, l = 1 - dt drag_lin / m), one product a velocity-row entry of the
+    j_x products (q_x 3, X = V_xx j_x 36, j_x' X 36, Q_xu 12) and 12 to a
+    dynamics step (two products and two adds a row): 12,170 and 1,214. A
+    k-substep stage: k sets of j_x blocks (1006 each), k - 1 base steps (309),
+    the cost diffs once (3019), the chained j_u, k - 1 products j_x JU + B of
+    12 x 4 entries (732), k products j_x' v (171) and 2k products of 12 x 12
+    (2052 each) for q_x and Q_xx (with their adds of c_x, c_xx: 156), the
+    dense contractions over all 12 rows q_u (96), V_xx JU (1104) and Q_uu
+    (416), k products j_x' (V_xx JU) (684), the gains (460) and the value
+    update (1914); its rollout stage k dynamics steps."""
+    d = 1 if drag else 0
+    if k == 1:
+        return 12074 + 96 * d, 1202 + 12 * d
+    riccati = (k * (1006 + 9 * d) + (k - 1) * (309 + 12 * d) + 3019 + (k - 1) * (732 + 12 * d)
+               + k * (171 + 3 * d) + 2 * k * (2052 + 36 * d) + 156 + 96 + 1104 + 416
+               + k * (684 + 12 * d) + 460 + 1914)
+    return riccati, 1202 + (k - 1) * 309 + 12 * k * d
+
+
+def drag_substeps_phase(env):
+    """Phase 6f: the drag quadrotor and substepped integration on
+    backward.cu, rollout.cu, solve.cu and stream.cu (their _drag, _sub and
+    _drag_sub instantiations). Every instantiation against its plain
+    version in float64 (B=300, N=40) lane for lane on both exact routes and
+    stream.cu: drag with shared and per-scenario coefficients,
+    substepped(quadrotor, k) for k = 2 and 4, drag with k = 2; zero drag
+    against the quadrotor's solve.cu at the JAX package's bars for it
+    (tests/test_quadrotor_drag.py:239-272), and substepped(quadrotor, 1) on
+    the quadrotor's own objects; the bench workload's task (B=4096, N=100,
+    float32) on each through both exact routes against the plain loop for
+    DRAG_SUB_PLAIN_TRIPS trips, with each new kernel timed alone; drag with
+    k = 2 at N=512 on stream.cu against plain for LONG_PLAIN_TRIPS trips;
+    then the main path, counted: every workload through both exact routes
+    at N=100 and through `solve_batch_latency` at N=512 (stream.cu).
+    Returns the new instantiations' JSON entries."""
+    import torch
+
+    from quadrotorilqr_tpu_torch import convert
+    from quadrotorilqr_tpu_torch.app import workloads
+    from quadrotorilqr_tpu_torch.kernels import _build
+    from quadrotorilqr_tpu_torch.kernels import backward as kb
+    from quadrotorilqr_tpu_torch.kernels import rollout as kr
+    from quadrotorilqr_tpu_torch.kernels import solve as ks
+    from quadrotorilqr_tpu_torch.kernels import stream as kst
+    from quadrotorilqr_tpu_torch.models import integrators
+    from quadrotorilqr_tpu_torch.models import quadrotor as qm
+    from quadrotorilqr_tpu_torch.models import quadrotor_drag as qd
+    from quadrotorilqr_tpu_torch.models.quadrotor_drag import DragQuadrotorParams
+    from quadrotorilqr_tpu_torch.solver import ilqr
+    from quadrotorilqr_tpu_torch.solver.batched import (
+        _with_max_iters,
+        solve_batch_fused,
+        solve_batch_latency,
+    )
+    from quadrotorilqr_tpu_torch.solver.options import (
+        ConvergenceCriteria,
+        ILQROptions,
+        LineSearchParams,
+    )
+
+    e = env
+    dev, card = e.dev, e.card
+    f64, f32 = torch.float64, torch.float32
+    t_phase = time.perf_counter()
+    e.check(set(DRAG_SUB_SUFFIXES) <= set(_build.FAMILIES),
+            "the drag and substepped families are not among the families built")
+    opts = ILQROptions(LineSearchParams(0.5, 0.5, 20), ConvergenceCriteria(1e-8, 1e-8, 6))
+    entries = {f"{k}{sfx}": {} for sfx in DRAG_SUB_SUFFIXES
+               for k in ("backward", "rollout", "solve", "stream")}
+
+    def model_of(drag, k):
+        base = qd if drag else qm
+        return integrators.substepped(base, k) if k > 1 else base
+
+    def suffix_of(drag, k):
+        return ("_drag" if drag else "") + ("_sub" if k > 1 else "")
+
+    def rel_max(a, b):
+        return float(((a - b).abs() / b.abs()).max())
+
+    def lanes(got, ref):
+        """Status and iterations equal, max rel cost, max |du|."""
+        same = bool((got[3] == ref[3]).all() and (got[2] == ref[2]).all())
+        return same, rel_max(got[1], ref[1]), max_abs(got[0].controls, ref[0].controls)
+
+    def leaves(params):
+        return {f.name: getattr(params, f.name) for f in dataclasses.fields(params)}
+
+    def with_drag(params, per_scenario, seed):
+        """params with the drag coefficients of workloads.DRAG_LIN / DRAG_ANG,
+        or per scenario each scaled by a factor from [0.5, 1.5]."""
+        import numpy as np
+
+        lin = torch.tensor(workloads.DRAG_LIN, dtype=params.mass_kg.dtype, device=dev)
+        ang = torch.tensor(workloads.DRAG_ANG, dtype=params.mass_kg.dtype, device=dev)
+        if per_scenario:
+            rng = np.random.default_rng(seed)
+            b = params.mass_kg.shape[0]
+            lin = lin * torch.tensor(0.5 + rng.uniform(size=(b, 3)), dtype=lin.dtype, device=dev)
+            ang = ang * torch.tensor(0.5 + rng.uniform(size=(b, 3)), dtype=ang.dtype, device=dev)
+        else:
+            params = dataclasses.replace(params, **{
+                f.name: getattr(params, f.name)[0] for f in dataclasses.fields(params)})
+        return DragQuadrotorParams(**leaves(params), drag_lin=lin, drag_ang=ang)
+
+    # ---- every new instantiation against its plain version, float64 ----
+    f64_err = {name: 0.0 for name in entries}
+    for name, drag, per, k in DRAG_SUB_F64:
+        p_np, c_np, t_np = np_problem(7, 300, 40)
+        params = convert.params_from_numpy(p_np, f64, dev)
+        if drag:
+            params = with_drag(params, per, 8)
+        cost = convert.cost_from_numpy(c_np, f64, dev)
+        traj = convert.trajectory_from_numpy(t_np, f64, dev)
+        model, sfx = model_of(drag, k), suffix_of(drag, k)
+        ref_b, b_plain = e.time_once(
+            lambda: kb.backward_pass_reference(params, cost, traj, DT, model=model))
+        got_b = kb.backward_pass_fused(params, cost, traj, DT, model=model)
+        alpha = torch.linspace(0.1, 1.0, 300, dtype=f64, device=dev)
+        (r_t, r_c), r_plain = e.time_once(lambda: kr.rollout_cost_reference(
+            params, cost, traj, ref_b[0], ref_b[1], alpha, DT, model=model))
+        g_t, g_c = kr.rollout_cost_fused(params, cost, traj, ref_b[0], ref_b[1], alpha, DT,
+                                         model=model)
+        ref_s, s_plain = e.time_once(
+            lambda: ks.solve_whole_reference(params, cost, traj, DT, opts, model=model))
+        got_s = ks.solve_fused_whole(params, cost, traj, DT, opts, model=model)
+        ref_st, st_plain = e.time_once(
+            lambda: kst.solve_streamed_reference(params, cost, traj, DT, opts, model=model))
+        got_st = kst.solve_fused_streamed(params, cost, traj, DT, opts, model=model)
+        loop = solve_batch_fused(params, cost, traj, DT, opts, model=model)
+        loop_t = (loop.trajectory, loop.cost, loop.iterations, loop.status)
+        torch.cuda.synchronize()
+        err_b = max(max_abs(got_b[0], ref_b[0]), max_abs(got_b[1], ref_b[1]))
+        rel_b = max(rel_max(g, r) for g, r in zip(got_b[2:], ref_b[2:]))
+        err_r = max(max_abs(g_t.states.pose.quat, r_t.states.pose.quat),
+                    max_abs(g_t.states.pose.trans, r_t.states.pose.trans),
+                    max_abs(g_t.states.vel, r_t.states.vel), max_abs(g_t.controls, r_t.controls))
+        rel_r = rel_max(g_c, r_c)
+        ok_s, rel_s, du_s = lanes(got_s, ref_s)
+        ok_st, rel_st, du_st = lanes(got_st, ref_st)
+        ok_pp, rel_pp, du_pp = lanes(loop_t, ref_s)
+        e.log(f"f64 {name} (B=300, N=40, {sfx[1:]} kernels): backward max |dk|,|dK| {err_b:.3e} "
+              f"(atol 1e-9), rel QuTk/kTQuuk {rel_b:.3e} (rtol 1e-9); rollout max |dtraj| "
+              f"{err_r:.3e} (atol 1e-10), rel cost {rel_r:.3e} (rtol 1e-10); solve.cu vs plain: "
+              f"status and iterations equal {ok_s}, rel cost {rel_s:.3e} (rtol 1e-8), max |du| "
+              f"{du_s:.3e} (atol 1e-7), statuses {torch.bincount(ref_s[3], minlength=3).tolist()}; "
+              f"the per-pass route {ok_pp} ({rel_pp:.3e}, {du_pp:.3e}); stream.cu vs its plain "
+              f"loop {ok_st} ({rel_st:.3e}, {du_st:.3e}); stream.cu bit-equal to solve.cu "
+              f"{bit_equal(got_st, got_s)}, the per-pass route {bit_equal(loop, got_s)}")
+        e.check(err_b <= 1e-9 and rel_b <= 1e-9 and err_r <= 1e-10 and rel_r <= 1e-10,
+                f"f64 {name}: the per-pass kernels disagree with plain")
+        e.check(ok_s and rel_s <= 1e-8 and du_s <= 1e-7 and ok_st and rel_st <= 1e-8
+                and du_st <= 1e-7 and ok_pp and rel_pp <= 1e-8 and du_pp <= 1e-7,
+                f"f64 {name}: an exact route disagrees with plain")
+        for kname, err, plain in (("backward", err_b, b_plain), ("rollout", err_r, r_plain),
+                                  ("solve", du_s, s_plain), ("stream", du_st, st_plain)):
+            f64_err[f"{kname}{sfx}"] = max(f64_err[f"{kname}{sfx}"], err)
+            entries[f"{kname}{sfx}"].setdefault("f64_plain_ms", plain)
+
+    # ---- zero drag is the quadrotor; one substep is the quadrotor's kernels ----
+    p_np, c_np, t_np = np_problem(9, 300, 40)
+    q_params = convert.params_from_numpy(p_np, f64, dev)
+    zero = DragQuadrotorParams(**leaves(q_params),
+                               drag_lin=torch.zeros(300, 3, dtype=f64, device=dev),
+                               drag_ang=torch.zeros(300, 3, dtype=f64, device=dev))
+    cost = convert.cost_from_numpy(c_np, f64, dev)
+    traj = convert.trajectory_from_numpy(t_np, f64, dev)
+    z_res = ks.solve_fused_whole(zero, cost, traj, DT, opts)
+    q_res = ks.solve_fused_whole(q_params, cost, traj, DT, opts)
+    torch.cuda.synchronize()
+    z_same, z_rel, z_du = (bool((z_res[3] == q_res[3]).all()), rel_max(z_res[1], q_res[1]),
+                           max_abs(z_res[0].controls, q_res[0].controls))
+    e.log(f"f64 zero drag (solve_drag) vs the quadrotor's solve.cu, B=300, N=40: statuses equal "
+          f"{z_same}, rel cost {z_rel:.3e} (rtol 1e-12), max |du| {z_du:.3e} (atol 1e-10), "
+          f"bit-equal {bit_equal(z_res, q_res)}")
+    e.check(z_same and z_rel <= 1e-12 and z_du <= 1e-10, "zero drag differs from the quadrotor")
+    e.reset_counts()
+    one = solve_batch_latency(q_params, cost, traj, DT, opts, model=integrators.substepped(qm, 1))
+    one_pp = solve_batch_fused(q_params, cost, traj, DT, opts, model=integrators.substepped(qm, 1))
+    torch.cuda.synchronize()
+    fam = e.family_counts()
+    one_ok = (set(fam) == {"solve", "backward", "rollout"} and bit_equal(one, q_res)
+              and bit_equal(one_pp, q_res))
+    e.log(f"substepped(quadrotor, 1): launches {fam} (the quadrotor's objects), bit-equal to "
+          f"the quadrotor's solve.cu and per-pass route {one_ok}")
+    e.check(one_ok, "substepped(quadrotor, 1) did not run the quadrotor's kernels")
+
+    # ---- the bench workload's task, float32, B=4096, N=100, against plain ----
+    batch, n = 4096, 100
+    b_opts = workloads.BENCH_OPTIONS
+    cut_opts = _with_max_iters(b_opts, DRAG_SUB_PLAIN_TRIPS)
+
+    def workload(drag, k, n_, seed=0):
+        """The bench workload's task on the family: drag with shared
+        coefficients alone, per scenario with substeps."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        if drag:
+            return workloads.drag_problem(gen, batch, n_, DT, f32, dev, per_scenario=k > 1)
+        return workloads.bench_problem(gen, batch, n_, DT, f32, dev)
+
+    mains = {name: workload(drag, k, n) for name, drag, k in DRAG_SUB_F32}
+    stage = batch * n
+    word = 4
+    for name, drag, k in DRAG_SUB_F32:
+        params, cost, trajs = mains[name]
+        model, sfx = model_of(drag, k), suffix_of(drag, k)
+        cut = (params, cost, trajs, DT, cut_opts)
+        ref, plain_ms = e.time_once(lambda: ks.solve_whole_reference(*cut, model=model))
+        res = {"solve.cu": solve_batch_latency(*cut, model=model),
+               "per-pass": solve_batch_fused(*cut, model=model)}
+        st = kst.solve_fused_streamed(*cut, model=model, return_probes=True)
+        res["stream.cu"] = SimpleNamespace(trajectory=st[0], cost=st[1], iterations=st[2],
+                                           status=st[3])
+        full = solve_batch_latency(params, cost, trajs, DT, b_opts, model=model)
+        torch.cuda.synchronize()
+        conv_p = float((ref[3] == ilqr.STATUS_CONVERGED).float().mean())
+        for route, r in res.items():
+            finite = bool(torch.isfinite(r.cost).all() and torch.isfinite(r.trajectory.controls).all())
+            agree = float((r.status == ref[3]).float().mean())
+            med = float(((r.cost - ref[1]).abs() / ref[1].abs()).median())
+            conv = float((r.status == ilqr.STATUS_CONVERGED).float().mean())
+            e.log(f"f32 {name} (B={batch}, N={n}, {DRAG_SUB_PLAIN_TRIPS} trips) via {route} vs "
+                  f"plain: finite {finite}, status agreement {agree:.4f} (>= 0.99), median rel "
+                  f"cost diff {med:.3e} (< 1e-3), converged {conv:.4f} (plain {conv_p:.4f}, "
+                  f"within 0.01), mean iterations {float(r.iterations.float().mean()):.3f}")
+            e.check(finite and agree >= 0.99 and med < 1e-3 and abs(conv - conv_p) <= 0.01,
+                    f"f32 {name} via {route} outside its bounds")
+        full_conv = float((full.status == ilqr.STATUS_CONVERGED).float().mean())
+        full_iters = float(full.iterations.float().mean())
+        e.log(f"f32 {name} at the full budget ({int(b_opts.convergence_criteria.max_iters)} "
+              f"iterations) via solve.cu: converged {full_conv:.4f}, mean iterations "
+              f"{full_iters:.3f}, statuses {torch.bincount(full.status, minlength=3).tolist()}")
+        # the per-pass kernels on the trajectory after trip 0's full step
+        ones = torch.ones(batch, dtype=f32, device=dev)
+        k0 = kb.backward_pass_reference(params, cost, trajs, DT, model=model)
+        trajs1, _ = kr.rollout_cost_reference(params, cost, trajs, k0[0], k0[1], ones, DT,
+                                              model=model)
+        k1 = kb.backward_pass_fused(params, cost, trajs1, DT, model=model)
+        fl_r, fl_o = drag_sub_flops(k, drag)
+        # the work of the cut solve as stream.cu reports it (it runs solve.cu's
+        # backward passes and probe sweeps, and one apply sweep a trip)
+        passes, probes, applies = (int(a.sum()) for a in st[4:])
+
+        def bwd():
+            return kb.backward_pass_fused(params, cost, trajs1, DT, model=model)
+
+        def roll():
+            return kr.rollout_cost_fused(params, cost, trajs1, k1[0], k1[1], ones, DT, model=model)
+
+        # the plain passes timed once each (CUDA events; a plain rollout at
+        # k = 4 takes ~1 s)
+        timed = {
+            "backward": (e.launch_ms(bwd, f"qilqr_backward{sfx}"),
+                         e.time_once(lambda: kb.backward_pass_reference(params, cost, trajs1, DT,
+                                                                        model=model))[1],
+                         (stage * fl_r, (17 + 52) * stage * word + 2 * batch * word)),
+            "rollout": (e.launch_ms(roll, f"qilqr_rollout{sfx}"),
+                        e.time_once(lambda: kr.rollout_cost_reference(
+                            params, cost, trajs1, k1[0], k1[1], ones, DT, model=model))[1],
+                        (stage * fl_o, (17 + 52 + 17) * stage * word + 2 * batch * word)),
+            "solve": (e.time_ms(lambda: solve_batch_latency(*cut, model=model)), plain_ms,
+                      ((passes * fl_r + probes * fl_o) * n,
+                       2 * 17 * stage * word + 3 * batch * word)),
+            "stream": (e.time_ms(lambda: kst.solve_fused_streamed(*cut, model=model)), plain_ms,
+                       ((passes * fl_r + (probes + applies) * fl_o) * n,
+                        2 * 17 * stage * word + 6 * batch * word)),
+        }
+        full_ms = e.time_ms(lambda: solve_batch_latency(params, cost, trajs, DT, b_opts,
+                                                        model=model))
+        per_pass_ms = e.time_ms(lambda: solve_batch_fused(params, cost, trajs, DT, b_opts,
+                                                          model=model))
+        e.log(f"{name} workload (B={batch}, N={n}, f32): solve.cu {full_ms:.3f} ms per batch "
+              f"solve ({batch / full_ms * 1e3:.1f} solves/s), the per-pass route "
+              f"{per_pass_ms:.3f} ms; for {DRAG_SUB_PLAIN_TRIPS} trips solve.cu "
+              f"{timed['solve'][0]:.3f} ms, stream.cu {timed['stream'][0]:.3f} ms, the plain loop "
+              f"{plain_ms:.1f} ms ({passes} backward passes, {probes} probe sweeps); backward.cu "
+              f"launch {timed['backward'][0]:.3f} ms (plain {timed['backward'][1]:.1f}), "
+              f"rollout.cu launch {timed['rollout'][0]:.3f} ms (plain {timed['rollout'][1]:.1f}) "
+              f"{card}")
+        for kname, (ms, p_ms, work) in timed.items():
+            fields = dict(ms=ms, plain_ms=p_ms, work=work,
+                          shape=dict(B=batch, N=n, dtype="float32", substeps=k),
+                          per_pass_route_ms=per_pass_ms)
+            if kname in ("solve", "stream"):
+                fields["shape"]["trips"] = DRAG_SUB_PLAIN_TRIPS
+                fields["full_budget"] = dict(ms=full_ms, converged=full_conv,
+                                             mean_iterations=full_iters)
+            if k == 4:
+                entries[f"{kname}{sfx}"]["k4"] = fields
+            else:
+                entries[f"{kname}{sfx}"].update(fields)
+
+    # ---- at N=512 on stream.cu, against plain ----
+    long_n = 512
+    l_name, l_drag, l_k = DRAG_SUB_LONG
+    longs = {name: workload(drag, k, long_n, 1) for name, drag, k in DRAG_SUB_F32 if k < 4}
+    l_params, l_cost, l_trajs = longs[l_name]
+    l_model = model_of(l_drag, l_k)
+    l_args = (l_params, l_cost, l_trajs, DT, _with_max_iters(b_opts, LONG_PLAIN_TRIPS))
+    l_res = kst.solve_fused_streamed(*l_args, model=l_model, return_probes=True)
+    l_p, l_plain_ms = e.time_once(lambda: kst.solve_streamed_reference(*l_args, model=l_model))
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(l_res[1]).all() and torch.isfinite(l_res[0].controls).all())
+    rel = (l_res[1] - l_p[1]).abs() / l_p[1].abs()
+    med, q99 = float(rel.median()), float(rel.quantile(0.99))
+    agree = float((l_res[3] == l_p[3]).float().mean())
+    l_work = [int(a.sum()) for a in l_res[4:]]
+    e.log(f"f32 {l_name} stream.cu vs its plain loop (B={batch}, N={long_n}, its first "
+          f"{LONG_PLAIN_TRIPS} trips): finite {finite}, rel cost diff median {med:.3e} (< 1e-3), "
+          f"99th percentile {q99:.3e} (< 1e-3), status agreement {agree:.4f} (>= 0.99); "
+          f"(backward passes, probe sweeps, apply sweeps) {l_work}; plain loop {l_plain_ms:.1f} ms")
+    e.check(finite and med < 1e-3 and q99 < 1e-3 and agree >= 0.99,
+            f"f32 {l_name} stream.cu outside its bounds")
+    l_ms = e.time_ms(lambda: kst.solve_fused_streamed(*l_args, model=l_model))
+    path_ms = e.time_ms(lambda: solve_batch_latency(l_params, l_cost, l_trajs, DT, b_opts,
+                                                    model=l_model))
+    e.log(f"{l_name} at N={long_n} (B={batch}, f32): stream.cu {l_ms:.3f} ms for "
+          f"{LONG_PLAIN_TRIPS} trips; the whole path (solve_batch_latency) {path_ms:.3f} ms {card}")
+    fl_r, fl_o = drag_sub_flops(l_k, l_drag)
+    passes, probes, applies = l_work
+    entries[f"stream{suffix_of(l_drag, l_k)}"]["long"] = dict(
+        ms=l_ms, plain_ms=l_plain_ms, rel_cost_median=med, rel_cost_q99=q99,
+        shape=dict(B=batch, N=long_n, dtype="float32", substeps=l_k, trips=LONG_PLAIN_TRIPS),
+        work=((passes * fl_r + (probes + applies) * fl_o) * long_n,
+              2 * 17 * batch * long_n * word + 6 * batch * word),
+        full_width=dict(B=batch, N=long_n, ms=path_ms),
+    )
+
+    # ---- the main path through the batch solvers, counted ----
+    e.reset_counts()
+    out = {}
+    for name, drag, k in DRAG_SUB_F32:
+        model = model_of(drag, k)
+        out[name, "solve"] = solve_batch_latency(*mains[name], DT, b_opts, model=model)
+        out[name, "per-pass"] = solve_batch_fused(*mains[name], DT, b_opts, model=model)
+        if name in longs:
+            out[name, "stream"] = solve_batch_latency(*longs[name], DT, b_opts, model=model)
+    torch.cuda.synchronize()
+    fam = e.family_counts()
+    e.log(f"drag and substeps main path launches: {fam}")
+    e.check(all(fam.get(name, 0) > 0 for name in entries), f"a new kernel never ran: {fam}")
+    for (name, route), r in out.items():
+        n_ = long_n if route == "stream" else n
+        ok = (r.trajectory.controls.shape == (batch, n_, 4)
+              and bool(torch.isfinite(r.cost).all() and torch.isfinite(r.trajectory.controls).all()))
+        e.log(f"{name} via {route} (B={batch}, N={n_}, f32): converged "
+              f"{float((r.status == ilqr.STATUS_CONVERGED).float().mean()):.4f}, mean iterations "
+              f"{float(r.iterations.float().mean()):.3f}, statuses "
+              f"{torch.bincount(r.status, minlength=3).tolist()}, shapes and finite {ok}")
+        e.check(ok, f"{name} via {route}: wrong shapes or non-finite")
+    for name, *_ in DRAG_SUB_F32:
+        agree = float((out[name, "solve"].status == out[name, "per-pass"].status).float().mean())
+        e.log(f"{name}: the two exact routes agree on {agree:.4f} of statuses (>= 0.99)")
+        e.check(agree >= 0.99, f"{name}: the exact routes disagree")
+    for name in entries:
+        entries[name]["launches"] = fam[name]
+        entries[name]["f64_err"] = f64_err[name]
+    e.log(f"drag and substeps phase took {time.perf_counter() - t_phase:.1f} s")
     return entries
 
 
@@ -3127,6 +3551,12 @@ def main() -> int:
         family_counts=family_counts,
     ))
 
+    # ---- 6f. the drag quadrotor and substepped integration ----
+    drag_sub = drag_substeps_phase(SimpleNamespace(
+        dev=dev, card=card, log=log, check=check, time_once=time_once, time_ms=time_ms,
+        launch_ms=launch_ms, reset_counts=reset_counts, family_counts=family_counts,
+    ))
+
     # ---- 7. bounds: the work this run's inputs needed ----
     f = FLOPS
     word = 4  # float32
@@ -3212,6 +3642,18 @@ def main() -> int:
         log(f"{name} bound ({v['shape']}): {flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB -> "
             f"{b_ms:.5f} ms ({b_by}); measured {v['ms']:.4f} ms")
     log(f"constrained flight numbers: {json.dumps(constrained_numbers)}")
+    drag_sub_bounds = {name: bound(*v["work"]) for name, v in drag_sub.items()}
+    for name, v in drag_sub.items():
+        (flops, nbytes), (b_ms, b_by) = v["work"], drag_sub_bounds[name]
+        log(f"{name} bound ({v['shape']}): {flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB -> "
+            f"{b_ms:.5f} ms ({b_by}); measured {v['ms']:.4f} ms")
+        for extra in ("k4", "long"):
+            if extra in v:
+                (flops, nbytes), (b_ms, b_by) = v[extra]["work"], bound(*v[extra]["work"])
+                v[extra]["bound_ms"] = b_ms
+                log(f"{name} ({extra}) bound ({v[extra]['shape']}): {flops / 1e9:.4f} GFLOP, "
+                    f"{nbytes / 1e6:.3f} MB -> {b_ms:.5f} ms ({b_by}); measured "
+                    f"{v[extra]['ms']:.4f} ms")
 
     pkg = "quadrotorilqr_tpu_torch/kernels/csrc"
     replaces = {
@@ -3326,6 +3768,28 @@ def main() -> int:
             "f64_max_abs_err": v["f64_err"], "f64_rel_err": v["f64_rel"],
             "f64_shape": {"B": v["f64_shape"][0], "N": v["f64_shape"][1]},
             "f64_ms": v["f64_ms"], "f64_plain_ms": v["f64_plain_ms"],
+        })
+    # the drag quadrotor's and the substepped families' instantiations of
+    # the four exact kernels, on phase 6f's main path (launches there); times,
+    # plain times and bounds at the shapes in `shape` (the substepped family
+    # at k = 2, k = 4 beside it); error lane for lane against plain in
+    # float64 at B=300, N=40
+    drag_sub_models = {
+        "_drag": ("quadrotor_drag", "quadrotorilqr_tpu/kernels/models.py:351"),
+        "_sub": ("substepped(quadrotor, k)", "quadrotorilqr_tpu/kernels/models.py:365"),
+        "_drag_sub": ("substepped(quadrotor_drag, k)", "quadrotorilqr_tpu/kernels/models.py:365"),
+    }
+    for name, v in drag_sub.items():
+        kernel, sfx = name.split("_", 1)
+        model, lane_model = drag_sub_models["_" + sfx]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{pkg}/{kernel}.cu",
+            "replaces": replaces[kernel], "launches": v["launches"], "max_abs_err": v["f64_err"],
+            "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": drag_sub_bounds[name][0],
+            "bound_by": drag_sub_bounds[name][1], "library_ms": None,
+            "model": model, "lane_model": lane_model, "shape": v["shape"],
+            "max_abs_err_shape": {"B": 300, "N": 40, "dtype": "float64"},
+            **{k: v[k] for k in ("per_pass_route_ms", "full_budget", "k4", "long") if k in v},
         })
     log(f"chip_smoke took {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,8 +5,11 @@ the figure eight (BASELINE config 3), the MPC hover-regulation problem
 long-horizon problem (with its rotor limits and terminal weight) and the
 aggressive tumble (`quadrotorilqr_tpu/app/workloads.py`), and the
 wider-control families' waypoint problems: the SE(3) body wrench (`benchmarks/wrench_bench.py`) and
-the hexarotor (`__graft_entry__.py`), and the constrained-flight problems
-(the keep-out crossing and the tumbling class beside a keep-out).
+the hexarotor (`__graft_entry__.py`), the constrained-flight problems
+(the keep-out crossing and the tumbling class beside a keep-out), and the
+bench workload's task on the drag quadrotor (`drag_problem`) and, through
+`models.integrators.substepped(quadrotor, k)` with k in SUBSTEP_COUNTS, on
+substepped integration (`bench_problem`).
 
 The deterministic trajectories are built in float64 numpy, as the JAX
 package builds them, then cast. Random draws come from an explicit
@@ -25,6 +28,7 @@ from ..costs.quadratic import QuadraticTrackingCost
 from ..lie import se3
 from ..models.multirotor import MultirotorParams
 from ..models.quadrotor import QuadrotorParams, State
+from ..models.quadrotor_drag import DragQuadrotorParams
 from ..models.se3_wrench import WrenchParams
 from ..parallel.batch import initial_trajectory_from_state
 from ..solver.ilqr import Trajectory
@@ -536,3 +540,59 @@ def hexarotor_problem(
     )
     hover = np.full(n_rotors, 1.5 * 9.81 / n_rotors)
     return _family_waypoint_problem(generator, params, hover, batch, n, dt_s, dtype, device)
+
+
+# The bench workload's solve settings (bench.py:114-123): tolerance 1e-6, 10
+# iterations, line search (0.5, 0.5, 20); the substep counts its
+# substepped-integration runs take (BENCH_LOCAL.md:65 ran k = 2).
+BENCH_OPTIONS = FAMILY_OPTIONS
+SUBSTEP_COUNTS = (2, 4)
+# the drag coefficients of __graft_entry__.py:317-325 and
+# tests/test_quadrotor_drag.py:36
+DRAG_LIN = (0.3, 0.35, 0.5)
+DRAG_ANG = (0.02, 0.02, 0.04)
+
+
+def bench_problem(
+    generator: torch.Generator, batch=4096, n=100, dt_s=0.02, dtype=torch.float32, device=None
+):
+    """The bench workload (`bench.py:94-111`): `hover_to_waypoint` at pose
+    scale 0.3 with the demo weights, on the bench's rigid body (1 kg, unit
+    inertia, arms 0.2 m, kappa 0.016, g 9.81); solved with BENCH_OPTIONS.
+    With `model=substepped(quadrotor, k)` it is the substepped-integration
+    workload.
+
+    Returns (params, cost, initial trajectories with (batch, n, ...) leaves)."""
+    x0, desired = hover_to_waypoint(generator, batch, n=n, dt_s=dt_s, dtype=dtype, pose_scale=0.3,
+                                    device=device)
+    q_w, r_w = demo_weights(dtype, device)
+    cost = QuadraticTrackingCost(Q=q_w, R=r_w, desired_states=desired.states,
+                                 desired_controls=desired.controls)
+    params = QuadrotorParams.create(1.0, torch.eye(3, dtype=dtype), 0.2, 0.016, 9.81,
+                                    device=device)
+    return params, cost, initial_trajectory_from_state(x0, desired)
+
+
+def drag_problem(
+    generator: torch.Generator, batch=4096, n=100, dt_s=0.02, dtype=torch.float32, device=None,
+    per_scenario=False,
+):
+    """The bench workload (`bench_problem`) on the drag quadrotor: the bench's
+    rigid body with drag_lin DRAG_LIN and drag_ang DRAG_ANG. With
+    `per_scenario` every leaf carries the batch, and each lane's
+    coefficients are the shared ones scaled by factors drawn uniformly from
+    [0.5, 1.5] (`generator`, after the problem's own draws).
+
+    Returns (DragQuadrotorParams, cost, initial trajectories)."""
+    quad, cost, trajs = bench_problem(generator, batch, n, dt_s, dtype, device)
+    drag_lin = torch.tensor(DRAG_LIN, dtype=dtype, device=device)
+    drag_ang = torch.tensor(DRAG_ANG, dtype=dtype, device=device)
+    leaves = dict(mass_kg=quad.mass_kg, inertia=quad.inertia, arm_length_m=quad.arm_length_m,
+                  torque_to_thrust_ratio_m=quad.torque_to_thrust_ratio_m, g_mpss=quad.g_mpss)
+    if per_scenario:
+        draw = lambda: torch.rand((batch, 3), generator=generator, dtype=dtype,  # noqa: E731
+                                  device=generator.device).to(device)
+        drag_lin = drag_lin * (0.5 + draw())
+        drag_ang = drag_ang * (0.5 + draw())
+        leaves = {k: v.expand((batch,) + v.shape).contiguous() for k, v in leaves.items()}
+    return DragQuadrotorParams(**leaves, drag_lin=drag_lin, drag_ang=drag_ang), cost, trajs

@@ -1,7 +1,7 @@
 """Carry state across from the JAX package, and results back.
 
-The JAX package's containers (QuadrotorParams, WrenchParams,
-MultirotorParams, QuadraticTrackingCost, Trajectory, State, SE3) are
+The JAX package's containers (QuadrotorParams, DragQuadrotorParams,
+WrenchParams, MultirotorParams, QuadraticTrackingCost, Trajectory, State, SE3) are
 pytrees. Converted leaf by leaf to numpy arrays
 (`jax.tree.map(np.asarray, x)`), they become the port's dataclasses here.
 Fields are read by attribute name, so this module imports nothing of JAX.
@@ -19,6 +19,7 @@ from .costs.quadratic import QuadraticTrackingCost
 from .lie.se3 import SE3
 from .models.multirotor import MultirotorParams
 from .models.quadrotor import QuadrotorParams, State
+from .models.quadrotor_drag import DragQuadrotorParams
 from .models.se3_wrench import WrenchParams
 from .solver.ilqr import Trajectory
 from .tree import tree_map
@@ -49,10 +50,13 @@ def trajectory_from_numpy(t, dtype=None, device=None) -> Trajectory:
 
 def params_from_numpy(p, dtype=None, device=None):
     """A model family's params, the family told by the fields `p` carries:
-    rotor positions make a MultirotorParams, an arm length a
-    QuadrotorParams, mass, inertia and gravity alone a WrenchParams."""
+    rotor positions make a MultirotorParams, drag coefficients a
+    DragQuadrotorParams, an arm length a QuadrotorParams, mass, inertia and
+    gravity alone a WrenchParams."""
     if hasattr(p, "rotor_positions_m"):
         cls = MultirotorParams
+    elif hasattr(p, "drag_lin"):
+        cls = DragQuadrotorParams
     elif hasattr(p, "arm_length_m"):
         cls = QuadrotorParams
     else:

@@ -41,8 +41,12 @@ NVCC_FLAGS = (
 # (kernels/models.py LaneModel.suffix; nvcc's -DQILQR_FAMILY) -> the
 # family's type in csrc/quadrotor.cuh (-DQILQR_FAMILY_T). The quadrotor's
 # entries have no suffix and need no define; a 4-rotor multirotor runs them.
+# The drag quadrotor and the substepped quadrotor and drag quadrotor (any k
+# from 2 to 8, a runtime operand) are families of their own, so that no
+# other family's object changes.
 FAMILIES = {"": "Quadrotor", "_wrench": "Wrench", "_rotor6": "Multirotor<6>",
-            "_rotor8": "Multirotor<8>"}
+            "_rotor8": "Multirotor<8>", "_drag": "DragQuadrotor",
+            "_sub": "Substepped<Quadrotor>", "_drag_sub": "Substepped<DragQuadrotor>"}
 # the sources built once per family; the FDDP kernels are the quadrotor's alone
 FAMILY_SOURCES = ("backward", "rollout", "solve", "stream")
 # The FDDP sources are built once per box and weights variant instead: the C

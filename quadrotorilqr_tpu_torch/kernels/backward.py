@@ -110,7 +110,8 @@ def _prep_cost(cost, batch, dtype, device):
 class Operands(typing.NamedTuple):
     """Packed kernel arguments; `tensors` keeps the device buffers alive.
     `variant` holds the box and weights variants' (tensors, ptrs, ints),
-    which go after the kernel's own operands; `lm` is the model family's
+    which go after the kernel's own operands (a substepped model's k last
+    among the ints); `lm` is the model family's
     lane model, which names the kernel instantiation; `key` names the
     instantiation a launch runs, for the launch counters: the family's
     suffix, then "_box", "_weights" or "_box_weights" for the variants."""
@@ -180,15 +181,18 @@ def _problem_operands(
 ) -> Operands:
     """The operands every kernel reads, in csrc/quadrotor.cuh's order:
     ptrs dq dtr dv du Q R g minv ju iinv_ma inertia inertia_inv (iinv_ma
-    null for the wrench); ints B N s_des s_qr s_par; reals dt; the model
-    family's lane model (`lane_model_for(params, model)`); and the box and
-    weights variants' operands for `limits` and the cost's stage weights,
-    which every kernel reads after its own. Only the quadrotor kernels have
-    those variants: with another family limits and weights raise, as does
-    a rotor count without kernels."""
+    null for the wrench; with drag it carries the drag coefficients too);
+    ints B N s_des s_qr s_par; reals dt (a substepped model's dt / k); the
+    model family's lane model (`lane_model_for(params, model)`); and the box
+    and weights variants' operands for `limits` and the cost's stage
+    weights, which every kernel reads after its own, then a substepped
+    model's k. Only the quadrotor kernels have those variants: with another
+    family limits and weights raise, as do a rotor count without kernels
+    and substeps that no kernel takes."""
     lm = lane_model_for(params, model)
     if lm.suffix is None:
-        raise NotImplementedError(ilqr.FAMILY_ROTORS_TODO)
+        raise NotImplementedError(
+            ilqr.SUBSTEPS_TODO if lm.substeps > 1 else ilqr.FAMILY_ROTORS_TODO)
     if (limits is not None or cost.stage_weights is not None) and lm.suffix:
         raise NotImplementedError(ilqr.FAMILY_VARIANTS_TODO)
     if n * lm.gains_pitch() * batch >= 2**31:
@@ -204,12 +208,15 @@ def _problem_operands(
         if op is not None and op.shape[-1] != (batch if params_batched else 1):
             raise ValueError(f"params carry {op.shape[-1]} scenarios, the batch {batch}")
     tensors = cost_ops + param_ops
+    v_tensors, v_ptrs, v_ints = _variant_operands(cost, limits, batch, n, dtype, device, u)
+    if lm.substeps > 1:
+        v_ints = v_ints + [lm.substeps]
     return Operands(
         [t for t in tensors if t is not None],
         [0 if t is None else t.data_ptr() for t in tensors],
         [batch, n, int(cb.des), int(cb.qr), int(params_batched)],
-        [float(dt_s)],
-        _variant_operands(cost, limits, batch, n, dtype, device, lm.u_dim),
+        [float(dt_s) / lm.substeps],
+        (v_tensors, v_ptrs, v_ints),
         lm,
         lm.suffix + variant_key(limits, cost),
     )

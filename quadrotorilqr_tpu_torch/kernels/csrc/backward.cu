@@ -30,9 +30,13 @@
 //
 // The model families (JAX kernels/models.py's lane models): this source is
 // compiled once per family (kernels/_build.py FAMILIES):
-// the quadrotor with its variants, and the wrench (u = 6, j_u rows 6:12)
-// and the 6- and 8-rotor multirotors (j_u rows 8:12), each the plain
-// instantiation alone, with C entries of their own.
+// the quadrotor with its variants, and the wrench (u = 6, j_u rows 6:12),
+// the 6- and 8-rotor multirotors (j_u rows 8:12), the drag quadrotor (its
+// j_x velocity blocks scaled by the drag's diagonal) and the substepped
+// quadrotor and drag quadrotor (k substeps a stage, k a kernel argument:
+// the Riccati stage chains the substeps' j_x blocks and contracts the dense
+// chained j_u over all 12 rows, team.cuh team_sub_expansion), each the
+// plain instantiation alone, with C entries of their own.
 //
 // The penalty variant (_backward_kernel's use_penalty: the augmented-
 // Lagrangian quadratics of solver/auglag.py, pcx, pcu, pcxx, pcuu and the
@@ -65,12 +69,13 @@ struct BackwardIO {
   VariantOps<T> var;            // bounds and weights of the variants
 };
 
-template <typename T, bool kBox, bool kW, class M>
-__global__ void __launch_bounds__(kTeamThreads) backward_kernel(Problem<T> P, BackwardIO<T> io) {
+template <typename T, bool kBox, bool kW, class M, class IO = BackwardIO<T>>
+__global__ void __launch_bounds__(kTeamThreads) backward_kernel(Problem<T> P, IO io) {
   Team<T, M> tm;
   if (!team_setup(P, &tm)) return;
   // an inactive lane's team leaves whole, after the block-wide setup
   if (io.active != nullptr && io.active[tm.b] == 0) return;
+  team_set_substeps(tm, io);
   const Problem<T> Ps = smem_problem(P, tm);
   T qutk, ktquuk;
   team_backward<T, kBox, kW>(tm, P, Ps, io.quu_reg, io.x, false, io.x, io.gains, &qutk, &ktquuk,
@@ -84,7 +89,7 @@ __global__ void __launch_bounds__(kTeamThreads) backward_kernel(Problem<T> P, Ba
 
 // the BackwardIO of the packed operands after the Problem block:
 //   ptrs:  q t v u  active  gains red  lo hi w
-//   ints:  s_box s_w
+//   ints:  s_box s_w  (a substepped family's k after them)
 //   reals: quu_reg
 template <typename T>
 BackwardIO<T> backward_io(const void* const* ptrs, const long long* ints, const double* reals) {
@@ -115,7 +120,15 @@ int launch_backward(const void* const* ptrs, const long long* ints, const double
   } else {
     // the other families have no variant instantiation (the host refuses them)
     if (io.var.lo != nullptr || io.var.w != nullptr) return cudaErrorNotSupported;
-    return team_launch(backward_kernel<T, false, false, M>, P.B, bytes, stream, P, io);
+    if constexpr (M::kSub) {
+      WithSubsteps<BackwardIO<T>> sio;
+      const int err = with_substeps<M>(io, ints + kProblemInts, &sio);
+      if (err != 0) return err;
+      return team_launch(backward_kernel<T, false, false, M, WithSubsteps<BackwardIO<T>>>, P.B,
+                         bytes, stream, P, sio);
+    } else {
+      return team_launch(backward_kernel<T, false, false, M>, P.B, bytes, stream, P, io);
+    }
   }
 }
 

@@ -3,9 +3,10 @@
 //
 // Counterpart of quadrotorilqr_tpu/kernels/models.py (the quadrotor, wrench
 // and multirotor LaneModels), kernels/rollout.py (_dynamics_step, _state_minus) and
-// kernels/backward.py (_stage_jx_blocks, _ad_cot_lanes; without the
-// box/weights/drag/substep/penalty options), and the scalar trip logic of
-// solve.py (_trip_close) and fddp.py (the FDDP options). team.cuh builds
+// kernels/backward.py (_stage_jx_blocks with its drag rows, _ad_cot_lanes;
+// the substep chain and the box/weights/penalty options are team.cuh's), and
+// the scalar trip logic of solve.py (_trip_close) and fddp.py (the FDDP
+// options). team.cuh builds
 // every kernel (backward.cu, rollout.cu, solve.cu, fddp.cu, stream.cu,
 // stream_fddp.cu) on these pieces: each lane of a team runs them on
 // identical inputs.
@@ -31,11 +32,17 @@ namespace qilqr {
 // compiled once per family (kernels/_build.py FAMILIES, the macros
 // QILQR_FAMILY_T and QILQR_FAMILY); the host functions carry the family as a template argument,
 // so that the families' objects link into one library.
-template <int NU, int JU_LO, bool WRENCH>
+template <int NU, int JU_LO, bool WRENCH, bool DRAG = false>
 struct ModelFamily {
   static constexpr int kNu = NU;
   static constexpr int kJuLo = JU_LO;
   static constexpr bool kWrench = WRENCH;  // body-wrench control: no moment map
+  // body-frame diagonal velocity drag (models/quadrotor_drag.py): the extra
+  // operand carries [I^-1 MA | drag_lin / m | drag_ang], kExtra columns
+  static constexpr bool kDrag = DRAG;
+  static constexpr int kExtra = NU + (DRAG ? 2 : 0);
+  // one Lie-Euler step a stage (Substepped: k of dt / k)
+  static constexpr bool kSub = false;
   static constexpr int kStage = 13 + NU;   // a trajectory stage: q(4) t(3) v(6) u(NU)
   // a k|K row, k (NU) then K (NU x 12) row-major, padded to whole 16-byte
   // chunks in float32 and float64: 52 values at u = 4, 80 at 6, 104 at 8
@@ -52,6 +59,20 @@ struct Wrench : ModelFamily<6, 6, true> {};
 // the quadrotor and runs its kernels)
 template <int R>
 struct Multirotor : ModelFamily<R, 8, false> {};
+// the quadrotor with body drag (JAX kernels/models.py DRAG_QUADROTOR): the
+// j_x velocity blocks I3 - dt diag(drag_lin / m) and M with the drag_ang term
+struct DragQuadrotor : ModelFamily<4, 8, false, true> {};
+// k Lie-Euler substeps of dt / k a stage (JAX kernels/models.py
+// substepped_lane_model) of the single-step family Base: the kernels read
+// dt / k as the problem's dt, Base's operands at dt / k (j_u the substep's),
+// and k (2 <= k <= kMaxSub) as a kernel argument; the Riccati stage chains
+// the k substeps' j_x blocks, and the dense chained j_u is contracted over
+// all 12 rows (team.cuh team_sub_expansion).
+template <class Base>
+struct Substepped : Base {
+  static constexpr bool kSub = true;
+  static constexpr int kMaxSub = 8;
+};
 
 // The family a kernel source is compiled for: kernels/_build.py FAMILIES
 // defines its type QILQR_FAMILY_T and the suffix QILQR_FAMILY of its C
@@ -158,11 +179,19 @@ __device__ __forceinline__ void state_minus(const T* q1, const T* t1, const T* v
   for (int i = 0; i < 6; ++i) dx[6 + i] = v1[i] - v2[i];
 }
 
+// a * b rounded on its own: never contracted with a following add into a
+// fused multiply-add
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
 // One Lie-Euler step of family M (rollout.py _dynamics_step, JAX
-// kernels/models.py _quadrotor_dynamics_step / _wrench_dynamics_step):
-// updates q, t, v in place. The rotor families: thrust sum(u) / m along body
-// z, angular I^-1 MA u - I^-1 (w x I w). The wrench (kernels/models.py
-// :164-187): linear -g R^T e_z + f / m, angular I^-1 (tau - w x I w).
+// kernels/models.py _quadrotor_dynamics_step / _wrench_dynamics_step /
+// _drag_quadrotor_dynamics_step): updates q, t, v in place; a substepped
+// family's step is one substep. The rotor families: thrust sum(u) / m along
+// body z, angular I^-1 MA u - I^-1 (w x I w). The wrench (kernels/models.py
+// :164-187): linear -g R^T e_z + f / m, angular I^-1 (tau - w x I w). The
+// drag quadrotor (:322-349): linear - dl v_lin, and da w joins w x I w
+// before the I^-1 product; each drag product rounded on its own.
 template <class M, typename T>
 __device__ __forceinline__ void dynamics_step(const Problem<T>& P, int b, T* q, T* t, T* v,
                                               const T* u) {
@@ -194,7 +223,17 @@ __device__ __forceinline__ void dynamics_step(const Problem<T>& P, int b, T* q, 
     T thrust = usum * minv;
     for (int i = 0; i < 3; ++i) acc[i] = -g * rtez[i] + thrust * ez[i];
     T ima[3 * NU], a1[3], a2[3];
-    for (int i = 0; i < 3 * NU; ++i) ima[i] = P.par(P.iinv_ma, i, b);
+    if constexpr (M::kDrag) {
+      constexpr int E = M::kExtra;
+      for (int r = 0; r < 3; ++r) {
+        for (int a = 0; a < NU; ++a) ima[r * NU + a] = P.par(P.iinv_ma, r * E + a, b);
+        const T dl = P.par(P.iinv_ma, r * E + NU, b), da = P.par(P.iinv_ma, r * E + NU + 1, b);
+        acc[r] = acc[r] - mul_rn(dl, v[r]);
+        c[r] = c[r] + mul_rn(da, v[3 + r]);
+      }
+    } else {
+      for (int i = 0; i < 3 * NU; ++i) ima[i] = P.par(P.iinv_ma, i, b);
+    }
     matvec<3, NU>(ima, u, a1);
     matvec<3, 3>(Iinv, c, a2);
     for (int i = 0; i < 3; ++i) acc[3 + i] = a1[i] - a2[i];
@@ -211,17 +250,24 @@ __device__ __forceinline__ void dynamics_step(const Problem<T>& P, int b, T* q, 
 // Nonzero blocks of the discrete dynamics Jacobian (backward.py
 // _stage_jx_blocks):
 //   j_x = [[ P (6x6)     T (6x6)                 ]
-//          [ 0 | G       [[I3, 0], [0, M]]        ]]   (G at rows 6:9, cols 3:6)
+//          [ 0 | G       [[L, 0], [0, M]]         ]]   (G at rows 6:9, cols 3:6)
 // P = Adj(Exp(dt v))^-1, T = dt Jr_SE3(dt v), G = -dt g hat(R^T e_z),
-// M = I3 + dt D, D = -I^-1 (hat(w) I - hat(I w)).
-template <typename T>
+// M = I3 + dt D, D = -I^-1 (hat(w) I - hat(I w)), and L = I3. With drag
+// (kDrag) D = -I^-1 (hat(w) I - hat(I w) + diag(drag_ang)) and L =
+// I3 - dt diag(drag_lin / m), kept as its diagonal l (backward.py l_diag).
+template <typename T, bool kDrag = false>
 struct JxBlocks {
   T P[36], Tm[36], G[9], M[9];
 };
 
 template <typename T>
+struct JxBlocks<T, true> : JxBlocks<T, false> {
+  T L[3];
+};
+
+template <class M, typename T>
 __device__ __forceinline__ void stage_jx_blocks(const Problem<T>& P, int b, const T* q,
-                                                const T* v, JxBlocks<T>& J) {
+                                                const T* v, JxBlocks<T, M::kDrag>& J) {
   const T dt = P.dt;
   const T ez[3] = {T(0), T(0), T(1)};
   T qc[4], rtez[3], h[9];
@@ -241,6 +287,13 @@ __device__ __forceinline__ void stage_jx_blocks(const Problem<T>& P, int b, cons
   matmul<3, 3, 3>(hw, I, inner);
   hat(iom, hi);
   for (int i = 0; i < 9; ++i) inner[i] = inner[i] - hi[i];
+  if constexpr (M::kDrag) {
+    constexpr int E = M::kExtra, NU = M::kNu;
+    for (int r = 0; r < 3; ++r) {
+      inner[r * 4] = inner[r * 4] + P.par(P.iinv_ma, r * E + NU + 1, b);
+      J.L[r] = T(1) - mul_rn(dt, P.par(P.iinv_ma, r * E + NU, b));
+    }
+  }
   matmul<3, 3, 3>(Iinv, inner, d);
   for (int i = 0; i < 9; ++i) J.M[i] = ((i % 4 == 0) ? T(1) : T(0)) + dt * (-d[i]);
   T tau[6], qe[4], te[3], qi[4], ti[3];

@@ -30,8 +30,10 @@
 // J + w_n (dx'Q dx + du'R du).
 //
 // The model families: compiled once per family, as backward.cu, each
-// family's step (quadrotor.cuh dynamics_step) in team_rollout; the wrench
-// and the 6- and 8-rotor multirotors without the variants.
+// family's step (quadrotor.cuh dynamics_step; k of them a stage for a
+// substepped family, team.cuh team_stage_step) in team_rollout; the wrench,
+// the 6- and 8-rotor multirotors, the drag quadrotor and the substepped
+// families without the variants.
 #define QILQR_TEAM_LANES 8  // lanes per scenario (PERF.md section 6)
 #include "team_trip.cuh"
 
@@ -48,12 +50,13 @@ struct RolloutIO {
   VariantOps<T> var;            // bounds and weights of the variants
 };
 
-template <typename T, bool kBox, bool kW, class M>
-__global__ void __launch_bounds__(kTeamThreads) rollout_kernel(Problem<T> P, RolloutIO<T> io) {
+template <typename T, bool kBox, bool kW, class M, class IO = RolloutIO<T>>
+__global__ void __launch_bounds__(kTeamThreads) rollout_kernel(Problem<T> P, IO io) {
   Team<T, M> tm;
   if (!team_setup(P, &tm)) return;
   // an inactive lane's team leaves whole, after the block-wide setup
   if (io.active != nullptr && io.active[tm.b] == 0) return;
+  team_set_substeps(tm, io);
   const T cost =
       team_rollout<T, kBox, kW>(tm, P, io.x, io.out, io.gains, io.alpha[tm.b], true, io.var);
   ring_drain();
@@ -62,7 +65,7 @@ __global__ void __launch_bounds__(kTeamThreads) rollout_kernel(Problem<T> P, Rol
 
 // packed operands after the Problem block:
 //   ptrs: q t v u  gains alpha active  oq ot ov ou cost  lo hi w
-//   ints: s_box s_w
+//   ints: s_box s_w  (a substepped family's k after them)
 template <typename T, class M>
 int launch_rollout(const void* const* ptrs, const long long* ints, const double* reals,
                    void* stream) {
@@ -85,7 +88,15 @@ int launch_rollout(const void* const* ptrs, const long long* ints, const double*
   } else {
     // the other families have no variant instantiation (the host refuses them)
     if (io.var.lo != nullptr || io.var.w != nullptr) return cudaErrorNotSupported;
-    return team_launch(rollout_kernel<T, false, false, M>, P.B, bytes, stream, P, io);
+    if constexpr (M::kSub) {
+      WithSubsteps<RolloutIO<T>> sio;
+      const int err = with_substeps<M>(io, ints + kProblemInts, &sio);
+      if (err != 0) return err;
+      return team_launch(rollout_kernel<T, false, false, M, WithSubsteps<RolloutIO<T>>>, P.B,
+                         bytes, stream, P, sio);
+    } else {
+      return team_launch(rollout_kernel<T, false, false, M>, P.B, bytes, stream, P, io);
+    }
   }
 }
 

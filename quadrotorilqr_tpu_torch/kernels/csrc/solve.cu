@@ -48,8 +48,10 @@
 // The model families (JAX solve.py's lane models, its ju_lo_row): this
 // source is compiled once per family (kernels/_build.py FAMILIES): the
 // quadrotor with every instantiation above, and the wrench
-// (u = 6, j_u rows 6:12) and the 6- and 8-rotor multirotors (j_u rows 8:12),
-// each the instantiation without record, box or weights alone.
+// (u = 6, j_u rows 6:12), the 6- and 8-rotor multirotors (j_u rows 8:12),
+// the drag quadrotor and the substepped quadrotor and drag quadrotor (k
+// substeps a stage, k a kernel argument), each the instantiation without
+// record, box or weights alone.
 #define QILQR_TEAM_LANES 8  // lanes per scenario (PERF.md section 6)
 #include "team_trip.cuh"
 
@@ -72,10 +74,11 @@ struct SolveIO {
   VariantOps<T> var;  // bounds and weights of the variants
 };
 
-template <typename T, bool kRecord, bool kBox, bool kW, class M>
-__global__ void __launch_bounds__(kTeamThreads) solve_kernel(Problem<T> P, SolveIO<T> io) {
+template <typename T, bool kRecord, bool kBox, bool kW, class M, class IO = SolveIO<T>>
+__global__ void __launch_bounds__(kTeamThreads) solve_kernel(Problem<T> P, IO io) {
   Team<T, M> tm;
   if (!team_setup(P, &tm)) return;
+  team_set_substeps(tm, io);
   const Problem<T> Ps = smem_problem(P, tm);
   team_copy_traj(tm, P, io.x0, io.live);
   // the loop never runs: report the initial trajectory's true cost
@@ -131,7 +134,7 @@ __global__ void __launch_bounds__(kTeamThreads) solve_kernel(Problem<T> P, Solve
 // packed operands after the Problem block:
 //   ptrs:  q t v u  oq ot ov ou  cost iters status  gains  bq bt bv bu  hist passes probes
 //          (those three null unless asked for)  lo hi w
-//   ints:  max_iters ls_max_iters  s_box s_w
+//   ints:  max_iters ls_max_iters  s_box s_w  (a substepped family's k after them)
 //   reals: quu_reg rtol atol ls_step ls_frac
 template <typename T, class M>
 int launch_solve(const void* const* ptrs, const long long* ints, const double* reals,
@@ -173,7 +176,15 @@ int launch_solve(const void* const* ptrs, const long long* ints, const double* r
     // the other families have no record or variant instantiation (the host
     // refuses them)
     if (record || io.var.lo != nullptr || io.var.w != nullptr) return cudaErrorNotSupported;
-    return team_launch(solve_kernel<T, false, false, false, M>, P.B, bytes, stream, P, io);
+    if constexpr (M::kSub) {
+      WithSubsteps<SolveIO<T>> sio;
+      const int err = with_substeps<M>(io, ip + 2, &sio);
+      if (err != 0) return err;
+      return team_launch(solve_kernel<T, false, false, false, M, WithSubsteps<SolveIO<T>>>, P.B,
+                         bytes, stream, P, sio);
+    } else {
+      return team_launch(solve_kernel<T, false, false, false, M>, P.B, bytes, stream, P, io);
+    }
   }
 }
 

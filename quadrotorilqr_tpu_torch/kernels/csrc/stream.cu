@@ -39,8 +39,10 @@
 //
 // The model families (JAX stream.py's lane models): compiled once per family
 // (kernels/_build.py FAMILIES), as solve.cu; the batch solver routes a
-// family here past its max_horizon_for(u) stages. The wrench and the 6- and
-// 8-rotor multirotors have the instantiation without box or weights alone.
+// family here past its max_horizon_for(u) stages. The wrench, the 6- and
+// 8-rotor multirotors, the drag quadrotor and the substepped quadrotor and
+// drag quadrotor (k a kernel argument) have the instantiation without box or
+// weights alone.
 #define QILQR_TEAM_LANES 8  // lanes per scenario (PERF.md section 6)
 #include "team_trip.cuh"
 
@@ -62,10 +64,11 @@ struct StreamIO {
   VariantOps<T> var;  // bounds and weights of the variants
 };
 
-template <typename T, bool kBox, bool kW, class M>
-__global__ void __launch_bounds__(kTeamThreads) stream_kernel(Problem<T> P, StreamIO<T> io) {
+template <typename T, bool kBox, bool kW, class M, class IO = StreamIO<T>>
+__global__ void __launch_bounds__(kTeamThreads) stream_kernel(Problem<T> P, IO io) {
   Team<T, M> tm;
   if (!team_setup(P, &tm)) return;
+  team_set_substeps(tm, io);
   const Problem<T> Ps = smem_problem(P, tm);
   const int N = P.N;
   team_copy_traj(tm, P, io.x0, io.live);
@@ -114,7 +117,7 @@ __global__ void __launch_bounds__(kTeamThreads) stream_kernel(Problem<T> P, Stre
 
 // packed operands after the Problem block:
 //   ptrs:  q t v u  oq ot ov ou  cost iters status  gains  passes probes applies  lo hi w
-//   ints:  max_iters ls_max_iters  s_box s_w
+//   ints:  max_iters ls_max_iters  s_box s_w  (a substepped family's k after them)
 //   reals: quu_reg rtol atol ls_step ls_frac
 template <typename T, class M>
 int launch_stream(const void* const* ptrs, const long long* ints, const double* reals,
@@ -151,7 +154,15 @@ int launch_stream(const void* const* ptrs, const long long* ints, const double* 
   } else {
     // the other families have no variant instantiation (the host refuses them)
     if (io.var.lo != nullptr || io.var.w != nullptr) return cudaErrorNotSupported;
-    return team_launch(stream_kernel<T, false, false, M>, P.B, bytes, stream, P, io);
+    if constexpr (M::kSub) {
+      WithSubsteps<StreamIO<T>> sio;
+      const int err = with_substeps<M>(io, ip + 2, &sio);
+      if (err != 0) return err;
+      return team_launch(stream_kernel<T, false, false, M, WithSubsteps<StreamIO<T>>>, P.B, bytes,
+                         stream, P, sio);
+    } else {
+      return team_launch(stream_kernel<T, false, false, M>, P.B, bytes, stream, P, io);
+    }
   }
 }
 

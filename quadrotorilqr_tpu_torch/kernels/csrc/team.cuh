@@ -27,7 +27,9 @@
 //
 // Every piece is generic over the model family M (quadrotor.cuh: the control
 // width M::kNu, the j_u rows M::kJuLo:12 the contractions run over, the
-// dynamics step), carried by the team's type Team<T, M>.
+// dynamics step; with drag the j_x velocity rows scaled by its diagonal; a
+// substepped family's Riccati stage chains its k substeps, team_sub_blocks
+// and team_sub_expansion), carried by the team's type Team<T, M>.
 //
 // Layout of the kernel-private scratch: k|K as (N, B, P) (k first, then K
 // row-major, padded to P = M::kGainsPitch values: 52 for the quadrotor) and
@@ -110,19 +112,33 @@ struct alignas(16) CostConsts {
 template <typename T, class M>
 struct alignas(16) ParConsts {
   T g, minv;
-  T ju[12 * M::kNu];  // (12, u) discrete control Jacobian
-  T ima[3 * M::kNu];  // I^-1 MA (unused by the wrench)
+  T ju[12 * M::kNu];     // (12, u) discrete control Jacobian
+  T ima[3 * M::kExtra];  // I^-1 MA (unused by the wrench), with drag its two columns
   T inertia[9], inertia_inv[9];
+};
+
+// A substepped family's share of the team state (team_sub_expansion): its
+// substep count, the j_x blocks of each substep, two 12 x 12 and two 12 x u
+// buffers for the chained products and two 12-vectors; nothing for the
+// other families.
+template <typename T, class M, bool = M::kSub>
+struct SubState {};
+
+template <typename T, class M>
+struct SubState<T, M, true> {
+  int nsub;
+  JxBlocks<T, M::kDrag> Jk[M::kMaxSub];
+  T X2[144], ja[12 * M::kNu], jb[12 * M::kNu], va[12], vb[12];
 };
 
 // One scenario's shared-memory state.
 template <typename T, class M>
-struct alignas(16) TeamState {
+struct alignas(16) TeamState : SubState<T, M> {
   alignas(16) T ring[kRing][Slot<M>::kSize];
   alignas(16) T gains[M::kGainsPitch];  // this stage's k | K
   alignas(16) T dk[16];                 // this stage's defect (12 used)
   T vxx[144], qxx[144], X[144];
-  JxBlocks<T> J;
+  JxBlocks<T, M::kDrag> J;
   T W[36], qdx[12], c_x[12], q_x[12], v_x[12], quu[M::kNu * M::kNu];
   T vxx_ju[12 * M::kNu], q_xu[12 * M::kNu], quuK[12 * M::kNu];
   T tj[36], m1[36], m2[36], gy[9];  // exact-DDP curvature scratch
@@ -179,11 +195,6 @@ struct VariantOps {
   }
 };
 
-// a * b rounded on its own: never contracted with a following add into a
-// fused multiply-add
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-
 // x scaled by the stage weight w in the weights variant, x itself otherwise.
 // The product is rounded on its own (mul_rn): whether nvcc fuses a weighted
 // product with the add after it depends on the code around an inlined piece,
@@ -220,12 +231,12 @@ __device__ __forceinline__ void load_cost_consts(const Problem<T>& P, CostConsts
   }
 }
 
-// g, minv, j_u, I^-1 MA (not for the wrench, whose pointer is null), I,
-// I^-1 as one run of elements
+// g, minv, j_u, I^-1 MA (not for the wrench, whose pointer is null; with
+// drag its columns), I, I^-1 as one run of elements
 template <typename T, class M>
 __device__ __forceinline__ void load_par_consts(const Problem<T>& P, ParConsts<T, M>* pc, int b,
                                                 int i0, int step) {
-  constexpr int kJu = 2, kIma = kJu + 12 * M::kNu, kI = kIma + (M::kWrench ? 0 : 3 * M::kNu),
+  constexpr int kJu = 2, kIma = kJu + 12 * M::kNu, kI = kIma + (M::kWrench ? 0 : 3 * M::kExtra),
                 kIinv = kI + 9, kEnd = kIinv + 9;
   for (int e = i0; e < kEnd; e += step) {
     T* dst;
@@ -551,10 +562,21 @@ __device__ __forceinline__ void team_each_row(int lane, F&& f) {
 
 // ---- products split over the team by output entries ----
 
+// x itself, or x scaled by the drag's diagonal entry l of the velocity block
+// (rounded on its own)
+template <bool kD, typename T>
+__device__ __forceinline__ T drag_scaled(const JxBlocks<T, kD>& J, T x, int i) {
+  if constexpr (kD) {
+    return mul_rn(x, J.L[i]);
+  } else {
+    return x;
+  }
+}
+
 // entry (r, c) of j_x^T X for a 12 x C X (backward.py _jxt_mat), the
 // nonzero blocks only
-template <int C, typename T>
-__device__ __forceinline__ T jxt_entry(const JxBlocks<T>& J, const T* X, int r, int c) {
+template <int C, typename T, bool kD>
+__device__ __forceinline__ T jxt_entry(const JxBlocks<T, kD>& J, const T* X, int r, int c) {
   T val;
   if (r < 6) {
     val = J.P[r] * X[c];
@@ -571,7 +593,7 @@ __device__ __forceinline__ T jxt_entry(const JxBlocks<T>& J, const T* X, int r, 
 #pragma unroll
     for (int k = 1; k < 6; ++k) val += J.Tm[k * 6 + r - 6] * X[k * C + c];
     if (r < 9) {
-      val = val + X[r * C + c];
+      val = val + drag_scaled(J, X[r * C + c], r - 6);
     } else {
       T mp = J.M[r - 9] * X[9 * C + c];
 #pragma unroll
@@ -584,8 +606,8 @@ __device__ __forceinline__ T jxt_entry(const JxBlocks<T>& J, const T* X, int r, 
 
 // entry (r, c) of X j_x for a 12 x 12 X (backward.py _mat_jx), the nonzero
 // blocks only
-template <typename T>
-__device__ __forceinline__ T matjx_entry(const JxBlocks<T>& J, const T* X, int r, int c) {
+template <typename T, bool kD>
+__device__ __forceinline__ T matjx_entry(const JxBlocks<T, kD>& J, const T* X, int r, int c) {
   const T* x = X + r * 12;
   T val;
   if (c < 6) {
@@ -603,7 +625,7 @@ __device__ __forceinline__ T matjx_entry(const JxBlocks<T>& J, const T* X, int r
 #pragma unroll
     for (int k = 1; k < 6; ++k) val += x[k] * J.Tm[k * 6 + c - 6];
     if (c < 9) {
-      val = val + x[c];
+      val = val + drag_scaled(J, x[c], c - 6);
     } else {
       T mp = x[9] * J.M[c - 9];
 #pragma unroll
@@ -612,6 +634,31 @@ __device__ __forceinline__ T matjx_entry(const JxBlocks<T>& J, const T* X, int r
     }
   }
   return val;
+}
+
+// entry (r, c) of j_x X for a 12 x C X (backward.py _jx_mat: the chained
+// control Jacobian of a substepped stage), the nonzero blocks only
+template <int C, typename T, bool kD>
+__device__ __forceinline__ T jx_entry(const JxBlocks<T, kD>& J, const T* X, int r, int c) {
+  if (r < 6) {
+    T a = J.P[r * 6] * X[c];
+#pragma unroll
+    for (int k = 1; k < 6; ++k) a += J.P[r * 6 + k] * X[k * C + c];
+    T t = J.Tm[r * 6] * X[6 * C + c];
+#pragma unroll
+    for (int k = 1; k < 6; ++k) t += J.Tm[r * 6 + k] * X[(6 + k) * C + c];
+    return a + t;
+  }
+  if (r < 9) {
+    T g = J.G[(r - 6) * 3] * X[3 * C + c];
+#pragma unroll
+    for (int k = 1; k < 3; ++k) g += J.G[(r - 6) * 3 + k] * X[(3 + k) * C + c];
+    return g + drag_scaled(J, X[r * C + c], r - 6);
+  }
+  T m = J.M[(r - 9) * 3] * X[9 * C + c];
+#pragma unroll
+  for (int k = 1; k < 3; ++k) m += J.M[(r - 9) * 3 + k] * X[(9 + k) * C + c];
+  return m;
 }
 
 // x' (A x) for a row-major 12 x 12 A in shared memory: the rows of A x split
@@ -694,11 +741,11 @@ __device__ __noinline__ T team_fddp_stage_cost(const CostConsts<T, M>* cc, const
 // The stage's j_x blocks into shared memory: computed in every lane's
 // registers (stage_jx_blocks scales its Tm in place), then stored by all
 // lanes alike.
-template <typename T>
+template <class M, typename T>
 __device__ __forceinline__ void team_jx_blocks(const Problem<T>& Ps, const T* q, const T* v,
-                                               JxBlocks<T>* out) {
-  JxBlocks<T> J;
-  stage_jx_blocks(Ps, 0, q, v, J);
+                                               JxBlocks<T, M::kDrag>* out) {
+  JxBlocks<T, M::kDrag> J;
+  stage_jx_blocks<M>(Ps, 0, q, v, J);
   *out = J;
 }
 
@@ -1005,6 +1052,133 @@ __device__ __forceinline__ void boxqp_gains(const T* q_uu, const T* q_u, const T
   for (int e = 0; e < 48; ++e) big_k[e] = -sol[e];
 }
 
+// The j_x blocks of a substepped stage's k substeps into S.Jk (backward.py
+// _riccati_stage's substeps chain): the substates rolled from the stage
+// (q, t, v) by the base step at the problem's dt (dt / k), in every lane's
+// registers, each substep's blocks stored by all lanes alike.
+template <typename T, class M>
+__device__ __forceinline__ void team_sub_blocks(const Team<T, M>& tm, const Problem<T>& Ps,
+                                                const T* q, const T* t, const T* v, const T* u) {
+  TeamState<T, M>& S = *tm.s;
+  T sq[4], st[3], sv[6];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) sq[i] = q[i];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) st[i] = t[i];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) sv[i] = v[i];
+  const int k = S.nsub;
+#pragma unroll 1
+  for (int i = 0; i < k; ++i) {
+    team_jx_blocks<M>(Ps, sq, sv, &S.Jk[i]);
+    if (i < k - 1) dynamics_step<M>(Ps, 0, sq, st, sv, u);
+  }
+}
+
+// The Q-expansion of a substepped stage (backward.py _riccati_stage,
+// substeps > 1) from S.c_x, S.qxx = c_xx, c_u, S.v_x, S.vxx and the blocks
+// A_1..A_k in S.Jk: the chained control Jacobian JU = sum_i A_k..A_{i+1} B
+// (B the per-substep j_u), dense, so its contractions run over all 12 rows;
+// j_x^T y = A_1^T (...(A_k^T y)), X j_x = ((X A_k) A_{k-1})...A_1. Writes
+// S.q_x, S.qxx, S.vxx_ju, S.q_xu and S.quu, q_u and q_uu into registers.
+// Each chained product is one team product into a buffer of S, the last
+// straight into its target.
+template <typename T, class M>
+__device__ __forceinline__ void team_sub_expansion(const Team<T, M>& tm, const Tile& tile,
+                                                   T quu_reg, const T* c_u, T* q_u, T* q_uu) {
+  constexpr int NU = M::kNu;
+  TeamState<T, M>& S = *tm.s;
+  const int lane = tm.lane, k = S.nsub;
+  const T* ju = tm.pc->ju;
+  // JU <- ju; JU <- A_i JU + ju for i = 2..k
+  const T* jsrc = ju;
+#pragma unroll 1
+  for (int i = 1; i < k; ++i) {
+    T* dst = (i % 2) ? S.ja : S.jb;
+    team_each<12 * NU>(lane, [&](int e) {
+      dst[e] = jx_entry<NU>(S.Jk[i], jsrc, e / NU, e % NU) + ju[e];
+    });
+    tile.sync();
+    jsrc = dst;
+  }
+  const T* jfull = jsrc;
+  // q_x = c_x + A_1^T (...(A_k^T v_x))
+  const T* vsrc = S.v_x;
+#pragma unroll 1
+  for (int i = k - 1; i > 0; --i) {
+    T* dst = ((k - 1 - i) % 2) ? S.vb : S.va;
+    team_each<12>(lane, [&](int r) { dst[r] = jxt_entry<1>(S.Jk[i], vsrc, r, 0); });
+    tile.sync();
+    vsrc = dst;
+  }
+  team_each<12>(lane, [&](int r) { S.q_x[r] = S.c_x[r] + jxt_entry<1>(S.Jk[0], vsrc, r, 0); });
+  // q_u = c_u + JU^T v_x
+#pragma unroll
+  for (int a = 0; a < NU; ++a) {
+    T acc = jfull[a] * S.v_x[0];
+#pragma unroll
+    for (int r = 1; r < 12; ++r) acc += jfull[r * NU + a] * S.v_x[r];
+    q_u[a] = c_u[a] + acc;
+  }
+  // q_xx = c_xx + j_x^T V_xx j_x: V_xx A_k ... A_1, then A_k^T ... A_1^T
+  const T* xsrc = S.vxx;
+  int flip = 0;
+#pragma unroll 1
+  for (int i = k - 1; i >= 0; --i) {
+    T* dst = (flip++ % 2) ? S.X2 : S.X;
+    team_each_col(lane, [&](int r, int c) { dst[r * 12 + c] = matjx_entry(S.Jk[i], xsrc, r, c); });
+    tile.sync();
+    xsrc = dst;
+  }
+#pragma unroll 1
+  for (int i = k - 1; i > 0; --i) {
+    T* dst = (flip++ % 2) ? S.X2 : S.X;
+    team_each_row(lane, [&](int r, int c) { dst[r * 12 + c] = jxt_entry<12>(S.Jk[i], xsrc, r, c); });
+    tile.sync();
+    xsrc = dst;
+  }
+  team_each_row(lane, [&](int r, int c) {
+    S.qxx[r * 12 + c] = S.qxx[r * 12 + c] + jxt_entry<12>(S.Jk[0], xsrc, r, c);
+  });
+  // V_xx JU (12 x u), all 12 rows of JU
+  team_each<12 * NU>(lane, [&](int e) {
+    const int r = e / NU, c = e % NU;
+    T acc = S.vxx[r * 12] * jfull[c];
+#pragma unroll
+    for (int j = 1; j < 12; ++j) acc += S.vxx[r * 12 + j] * jfull[j * NU + c];
+    S.vxx_ju[e] = acc;
+  });
+  tile.sync();
+  // q_uu = 2R + JU^T V_xx JU + quu_reg I
+#pragma unroll
+  for (int a = 0; a < NU; ++a) {
+#pragma unroll
+    for (int c = 0; c < NU; ++c) {
+      T acc = jfull[a] * S.vxx_ju[c];
+#pragma unroll
+      for (int r = 1; r < 12; ++r) acc += jfull[r * NU + a] * S.vxx_ju[r * NU + c];
+      q_uu[a * NU + c] = (T(2) * tm.cc->R[a * NU + c] + acc) + quu_reg * ((a == c) ? T(1) : T(0));
+    }
+  }
+  // every lane has read JU before its buffers take the chain below
+  tile.sync();
+  // q_xu = j_x^T (V_xx JU) = A_1^T (...(A_k^T V_xx JU))
+  const T* qsrc = S.vxx_ju;
+#pragma unroll 1
+  for (int i = k - 1; i > 0; --i) {
+    T* dst = ((k - 1 - i) % 2) ? S.jb : S.ja;
+    team_each<12 * NU>(lane, [&](int e) { dst[e] = jxt_entry<NU>(S.Jk[i], qsrc, e / NU, e % NU); });
+    tile.sync();
+    qsrc = dst;
+  }
+  team_each<12 * NU>(lane, [&](int e) {
+    S.q_xu[e] = jxt_entry<NU>(S.Jk[0], qsrc, e / NU, e % NU);
+  });
+#pragma unroll
+  for (int i = 0; i < NU * NU; ++i) S.quu[i] = q_uu[i];
+  tile.sync();
+}
+
 // One reverse Riccati stage (backward.py _riccati_stage, the exact path:
 // j_u contracted over its nonzero rows M::kJuLo:12 only, the u x u Cholesky
 // gains plus quu_reg * I, the symmetrized value update) of the live stage in
@@ -1030,6 +1204,8 @@ __device__ __forceinline__ void team_riccati_stage(const Team<T, M>& tm, const P
   static_assert(!kBox || M::kNu == 4, "the box-QP gains are the quadrotor's (u = 4)");
   static_assert(!kPen || (M::kNu == 4 && !kBox && !kDdp),
                 "the penalty variant is the quadrotor's exact stage without the box");
+  static_assert(!M::kSub || !(kBox || kW || kPen || kDdp),
+                "a substepped stage is the exact one without the variants");
   using PR = PenRow<M>;
   // x plus penalty entry i with kPen, x itself otherwise
   const auto pen_add = [&](T x, int i) -> T {
@@ -1045,59 +1221,66 @@ __device__ __forceinline__ void team_riccati_stage(const Team<T, M>& tm, const P
   const int lane = tm.lane;
   T q[4], t[3], v[6], u[NU];
   read_stage<M>(slot + Slot<M>::kLive, q, t, v, u);
-  team_jx_blocks(Ps, q, v, &S.J);
+  if constexpr (M::kSub) {
+    team_sub_blocks(tm, Ps, q, t, v, u);
+  } else {
+    team_jx_blocks<M>(Ps, q, v, &S.J);
+  }
   T c_u[NU];
   const T w = kW ? slot[Slot<M>::kW] : T(1);
   team_cost_diffs<T, kDdp, kW>(tm, tile, slot, q, t, v, u, c_u, w);
 
   // --- Q-expansion ---
-  const T* ju = tm.pc->ju + LO * NU;  // j_u rows LO:12
-  team_each<12>(lane, [&](int r) {
-    S.q_x[r] = pen_add(S.c_x[r], PR::kX + r) + jxt_entry<1>(S.J, S.v_x, r, 0);
-  });
-  T q_u[NU];
+  T q_u[NU], q_uu[NU * NU];
+  if constexpr (M::kSub) {
+    team_sub_expansion(tm, tile, quu_reg, c_u, q_u, q_uu);
+  } else {
+    const T* ju = tm.pc->ju + LO * NU;  // j_u rows LO:12
+    team_each<12>(lane, [&](int r) {
+      S.q_x[r] = pen_add(S.c_x[r], PR::kX + r) + jxt_entry<1>(S.J, S.v_x, r, 0);
+    });
 #pragma unroll
-  for (int a = 0; a < NU; ++a) {
-    T acc = ju[a] * S.v_x[LO];
+    for (int a = 0; a < NU; ++a) {
+      T acc = ju[a] * S.v_x[LO];
 #pragma unroll
-    for (int r = 1; r < NJ; ++r) acc += ju[r * NU + a] * S.v_x[LO + r];
-    q_u[a] = pen_add(c_u[a], PR::kU + a) + acc;
-  }
-  team_each_col(lane, [&](int r, int c) { S.X[r * 12 + c] = matjx_entry(S.J, S.vxx, r, c); });
-  tile.sync();
-  team_each_row(lane, [&](int r, int c) {
-    S.qxx[r * 12 + c] = pen_add(S.qxx[r * 12 + c], PR::kXX + r * 12 + c) +
-                        jxt_entry<12>(S.J, S.X, r, c);
-  });
-  // V_xx[:, LO:12] ju_lo (12 x u)
-  team_each<12 * NU>(lane, [&](int e) {
-    const int r = e / NU, c = e % NU;
-    T acc = S.vxx[r * 12 + LO] * ju[c];
-#pragma unroll
-    for (int k = 1; k < NJ; ++k) acc += S.vxx[r * 12 + LO + k] * ju[k * NU + c];
-    S.vxx_ju[e] = acc;
-  });
-  tile.sync();
-  if constexpr (kDdp) team_add_vfxx(tm, tile, Ps, q, v);
-  T q_uu[NU * NU];
-#pragma unroll
-  for (int a = 0; a < NU; ++a) {
-#pragma unroll
-    for (int c = 0; c < NU; ++c) {
-      T acc = ju[a] * S.vxx_ju[LO * NU + c];
-#pragma unroll
-      for (int r = 1; r < NJ; ++r) acc += ju[r * NU + a] * S.vxx_ju[(LO + r) * NU + c];
-      q_uu[a * NU + c] =
-          (pen_add(weigh<kW>(w, T(2) * tm.cc->R[a * NU + c]), PR::kUU + a * NU + c) + acc) +
-          quu_reg * ((a == c) ? T(1) : T(0));
+      for (int r = 1; r < NJ; ++r) acc += ju[r * NU + a] * S.v_x[LO + r];
+      q_u[a] = pen_add(c_u[a], PR::kU + a) + acc;
     }
-  }
-  team_each<12 * NU>(lane, [&](int e) {
-    S.q_xu[e] = pen_add(jxt_entry<NU>(S.J, S.vxx_ju, e / NU, e % NU), PR::kXU + e);
-  });
+    team_each_col(lane, [&](int r, int c) { S.X[r * 12 + c] = matjx_entry(S.J, S.vxx, r, c); });
+    tile.sync();
+    team_each_row(lane, [&](int r, int c) {
+      S.qxx[r * 12 + c] = pen_add(S.qxx[r * 12 + c], PR::kXX + r * 12 + c) +
+                          jxt_entry<12>(S.J, S.X, r, c);
+    });
+    // V_xx[:, LO:12] ju_lo (12 x u)
+    team_each<12 * NU>(lane, [&](int e) {
+      const int r = e / NU, c = e % NU;
+      T acc = S.vxx[r * 12 + LO] * ju[c];
 #pragma unroll
-  for (int i = 0; i < NU * NU; ++i) S.quu[i] = q_uu[i];
-  tile.sync();
+      for (int k = 1; k < NJ; ++k) acc += S.vxx[r * 12 + LO + k] * ju[k * NU + c];
+      S.vxx_ju[e] = acc;
+    });
+    tile.sync();
+    if constexpr (kDdp) team_add_vfxx(tm, tile, Ps, q, v);
+#pragma unroll
+    for (int a = 0; a < NU; ++a) {
+#pragma unroll
+      for (int c = 0; c < NU; ++c) {
+        T acc = ju[a] * S.vxx_ju[LO * NU + c];
+#pragma unroll
+        for (int r = 1; r < NJ; ++r) acc += ju[r * NU + a] * S.vxx_ju[(LO + r) * NU + c];
+        q_uu[a * NU + c] =
+            (pen_add(weigh<kW>(w, T(2) * tm.cc->R[a * NU + c]), PR::kUU + a * NU + c) + acc) +
+            quu_reg * ((a == c) ? T(1) : T(0));
+      }
+    }
+    team_each<12 * NU>(lane, [&](int e) {
+      S.q_xu[e] = pen_add(jxt_entry<NU>(S.J, S.vxx_ju, e / NU, e % NU), PR::kXU + e);
+    });
+#pragma unroll
+    for (int i = 0; i < NU * NU; ++i) S.quu[i] = q_uu[i];
+    tile.sync();
+  }
 
   // --- gains: [k | K] = -Quu^-1 [Qu | Qxu^T], solved in every lane ---
   T k[NU];
@@ -1214,7 +1397,7 @@ __device__ __forceinline__ void team_model_stage(const Team<T, M>& tm, const Pro
   const Tile tile = team_tile();
   T lq[4], lt[3], lv[6], lu[NU], c_u[NU];
   read_stage<M>(slot + Slot<M>::kLive, lq, lt, lv, lu);
-  team_jx_blocks(Ps, lq, lv, &S.J);
+  team_jx_blocks<M>(Ps, lq, lv, &S.J);
   const T sw = kW ? slot[Slot<M>::kW] : T(1);
   team_cost_diffs<T, kDdp, kW>(tm, tile, slot, lq, lt, lv, lu, c_u, sw);
   const T* g = slot + Slot<M>::kGains;
@@ -1248,6 +1431,48 @@ __device__ __forceinline__ void team_model_stage(const Team<T, M>& tm, const Pro
 #pragma unroll
     for (int a = 1; a < NU; ++a) acc += ju[r * NU + a] * wv[a];
     p2[LO + r] = p2[LO + r] + acc;
+  }
+}
+
+// A substepped family's kernels take their IO with its substep count k
+// (WithSubsteps<IO>, k from the packed ints after the variants'); the team
+// keeps k in its state (team_set_substeps) before its first sweep. The other
+// families' kernels take the IO alone and do nothing here.
+template <class IO>
+struct WithSubsteps : IO {
+  int nsub;
+};
+
+template <typename T, class M, class IO>
+__device__ __forceinline__ void team_set_substeps(const Team<T, M>& tm, const IO& io) {
+  if constexpr (M::kSub) {
+    tm.s->nsub = io.nsub;
+    team_tile().sync();
+  }
+}
+
+// io with the substep count k of the packed ints `sub` (the variant ints
+// s_box s_w, then k), or an error code when k is out of the family's range.
+template <class M, class IO>
+inline int with_substeps(const IO& io, const long long* sub, WithSubsteps<IO>* out) {
+  const long long k = sub[2];
+  if (k < 2 || k > M::kMaxSub) return static_cast<int>(cudaErrorInvalidValue);
+  static_cast<IO&>(*out) = io;
+  out->nsub = static_cast<int>(k);
+  return 0;
+}
+
+// One stage's step of family M: the dynamics step, or k substeps of a
+// substepped family (JAX kernels/models.py substepped_lane_model).
+template <typename T, class M>
+__device__ __forceinline__ void team_stage_step(const Team<T, M>& tm, const Problem<T>& Ps, T* q,
+                                                T* t, T* v, const T* u) {
+  if constexpr (M::kSub) {
+    const int k = tm.s->nsub;
+#pragma unroll 1
+    for (int i = 0; i < k; ++i) dynamics_step<M>(Ps, 0, q, t, v, u);
+  } else {
+    dynamics_step<M>(Ps, 0, q, t, v, u);
   }
 }
 

@@ -118,7 +118,7 @@ __device__ __noinline__ T team_rollout(Team<T, M> tm, Problem<T> P, Traj<T> x, T
       cost = cost + xq + ur;
     }
     if (store) team_store_stage(tm, out, P.B, n, q, t, v, u);
-    dynamics_step<M>(Ps, 0, q, t, v, u);
+    team_stage_step(tm, Ps, q, t, v, u);
     return true;
   });
   return cost;

@@ -21,13 +21,18 @@ Counterpart of `quadrotorilqr_tpu/solver/batched.py`:
     multi-phase solve.
   * Both exact routes take the model families: `model=`, or the family the
     params type names (`solver.ilqr.resolve_model`): the quadrotor, the
-    SE(3) body wrench (u = 6) and the R-rotor multirotor (u = R; the
-    kernels take R = 4, which is the quadrotor's kernels, 6 and 8). Their
+    drag quadrotor, the SE(3) body wrench (u = 6) and the R-rotor
+    multirotor (u = R; the kernels take R = 4, which is the quadrotor's
+    kernels, 6 and 8), and `models.integrators.substepped(model, k)` of the
+    quadrotor or the drag quadrotor (2 <= k <= 8 on the card). Their
     route point to the streamed kernel is the JAX package's for the
-    control width (`stream_horizon`). On the card the wrench and multirotor
-    kernels have no box, weights or record instantiation: those requests
-    raise (ROADMAP Queue 1 item 11c), as do other rotor counts (11d) and
-    the FDDP solvers with such a family (11b).
+    control width (`stream_horizon`). On the card these families' kernels
+    have no box, weights or record instantiation: those requests raise
+    (ROADMAP Queue 1 item 11c), as do other rotor counts (11d), substeps of
+    the wrench and multirotors (11a) and the FDDP solvers with such a
+    family (11b). An `rk4(model)` has no kernels: both routes raise
+    TypeError with it, as the JAX package's `lane_model_for` does; the
+    plain `solver.ilqr.solve` takes it.
   * `solve_batch_fddp` runs the robust FDDP loop in one kernel launch:
     `kernels/fddp.py` up to STREAM_HORIZON_FDDP stages,
     `kernels/stream_fddp.py` past it; with `refine` it goes to
@@ -86,10 +91,11 @@ STREAM_HORIZON = stream_horizon(4)
 STREAM_HORIZON_FDDP = 231
 
 
-def _refuse(continuation, model):
+def _refuse(continuation, model, params):
     check_supported(model)
     if continuation:
         raise NotImplementedError(CONTINUATION_TODO)
+    return lane_model_for(params, model)
 
 
 def solve_batch_fused(
@@ -106,7 +112,7 @@ def solve_batch_fused(
     initial_trajs leaves are (B, N, ...), any N; the model family is the
     params' (or `model=`). With `limits` or stage weights each launch is the
     kernel's box or weights variant."""
-    _refuse(continuation, model)
+    _refuse(continuation, model, params)
     backward, rollout, trajs = per_pass_kernels(
         params, cost, initial_trajs, dt_s, options.quu_reg, limits, model
     )
@@ -144,8 +150,7 @@ def solve_batch_latency(
     package routes it. On the card a wrench or multirotor model has no
     recorded instantiation: `populate_debug` raises with it (ROADMAP Queue 1
     item 11c)."""
-    _refuse(continuation, model)
-    lm = lane_model_for(params, model)
+    lm = _refuse(continuation, model, params)
     streamed = initial_trajs.controls.shape[1] > stream_horizon(lm.u_dim)
     on_card = initial_trajs.controls.device.type != "cpu"
     if options.populate_debug and on_card and lm.suffix != "":

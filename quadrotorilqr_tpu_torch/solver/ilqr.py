@@ -22,9 +22,12 @@ from ..costs import quadratic as qc
 from ..lie import se3
 from ..models import multirotor as mr
 from ..models import quadrotor as qm
+from ..models import quadrotor_drag as qd
 from ..models import se3_wrench as wm
+from ..models.integrators import _RK4, _Substepped
 from ..models.multirotor import MultirotorParams
 from ..models.quadrotor import QuadrotorParams, State
+from ..models.quadrotor_drag import DragQuadrotorParams
 from ..models.se3_wrench import WrenchParams
 from ..ops.linalg import chol_solve_small
 from ..tree import tree_map
@@ -41,17 +44,23 @@ ASSOCIATIVE_TODO = (
     "(ROADMAP Queue 1 item 15, solver/parallel_riccati.py)"
 )
 MODEL_TODO = (
-    "only the quadrotor, SE(3) wrench and multirotor models are ported; drag and substeps "
-    "are not (ROADMAP Queue 1 item 11a, model families)"
+    "only the ported model modules (quadrotor, quadrotor_drag, se3_wrench, multirotor) and "
+    "their substepped(model, k) and rk4(model) wrappers plug in (ROADMAP Queue 1 item 11, "
+    "model families)"
+)
+SUBSTEPS_TODO = (
+    "the CUDA kernels take substeps of the quadrotor and the drag quadrotor, 2 <= k <= 8; "
+    "substeps of the wrench and multirotors, and more substeps, run on the plain loops only "
+    "(ROADMAP Queue 1 item 11a)"
 )
 FAMILY_FDDP_TODO = (
-    "the wrench and multirotor families on the FDDP solvers are not ported yet "
-    "(ROADMAP Queue 1 item 11b)"
+    "the drag, substepped, wrench and multirotor models on the FDDP solvers are not ported "
+    "yet (ROADMAP Queue 1 item 11b)"
 )
 FAMILY_VARIANTS_TODO = (
     "control limits, stage weights, the debug record and the augmented-Lagrangian penalty "
-    "with a wrench or multirotor model are not ported to the CUDA kernels yet "
-    "(ROADMAP Queue 1 item 11c)"
+    "with a drag, substepped, wrench or multirotor model are not ported to the CUDA kernels "
+    "yet (ROADMAP Queue 1 item 11c)"
 )
 PENALTY_LIMITS_TODO = (
     "the augmented-Lagrangian penalty together with control limits is not ported to "
@@ -114,17 +123,21 @@ class SolveResult:
 
 # the ported model modules: the solvers' `model=` (JAX's `template <class
 # ModelT>`), or resolved from the params type
-FAMILIES = (qm, wm, mr)
-_FAMILY_OF_PARAMS = ((QuadrotorParams, qm), (WrenchParams, wm), (MultirotorParams, mr))
+FAMILIES = (qm, qd, wm, mr)
+_FAMILY_OF_PARAMS = ((QuadrotorParams, qm), (DragQuadrotorParams, qd), (WrenchParams, wm),
+                     (MultirotorParams, mr))
 
 
 def resolve_model(params, model=None):
-    """The model module of a solve: `model` when given (one of FAMILIES),
-    else the one the params type names (QuadrotorParams -> quadrotor,
-    WrenchParams -> se3_wrench, MultirotorParams -> multirotor), as the JAX
-    package's `lane_model_for` resolves it."""
+    """The model module of a solve: `model` when given (one of FAMILIES, or
+    a `models.integrators` wrapper of one: `substepped(family, k)`,
+    `rk4(family)`), else the one the params type names (QuadrotorParams ->
+    quadrotor, DragQuadrotorParams -> quadrotor_drag, WrenchParams ->
+    se3_wrench, MultirotorParams -> multirotor), as the JAX package's
+    `lane_model_for` resolves it."""
     if model is not None:
-        if not any(model is f for f in FAMILIES):
+        base = model.base if isinstance(model, (_Substepped, _RK4)) else model
+        if not any(base is f for f in FAMILIES):
             raise NotImplementedError(MODEL_TODO)
         return model
     for cls, module in _FAMILY_OF_PARAMS:
@@ -248,8 +261,9 @@ def forward_sim(params, traj: Trajectory, ks, big_ks, alpha, dt_s, limits=None, 
     With `limits=(lo, hi)` (tensors broadcasting against (..., u)) each u_n
     is clamped into [lo, hi] first (solver/constrained.py)."""
     model = resolve_model(params, model)
-    if model is qm:
-        step = qm.dynamics_step(params, dt_s)
+    hoisted = getattr(model, "dynamics_step", None)
+    if hoisted is not None:
+        step = hoisted(params, dt_s)
     else:
         step = lambda x, u: model.discrete_dynamics(params, x, u, dt_s)  # noqa: E731
     # what does not depend on the carry, for every stage at once: elementwise

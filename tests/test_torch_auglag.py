@@ -18,8 +18,8 @@ three solve programs (lane by lane with `jax.lax.map`, what
 compiled side by side in threads at XLA's backend optimization level 0.
 """
 
+import concurrent.futures
 import dataclasses
-import threading
 
 import jax
 import jax.numpy as jnp
@@ -224,8 +224,9 @@ def problems():
 
 @pytest.fixture(scope="module")
 def jax_refs(problems):
-    """The module's JAX programs, traced one by one and compiled side by
-    side; returns their results as numpy."""
+    """The module's JAX programs, traced one by one, each compiled in a
+    thread as soon as it is traced (beside the later traces); returns their
+    results as numpy."""
     (crossing, _), (rand, _, lam, mu, w) = problems
     robust_lanes = jax.tree.map(lambda a: a[:ROBUST_LANES], crossing[2])
     work = {
@@ -234,18 +235,11 @@ def jax_refs(problems):
         "batch": (_lanes(False), crossing),
         "robust": (_lanes(True), (*crossing[:2], robust_lanes)),
     }
-    lowered = {k: jax.jit(fn).lower(*args) for k, (fn, args) in work.items()}
-    compiled = {}
-
-    def build(name):
-        compiled[name] = lowered[name].compile(XLA_FAST)
-
-    threads = [threading.Thread(target=build, args=(k,)) for k in lowered]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    return {k: jax.tree.map(np.asarray, compiled[k](*work[k][1])) for k in lowered}
+    with concurrent.futures.ThreadPoolExecutor(len(work)) as pool:
+        futures = {k: pool.submit(jax.jit(fn).lower(*args).compile, XLA_FAST)
+                   for k, (fn, args) in work.items()}
+        compiled = {k: f.result() for k, f in futures.items()}
+    return {k: jax.tree.map(np.asarray, compiled[k](*work[k][1])) for k in work}
 
 
 def _np(a):

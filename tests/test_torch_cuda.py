@@ -34,7 +34,13 @@ whole-solve twins, also at 256 stages for stream.cu. Constrained flight:
 backward.cu's augmented-Lagrangian penalty variant (with and without the
 weights) against the plain penalty pass in float64 lane for lane,
 `solve_auglag_batch` on the kernels against its plain route, and the
-penalty requests the kernel refuses.
+penalty requests the kernel refuses. The drag quadrotor and substepped
+integration: the _drag, _sub and _drag_sub instantiations of backward.cu,
+rollout.cu, solve.cu and stream.cu against their plain versions (drag with
+shared and per-scenario coefficients, substepped(quadrotor, k) for k = 2
+and 4, drag with k = 2) on every exact route, zero drag against the
+quadrotor's kernels at the JAX package's bars for it, one substep on the
+quadrotor's own kernels, and the substep counts the kernels refuse.
 
 This file imports no JAX, so the card machine runs it without the JAX
 package's conftest:
@@ -1024,8 +1030,9 @@ def test_cuda_box_weights_twins_bit_equal(card, pair):
 # ---- the wider-control model families: the wrench (u = 6) and the 6- and
 # 8-rotor multirotors on backward.cu, rollout.cu, solve.cu and stream.cu ----
 
-# the C entries' suffixes of the families other than the quadrotor
-FAMILY_SUFFIXES = [sfx for sfx in _build.FAMILIES if sfx]
+# the C entries' suffixes of the wider-control families (the drag and
+# substepped families are held below)
+FAMILY_SUFFIXES = ["_wrench", "_rotor6", "_rotor8"]
 
 
 def family_problem(device, suffix, batch=B, n=N, seed=3, shared=False):
@@ -1284,3 +1291,114 @@ def test_cuda_penalty_refusals(card, request_):
            torch.zeros(4, 5, 12, u, dtype=torch.float64, device="cuda"))
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11c"):
         kb.backward_pass_fused(params, cost, traj, DT, limits=limits, penalty=pen)
+
+
+# ---- the drag quadrotor and substepped integration on backward.cu,
+# rollout.cu, solve.cu and stream.cu ----
+
+# (case, drag coefficients: None, "shared" or "per_scenario", substeps k)
+DRAG_SUB_CASES = [("drag", "shared", 1), ("drag_per_scenario", "per_scenario", 1),
+                  ("sub2", None, 2), ("sub4", None, 4), ("drag_sub2", "per_scenario", 2)]
+
+
+def drag_sub_problem(device, drag, k, batch=B, n=N, seed=5):
+    """The quadrotor problem with the drag coefficients of
+    workloads.DRAG_LIN / DRAG_ANG (shared, or per scenario each scaled by a
+    factor from [0.5, 1.5]), and the model: the drag quadrotor or the
+    quadrotor, substepped k times when k > 1."""
+    from quadrotorilqr_tpu_torch.models import integrators, quadrotor_drag
+    from quadrotorilqr_tpu_torch.models.quadrotor_drag import DragQuadrotorParams
+
+    params, cost, traj = problem(device, batch, n, seed)
+    model = quadrotor
+    if drag is not None:
+        rng = np.random.default_rng(seed + 1)
+        lin = torch.tensor(workloads.DRAG_LIN, dtype=torch.float64, device=device)
+        ang = torch.tensor(workloads.DRAG_ANG, dtype=torch.float64, device=device)
+        leaves = {f.name: getattr(params, f.name) for f in dataclasses.fields(params)}
+        if drag == "per_scenario":
+            lin = lin * torch.tensor(0.5 + rng.uniform(size=(batch, 3)), device=device)
+            ang = ang * torch.tensor(0.5 + rng.uniform(size=(batch, 3)), device=device)
+        else:
+            leaves = {name: a[0] for name, a in leaves.items()}
+        params = DragQuadrotorParams(**leaves, drag_lin=lin, drag_ang=ang)
+        model = quadrotor_drag
+    if k > 1:
+        model = integrators.substepped(model, k)
+    return params, cost, traj, model
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,drag,k", DRAG_SUB_CASES, ids=[c[0] for c in DRAG_SUB_CASES])
+def test_cuda_drag_substeps_match_plain(card, case, drag, k):
+    """Each drag and substepped instantiation of backward.cu, rollout.cu,
+    solve.cu and stream.cu against its plain version, float64 lane for lane,
+    and the per-pass route against the plain loop; the launches run the
+    family's C entries."""
+    params, cost, traj, model = drag_sub_problem("cuda", drag, k)
+    suffix = ("_drag" if drag else "") + ("_sub" if k > 1 else "")
+    wrappers = (kb.backward_pass_fused, kr.rollout_cost_fused, ks.solve_fused_whole,
+                kst.solve_fused_streamed)
+    before = {w: w.launches[suffix] for w in wrappers}
+    got = kb.backward_pass_fused(params, cost, traj, DT, model=model)
+    ref = kb.backward_pass_reference(params, cost, traj, DT, model=model)
+    for g, r in zip(got[:2], ref[:2]):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-9)
+    for g, r in zip(got[2:], ref[2:]):
+        torch.testing.assert_close(g, r, rtol=1e-9, atol=0)
+    alpha = torch.linspace(0.1, 1.0, B, dtype=torch.float64, device="cuda")
+    g_t, g_c = kr.rollout_cost_fused(params, cost, traj, ref[0], ref[1], alpha, DT, model=model)
+    r_t, r_c = kr.rollout_cost_reference(params, cost, traj, ref[0], ref[1], alpha, DT,
+                                         model=model)
+    for g, r in ((g_t.states.pose.quat, r_t.states.pose.quat),
+                 (g_t.states.pose.trans, r_t.states.pose.trans), (g_t.states.vel, r_t.states.vel),
+                 (g_t.controls, r_t.controls)):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-10)
+    torch.testing.assert_close(g_c, r_c, rtol=1e-10, atol=0)
+    whole = ks.solve_whole_reference(params, cost, traj, DT, OPTIONS, model=model)
+    assert_lanes(ks.solve_fused_whole(params, cost, traj, DT, OPTIONS, model=model), whole)
+    assert_lanes(kst.solve_fused_streamed(params, cost, traj, DT, OPTIONS, model=model),
+                 kst.solve_streamed_reference(params, cost, traj, DT, OPTIONS, model=model))
+    loop = solve_batch_fused(params, cost, traj, DT, OPTIONS, model=model)
+    assert_lanes((loop.trajectory, loop.cost, loop.iterations, loop.status), whole)
+    assert all(w.launches[suffix] > n for w, n in before.items())
+
+
+@pytest.mark.cuda
+def test_cuda_zero_drag_and_one_substep_are_the_quadrotor(card):
+    """Zero drag coefficients on the drag kernels give the quadrotor's
+    solve.cu lanes at the JAX package's bars for it
+    (tests/test_quadrotor_drag.py:239-272: statuses equal, cost rtol 1e-12,
+    controls atol 1e-10); substepped(quadrotor, 1) runs the quadrotor's own
+    kernels, bit for bit."""
+    from quadrotorilqr_tpu_torch.models import integrators
+    from quadrotorilqr_tpu_torch.models.quadrotor_drag import DragQuadrotorParams
+
+    params, cost, traj = problem("cuda")
+    zeros = torch.zeros(B, 3, dtype=torch.float64, device="cuda")
+    zero = DragQuadrotorParams(**{f.name: getattr(params, f.name)
+                                  for f in dataclasses.fields(params)},
+                               drag_lin=zeros, drag_ang=zeros)
+    a = ks.solve_fused_whole(zero, cost, traj, DT, OPTIONS)
+    b = ks.solve_fused_whole(params, cost, traj, DT, OPTIONS)
+    assert torch.equal(a[3], b[3])
+    torch.testing.assert_close(a[1], b[1], rtol=1e-12, atol=0)
+    torch.testing.assert_close(a[0].controls, b[0].controls, rtol=0, atol=1e-10)
+    ks.solve_fused_whole.launches.clear()
+    one = solve_batch_latency(params, cost, traj, DT, OPTIONS,
+                              model=integrators.substepped(quadrotor, 1))
+    assert dict(ks.solve_fused_whole.launches) == {"": 1}
+    assert bit_equal(one, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [9, 16])
+def test_cuda_substeps_past_the_kernels_raise(card, k):
+    """More than 8 substeps a stage: the launch raises naming ROADMAP item
+    11a, never the plain loop."""
+    from quadrotorilqr_tpu_torch.models import integrators
+
+    params, cost, traj = problem("cuda", batch=4, n=5)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11a"):
+        solve_batch_latency(params, cost, traj, DT, OPTIONS,
+                            model=integrators.substepped(quadrotor, k))

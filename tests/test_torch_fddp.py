@@ -13,9 +13,9 @@ line search on the kernel wrapper; and the API's `solver="fddp"` routes. No
 JAX call here runs in interpret mode.
 """
 
+import concurrent.futures
 import dataclasses
 import functools
-import threading
 
 import jax
 import jax.numpy as jnp
@@ -136,22 +136,14 @@ XLA_FAST = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_pas
 
 def jax_lanes(solves, trajs):
     """{key: solve(t) for every lane t of trajs} for a dict of solves:
-    `jax.lax.map` over the lanes, each program traced in turn and all
-    compiled side by side in threads, at XLA's backend optimization level 0
-    and without LLVM's expensive passes."""
-    lowered = {k: jax.jit(lambda ts, f=f: jax.lax.map(f, ts)).lower(trajs)
-               for k, f in solves.items()}
-    compiled = {}
-
-    def build(k):
-        compiled[k] = lowered[k].compile(XLA_FAST)
-
-    threads = [threading.Thread(target=build, args=(k,)) for k in lowered]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    return {k: fn(trajs) for k, fn in compiled.items()}
+    `jax.lax.map` over the lanes, each program traced in turn and compiled
+    in a thread as soon as it is traced (beside the later traces), at XLA's
+    backend optimization level 0 and without LLVM's expensive passes."""
+    with concurrent.futures.ThreadPoolExecutor(len(solves)) as pool:
+        futures = {k: pool.submit(jax.jit(lambda ts, f=f: jax.lax.map(f, ts)).lower(trajs).compile,
+                                  XLA_FAST)
+                   for k, f in solves.items()}
+        return {k: f.result()(trajs) for k, f in futures.items()}
 
 
 # ---- curvature helpers and per-stage costs ----

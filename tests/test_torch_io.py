@@ -13,6 +13,7 @@ count). The trajectory helpers, `line_search`, the demo driver's helpers,
 and the FDDP solvers' refusal of the debug record.
 """
 
+import concurrent.futures
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -147,6 +148,18 @@ def demo_options(module, populate_debug=True):
 def config1():
     """BASELINE config 1 solved once by each side: the port through
     `solve(proto)` (constructed from protos), JAX through `solve_pytree`."""
+    j_desired = j_wl.demo_desired_trajectory(DEMO_DT)
+    jq, jr = j_wl.demo_weights()
+    j_api = JQuadrotorILQR(1.0, np.eye(3), 1.0, 0.0, 9.81, jq, jr, j_desired, DEMO_DT,
+                           demo_options(j_options))
+    # JAX's solve compiled at XLA's backend optimization level 0 without
+    # LLVM's expensive passes (IEEE float64 all the same, in less compile
+    # time), in a thread beside the port's solve (XLA's compiler releases
+    # the GIL)
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    j_solve = pool.submit(jax.jit(j_api.solve_pytree).lower(j_desired).compile,
+                          {"xla_backend_optimization_level": 0,
+                           "xla_llvm_disable_expensive_passes": True})
     desired = p_wl.demo_desired_trajectory(DEMO_DT)
     q, r = p_wl.demo_weights()
     p_api = QuadrotorILQR(
@@ -157,15 +170,9 @@ def config1():
     solve_pytree = p_api.solve_pytree
     p_api.solve_pytree = lambda t: results.append(solve_pytree(t)) or results[-1]
     traj_msg, debug_msg = p_api.solve(pio.trajectory_to_proto(desired))
-    j_desired = j_wl.demo_desired_trajectory(DEMO_DT)
-    jq, jr = j_wl.demo_weights()
-    j_api = JQuadrotorILQR(1.0, np.eye(3), 1.0, 0.0, 9.81, jq, jr, j_desired, DEMO_DT,
-                           demo_options(j_options))
-    # JAX's solve compiled at XLA's backend optimization level 0 without
-    # LLVM's expensive passes: IEEE float64 all the same, in less compile time
-    j_solve = jax.jit(j_api.solve_pytree).lower(j_desired).compile(
-        {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True})
-    return traj_msg, debug_msg, results[0], j_solve(j_desired), desired
+    ref = j_solve.result()(j_desired)
+    pool.shutdown()
+    return traj_msg, debug_msg, results[0], ref, desired
 
 
 def test_config1_solve_matches_jax(config1):

@@ -64,14 +64,16 @@ FAMILIES = ("wrench", "hexarotor")
 
 
 def _compiled(programs):
-    """{name: (fn, args)} -> {name: fn compiled}: traced one by one, then
-    compiled by XLA side by side in threads (XLA's compiler releases the
-    GIL), at backend optimization level 0 and without LLVM's expensive
+    """{name: (fn, args)} -> {name: fn compiled}: traced one by one, each
+    handed to XLA's compiler in a thread as soon as it is traced (XLA's
+    compiler releases the GIL, so the compiles run beside the later
+    traces), at backend optimization level 0 and without LLVM's expensive
     passes: IEEE float64 all the same, in less compile time."""
-    lowered = {name: jax.jit(fn).lower(*args) for name, (fn, args) in programs.items()}
     flags = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
-    with concurrent.futures.ThreadPoolExecutor(len(lowered)) as pool:
-        return dict(zip(lowered, pool.map(lambda lo: lo.compile(flags), lowered.values())))
+    with concurrent.futures.ThreadPoolExecutor(len(programs)) as pool:
+        futures = {name: pool.submit(jax.jit(fn).lower(*args).compile, flags)
+                   for name, (fn, args) in programs.items()}
+        return {name: f.result() for name, f in futures.items()}
 
 
 def _airframe(n_rotors):

@@ -1,10 +1,14 @@
 """The port's slice end to end against the JAX package, f64 on the CPU.
 
 The port's `solver.batched.solve_batch_latency` / `solve_batch_fused` (on CPU
-tensors the kernel wrappers run their plain versions) against the JAX
-engines in interpret mode, at B=8 (JAX pads to 128 lanes) and N=8, with
-shared and per-scenario params, `solve_batch_latency` with the debug
-record (its CostHistory); the port's `QuadrotorILQR` against the JAX class,
+tensors the kernel wrappers run their plain versions) against JAX's XLA
+`solve` lane by lane (`jax.lax.map`; the JAX package holds its engines in
+interpret mode equal to it lane for lane, with the debug record too:
+tests/test_solve_fused.py:18, :115, :174, tests/test_solve_latency.py:219),
+one program compiled at XLA's backend optimization level 0 for every case,
+at B=8 and N=8, with shared and per-scenario params, `solve_batch_latency`
+with the debug record (its CostHistory: the costs and valid slots of JAX's
+IterDebug); the port's `QuadrotorILQR` against the JAX class,
 with `populate_debug` on every route (the IterDebug buffers, or a
 CostHistory's costs and valid slots, against the JAX class's IterDebug);
 and the port's import hygiene, also without protobuf. Tolerances as
@@ -18,13 +22,13 @@ import subprocess
 import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from quadrotorilqr_tpu.api import QuadrotorILQR as JQuadrotorILQR
-from quadrotorilqr_tpu.solver.batched import solve_batch_fused as j_solve_batch_fused
-from quadrotorilqr_tpu.solver.batched import solve_batch_latency as j_solve_batch_latency
+from quadrotorilqr_tpu.solver import ilqr as j_ilqr
 from quadrotorilqr_tpu_torch import convert
 from quadrotorilqr_tpu_torch.api import QuadrotorILQR
 from quadrotorilqr_tpu_torch.kernels import stream as p_stream
@@ -64,24 +68,49 @@ def assert_same_debug(port, ref):
             np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-7)
 
 
+XLA_FAST = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
+@pytest.fixture(scope="module")
+def xla_solve():
+    """JAX's XLA `solve` with the debug record over (params, cost, traj),
+    lane by lane over per-lane params (shared ones broadcast, so that one
+    program serves every case of this module), compiled once."""
+    jobjs = jax_objects(np_problem(20, B, N, False, True))
+    j_opts = debug_opts()[0]
+
+    def lanes(params, cost, traj):
+        return jax.lax.map(lambda a: j_ilqr.solve(a[0], cost, a[1], DT, j_opts), (params, traj))
+
+    compiled = jax.jit(lanes).lower(*jobjs).compile(XLA_FAST)
+
+    def solve(params, cost, traj):
+        if jnp.ndim(params.mass_kg) == 0:
+            params = jax.tree.map(lambda a: jnp.broadcast_to(a, (B,) + a.shape), params)
+        return compiled(params, cost, traj)
+
+    return solve
+
+
 @pytest.mark.parametrize("per_scenario_params", [False, True], ids=["shared", "per_scenario"])
-def test_solve_batch_latency_matches_jax(per_scenario_params):
-    """With the debug record: both record the whole-solve kernel's cost
-    history (a CostHistory), the port's from the kernel's plain version."""
+def test_solve_batch_latency_matches_jax(xla_solve, per_scenario_params):
+    """With the debug record: the port records the whole-solve kernel's cost
+    history (a CostHistory, from the kernel's plain version), the costs and
+    valid slots of JAX's IterDebug."""
     jobjs = jax_objects(np_problem(20, B, N, False, per_scenario_params))
-    j_opts, p_opts = debug_opts()
-    ref = j_solve_batch_latency(*jobjs, DT, j_opts, interpret=True)
+    _, p_opts = debug_opts()
+    ref = xla_solve(*jobjs)
     got = p_batched.solve_batch_latency(*port_objects(jobjs), DT, p_opts)
     assert_same_solution(as_tuple(got), as_tuple(ref))
-    assert type(got.debug).__name__ == type(ref.debug).__name__ == "CostHistory"
+    assert type(got.debug).__name__ == "CostHistory"
     assert_same_debug(got.debug, ref.debug)
     assert int(got.debug.valid.sum()) == int(got.iterations.sum()) > B
 
 
-def test_solve_batch_fused_matches_jax():
+def test_solve_batch_fused_matches_jax(xla_solve):
     jobjs = jax_objects(np_problem(21, B, N, False))
-    j_opts, p_opts = options_pair()
-    ref = j_solve_batch_fused(*jobjs, DT, j_opts, interpret=True)
+    _, p_opts = options_pair()
+    ref = xla_solve(*jobjs)
     got = p_batched.solve_batch_fused(*port_objects(jobjs), DT, p_opts)
     assert_same_solution(as_tuple(got), as_tuple(ref))
 
@@ -128,9 +157,13 @@ def _api_pair(seed):
 
 
 @pytest.fixture(scope="module")
-def api_pair():
+def api_pair(xla_solve):
+    """The two classes on one problem, and the reference of the port's
+    batch routes: the JAX class's float64 batch solve as its `solve_batch`
+    runs it (JAX's `solve` on each lane, with the class's params, cost and
+    options; `xla_solve`)."""
     j_api, p_api, j_trajs = _api_pair(23)
-    return p_api, j_trajs, j_api.solve_batch(j_trajs), j_api
+    return p_api, j_trajs, xla_solve(j_api.params, j_api.cost, j_trajs), j_api
 
 
 @pytest.mark.parametrize(
@@ -138,8 +171,8 @@ def api_pair():
 )
 def test_api_solve_batch_matches_jax(api_pair, route):
     """Every route with `populate_debug` against the JAX class's float64
-    batch (vmapped single solves, an IterDebug): the batch loops carry the
-    IterDebug buffers, the whole-solve route its costs and valid slots."""
+    batch (single solves lane by lane, an IterDebug): the batch loops carry
+    the IterDebug buffers, the whole-solve route its costs and valid slots."""
     p_api, j_trajs, ref, _ = api_pair
     got = p_api.solve_batch(
         convert.trajectory_from_numpy(jax.tree.map(np.asarray, j_trajs)), **route
@@ -163,7 +196,9 @@ def test_streamed_reference_matches_jax(api_pair):
 def test_api_solve_pytree_matches_jax(api_pair):
     p_api, j_trajs, _, j_api = api_pair
     one = jax.tree.map(lambda a: a[0], j_trajs)
-    ref = j_api.solve_pytree(one)
+    # the JAX class's solve_pytree, compiled at XLA's backend optimization
+    # level 0 (IEEE float64 all the same, in less compile time)
+    ref = jax.jit(j_api.solve_pytree).lower(one).compile(XLA_FAST)(one)
     got = p_api.solve_pytree(convert.trajectory_from_numpy(jax.tree.map(np.asarray, one)))
     assert_same_solution(as_tuple(got), as_tuple(ref))
     assert_same_debug(got.debug, ref.debug)

@@ -24,9 +24,9 @@ each lane with the weights alone as well (the class's case). No JAX call
 here runs in interpret mode.
 """
 
+import concurrent.futures
 import dataclasses
 import functools
-import threading
 
 import jax
 import jax.numpy as jnp
@@ -143,8 +143,8 @@ def _jax_state(s):
 
 @pytest.fixture(scope="module")
 def jax_refs(problem):
-    """The module's JAX programs, traced one by one and compiled side by
-    side: solve_fddp on every lane with bounds and weights (Gauss-Newton,
+    """The module's JAX programs, traced one by one, each compiled in a
+    thread as soon as it is traced: solve_fddp on every lane with bounds and weights (Gauss-Newton,
     whose program takes the problem as operands and also solves every lane
     with the weights alone and evaluates the weighted exact c_xx, and exact
     DDP), and JAX's run_mpc with
@@ -154,8 +154,11 @@ def jax_refs(problem):
     (params, cost, trajs), _, bw = problem
     lo, hi, w = (jnp.asarray(a) for a in bw)
     gn_args = (params, cost, trajs, lo, hi, w)
-    lowered = {"gn": jax.jit(_gauss_newton).lower(*gn_args),
-               "ddp": jax.jit(_lanes_fddp(True)).lower(*gn_args)}
+    opts = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+    # each program compiled in a thread as soon as it is traced
+    pool = concurrent.futures.ThreadPoolExecutor(3)
+    futures = {k: pool.submit(jax.jit(fn).lower(*gn_args).compile, opts)
+               for k, fn in (("gn", _gauss_newton), ("ddp", _lanes_fddp(True)))}
     shapes = jax.eval_shape(_gauss_newton, *gn_args)
     compiled = {}
 
@@ -181,20 +184,11 @@ def jax_refs(problem):
                 tuple(jnp.full(4, b) for b in MPC_LIMITS))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(j_batched, "solve_batch_fddp", lanes_solve_fddp)
-        lowered["mpc"] = jax.jit(
+        futures["mpc"] = pool.submit(jax.jit(
             lambda *args: run(*args[:5], stage_weights=args[5], limits=args[6])
-        ).lower(*mpc_args)
-
-    opts = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
-
-    def build(name):
-        compiled[name] = lowered[name].compile(opts)
-
-    threads = [threading.Thread(target=build, args=(k,)) for k in lowered]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
+        ).lower(*mpc_args).compile, opts)
+    compiled.update({k: f.result() for k, f in futures.items()})
+    pool.shutdown()
     out = {k: compiled[k](*gn_args) for k in ("gn", "ddp")}
     out["gn"], out["weights"], out["cxx"] = out["gn"]
     out["mpc"] = jax.tree.map(np.asarray, compiled["mpc"](*mpc_args))
